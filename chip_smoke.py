@@ -10,29 +10,46 @@ Phases, in order; any failure exits non-zero:
    1e6 rung's shapes (C = 2^21 arena rows, S = 1,032,768 spawns), both row
    layouts, plus the empty-spawn, empty-arena and overflow cases;
 4. kernel B (comp_sub emission) against its plain version at the A+B stage's
-   shapes (N = 2^21, K = 28) and level E's (N = 1,032,768, K = 7), with
+   shapes (N = 2^21, K = 28) and level E's (N = 1,032,768, K = 7) over the
+   dense row source, and at the C+D stage's (N = 1,032,768 parents, E = 14,
+   V = 21, with and without the kill mask) over the factored source, with
    weighted and uniform parents, a few heavy ones among them so that every
    case emits kept subs;
 5. kernel C (multi-row merge) against its plain version at the subspace
    path's shapes (C = 2^20 arena rows, R = 2 value rows, S = 600,000
    spawns), at R = 14, and in the empty-spawn, empty-arena and overflow
    cases;
-6. the frisys main path: ``drivers.frisys.build`` on the synthetic
+6. kernel #6 (the probe relayout, ``fries_tpu_torch.probe_reshape``)
+   against its plain version on a random tile, then its entry point
+   (``probe_reshape.main``, the port of ``tools/probe_reshape.py``) with its
+   count reset just before;
+7. the frisys main path: ``drivers.frisys.build`` on the synthetic
    N2/cc-pVDZ-sized system, first a small system stepped on the card and on
    the CPU from the same state, then the 1e6 rung of
    ``fries_tpu_torch.rung`` (2 warm-up + 5 timed steps) with the kernel
    launch counters reset just before the timed steps; afterwards the longest
    run of equal keys in one step's spawn stream (the merge kernel sums each
    run in one thread) is logged;
-7. the subspace path: ``drivers.subspace.build``, first a small system
+8. the subspace path: ``drivers.subspace.build``, first a small system
    stepped on the card and on the CPU from the same state with the same key
    tree across a restart and a norm-factor update, then bench.py's subsp
    configuration (``fries_tpu_torch.rung.subspace_config``: the synthetic
    Ne/aug-cc-pVDZ-sized system, 2 states; 2 warm-up + 5 timed steps, the
-   counters reset just before the timed steps).
+   counters reset just before the timed steps);
+9. the timings: each kernel's wrapper and its plain version on the inputs of
+   its check at the main path's shapes (the same seeds), last, since the
+   profiler that reads device times slows every later launch of the process.
 
 Prints one JSON line of per-kernel results before the last line, and as the
-last line ``{"ok": true, "device": {...}}``.  Usage: ``python3 chip_smoke.py``.
+last line ``{"ok": true, "device": {...}}``.  Each kernel's ``bound_ms`` is
+the larger of its bytes (each input read once, each output written once, as
+this run's data needs them) over 3.35 TB/s and its f32 operations over 67
+TFLOP/s (the H100 SXM's published peaks).  ``ms``, ``plain_ms`` and
+``library_ms`` are the time between two CUDA events around one call, the
+host's work included; ``device_ms`` and ``plain_device_ms`` the device time
+of one call, from a profiler trace.  Kernel B's entry sums its three
+launches of one frisys step (A+B, C+D, E); its ``shapes`` break that down.
+Usage: ``python3 chip_smoke.py``.
 """
 
 import json
@@ -41,6 +58,8 @@ import sys
 import time
 
 N_WARM, N_TIMED = 2, 5
+HBM_BYTES_PER_S = 3.35e12    # H100 SXM: device memory rate
+F32_OPS_PER_S = 67e12        # H100 SXM: f32 outside the tensor cores
 
 
 def log(*args):
@@ -48,7 +67,8 @@ def log(*args):
 
 
 def cuda_ms(fn, reps=5):
-    """Median milliseconds of ``fn()`` over ``reps`` runs after one warm-up."""
+    """Median milliseconds of ``fn()`` between two CUDA events over ``reps``
+    runs after one warm-up (the host's work in the call included)."""
     import torch
 
     fn()
@@ -61,6 +81,34 @@ def cuda_ms(fn, reps=5):
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return sorted(times)[len(times) // 2]
+
+
+def device_ms(fn, reps=5):
+    """Device milliseconds of one ``fn()``: the union of its kernels' and
+    copies' intervals in a ``torch.profiler`` trace of ``reps`` runs after one
+    warm-up, divided by ``reps`` (the host's work in the call left out)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from fries_tpu_torch import _build, profile_step
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    path = _build.BUILD_DIR / "chip_smoke_trace.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(path))
+    return profile_step.trace_device_activity(path, reps, set())[0]
+
+
+def bound(n_bytes, n_ops=0):
+    """The least time the card could take: bytes over the memory rate or
+    f32 operations over the peak rate, whichever is larger."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / F32_OPS_PER_S
+    return {"bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
 # ---------------------------------------------------------------------------
@@ -116,40 +164,57 @@ def compare_merges(label, kernel_out, plain_out):
             "n_out": int(got.n_used[0]), "overflow": bool(gs["overflow"])}
 
 
-def check_merge(label, a, sk, sv, si, layout, keep, timed=False):
+def with_rows(a, n_vecs):
+    """``a`` with its value row 0 alone (``n_vecs`` 1) or followed by a zero
+    row (2)."""
     import torch
     from fries_tpu_torch.runtime import arena as ar
+
+    vals = (a.vals[:1].contiguous() if n_vecs == 1 else
+            torch.stack([a.vals[0], torch.zeros_like(a.vals[0])]))
+    return ar.Arena(keys=a.keys, vals=vals, n_used=a.n_used)
+
+
+def merge_bound(a, spawns, keep=None):
+    """A merge's bound: the arena's keys and values up to ``n_used`` (and
+    the keep mask's rows there) and the ``spawns`` tensors in, the arena at
+    full capacity out."""
+    n_used, cap = int(a.n_used[0]), a.keys.shape[0]
+    row = a.keys.nbytes // cap + a.vals.nbytes // cap
+    return bound(row * (n_used + cap) + sum(t.nbytes for t in spawns)
+                 + (0 if keep is None else n_used * keep.element_size()))
+
+
+def rung_merge_case(gen, dev):
+    """Kernel A's case at the 1e6 rung's shapes: (arena, spawn keys, values,
+    initiator flags, keep mask)."""
+    from fries_tpu_torch import rung
+
+    return merge_inputs(gen, dev, rung.CAPACITY, rung.N_SAMP, rung.SPAWN_CAP,
+                        rung.N_SAMP * 8 // 5)
+
+
+def check_merge(label, a, sk, sv, si, layout, keep):
     from fries_tpu_torch.runtime import merge
 
     n_vecs, origin, dest = layout
-    if n_vecs == 1:
-        a = ar.Arena(keys=a.keys, vals=a.vals[:1].contiguous(), n_used=a.n_used)
-    else:
-        a = ar.Arena(keys=a.keys, vals=torch.stack([a.vals[0], torch.zeros_like(a.vals[0])]),
-                     n_used=a.n_used)
+    a = with_rows(a, n_vecs)
     out = compare_merges(f"merge {label}",
                          merge.accumulate(a, sk, sv, si, origin, dest, keep_mask=keep),
                          merge.accumulate_plain(a, sk, sv, si, origin, dest, keep))
-    if timed:
-        out["ms"] = cuda_ms(lambda: merge.accumulate(a, sk, sv, si, origin, dest,
-                                                     keep_mask=keep))
-        out["plain_ms"] = cuda_ms(lambda: merge.accumulate_plain(
-            a, sk, sv, si, origin, dest, keep))
     log(f"merge {label}: agrees ({json.dumps(out)})")
     return out
 
 
 def phase_merge(dev):
+    """Kernel A's cases; returns the rung case's check."""
     import torch
-    from fries_tpu_torch import rung
     from fries_tpu_torch.runtime import arena as ar
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
-    a, sk, sv, si, keep = merge_inputs(gen, dev, rung.CAPACITY, rung.N_SAMP,
-                                       rung.SPAWN_CAP, rung.N_SAMP * 8 // 5)
-    res = check_merge("rung layout (2,0,1) + keep_mask", a, sk, sv, si, (2, 0, 1),
-                      keep, timed=True)
+    a, sk, sv, si, keep = rung_merge_case(gen, dev)
+    res = check_merge("rung layout (2,0,1) + keep_mask", a, sk, sv, si, (2, 0, 1), keep)
     check_merge("rung layout (1,0,0)", a, sk, sv, si, (1, 0, 0), None)
     for w in (1, 2):
         a, sk, sv, si, keep = merge_inputs(gen, dev, 1024, 400, 700, 800, n_words=w)
@@ -188,32 +253,36 @@ def multi_inputs(gen, dev, capacity, n_occ, n_spawn, n_universe, n_rows, **kw):
     return ar.Arena(keys=a.keys, vals=vals, n_used=a.n_used), sk, sv, sr, si
 
 
-def check_merge_multi(label, a, sk, sv, sr, si, timed=False):
+def subspace_multi_case(gen, dev):
+    """Kernel C's case at the subspace path's shapes: (label, arena, spawn
+    keys, values, destination rows, initiator flags)."""
+    from fries_tpu_torch import rung
+
+    cfg = rung.subspace_config()
+    s = cfg.n_trial * cfg.spawn_cap
+    return (f"subspace shapes (C={cfg.capacity}, R={cfg.n_trial}, S={s})",
+            *multi_inputs(gen, dev, cfg.capacity, 2 * cfg.vec_nonz, s, 4 * cfg.vec_nonz,
+                          cfg.n_trial))
+
+
+def check_merge_multi(label, a, sk, sv, sr, si):
     from fries_tpu_torch.runtime import arena as ar
     from fries_tpu_torch.runtime import merge_multi
 
     out = compare_merges(f"merge_multi {label}", merge_multi.accumulate(a, sk, sv, sr, si),
                          ar.accumulate_multi(a, sk, sv, sr, si))
-    if timed:
-        out["ms"] = cuda_ms(lambda: merge_multi.accumulate(a, sk, sv, sr, si))
-        out["plain_ms"] = cuda_ms(lambda: ar.accumulate_multi(a, sk, sv, sr, si))
     log(f"merge_multi {label}: agrees ({json.dumps(out)})")
     return out
 
 
 def phase_merge_multi(dev):
+    """Kernel C's cases; returns the subspace case's check."""
     import torch
-    from fries_tpu_torch import rung
     from fries_tpu_torch.runtime import arena as ar
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(3)
-    cfg = rung.subspace_config()
-    s = cfg.n_trial * cfg.spawn_cap
-    res = check_merge_multi(
-        f"subspace shapes (C={cfg.capacity}, R={cfg.n_trial}, S={s})",
-        *multi_inputs(gen, dev, cfg.capacity, 2 * cfg.vec_nonz, s, 4 * cfg.vec_nonz,
-                      cfg.n_trial), timed=True)
+    res = check_merge_multi(*subspace_multi_case(gen, dev))
     check_merge_multi("R=14 (C=2^16, S=100,000)",
                       *multi_inputs(gen, dev, 1 << 16, 20000, 100000, 40000, 14))
     for w in (1, 2):
@@ -260,12 +329,73 @@ def emission_plan(gen, dev, n, k, n_samp, out_size, uniform_frac,
     return plan
 
 
-def check_emit(label, plan, timed=False):
+def factored_plan(gen, dev, n, e_k, v_k, n_samp, out_size, uniform_frac, kill,
+                  heavy_frac=1e-3, heavy=1000.0):
+    """comp_sub_factored's plan over random parents (heavy ones among them,
+    as in :func:`emission_plan`) and f32 factor rows, chunked over rows as
+    the frisys driver chunks it."""
     import torch
+    from fries_tpu_torch import compress
+
+    r = lambda *s: torch.rand(*s, generator=gen, device=dev, dtype=torch.float64)
+    values = torch.where(r(n) < 0.8, -torch.log(r(n)), 0.0)
+    values = torch.where(r(n) < heavy_frac, heavy * values, values)
+    fa = r(n, e_k) * (r(n, e_k) < 0.8) + 1e-6
+    fb = r(n, v_k) + 1e-3
+    ndiv = torch.where(r(n) < uniform_frac,
+                       torch.randint(1, 17, (n,), generator=gen, device=dev), 0)
+    plan, _ = compress.comp_sub_factored_plan(
+        values, ndiv, (fa / fa.sum(1, keepdim=True)).float(),
+        (fb / fb.sum(1, keepdim=True)).float(), n_samp, float(r(())), out_size,
+        kill_b0=(r(n, e_k) < 0.4) if kill else None, row_chunk=1 << 18)
+    return plan
+
+
+def emit_bound(plan, parent, sub):
+    """Kernel B's bound on this run's data (``parent`` and ``sub``: its
+    output): offsets for every parent; for each parent with a slot its other
+    scalars (25 B weighted: kept_counts, g_start, uniform, cum_parent; 49 B
+    uniform, with ndiv, parent_rem and u_val); for each weighted one the
+    columns its walk reaches, up to its last emitted sub (dense: one value
+    each; factored: the fa, fb and kill entries of those columns); 24 B per
+    output slot.  Ops: per column walked, the keep test and the prefix add
+    (and the factored product)."""
+    import torch
+
+    n = plan["offsets"].shape[0]
+    live = parent >= 0
+    last = torch.full((n,), -1, dtype=torch.int64, device=parent.device)
+    last.scatter_reduce_(0, parent[live], sub[live], "amax")
+    has, uni = last >= 0, plan["uniform"]
+    cols = (last + 1)[has & ~uni]
+    if "fa" in plan:
+        v_k, elem = plan["fb"].shape[1], plan["fa"].element_size()
+        n_fa = int(((cols - 1) // v_k + 1).sum())
+        row = elem * (n_fa + int(cols.clamp_max(v_k).sum())) + (
+            0 if plan["kill_b0"] is None else n_fa)
+        ops_per_col = 3
+    else:
+        row = plan["w_sub"].element_size() * int(cols.sum())
+        ops_per_col = 2
+    n_bytes = (8 * n + 25 * int((has & ~uni).sum()) + 49 * int((has & uni).sum())
+               + row + 24 * plan["out_size"])
+    return bound(n_bytes, ops_per_col * int(cols.sum()))
+
+
+def emit_pair(plan):
+    """Kernel B's wrapper and its plain version for ``plan``'s row source."""
     from fries_tpu_torch.runtime import emit
 
-    gv, gp, gs = emit.emit(**plan)
-    rv, rp, rs = emit.emit_plain(**plan)
+    return ((emit.emit_factored, emit.emit_factored_plain) if "fa" in plan
+            else (emit.emit, emit.emit_plain))
+
+
+def check_emit(label, plan):
+    import torch
+
+    kernel, plain = emit_pair(plan)
+    gv, gp, gs = kernel(**plan)
+    rv, rp, rs = plain(**plan)
     torch.cuda.synchronize()
     if not torch.equal(gp, rp):
         raise AssertionError(f"emit {label}: parents differ")
@@ -287,27 +417,81 @@ def check_emit(label, plan, timed=False):
         raise AssertionError(f"emit {label}: emitted mass differs ({mass_rel})")
     out = {"max_abs_err": float((gv - rv).abs().max()), "sub_agreement": frac,
            "n_out": int(min(int(plan["total"]), plan["out_size"])), "kept": int(kept.sum())}
-    if timed:
-        out["ms"] = cuda_ms(lambda: emit.emit(**plan))
-        out["plain_ms"] = cuda_ms(lambda: emit.emit_plain(**plan))
     log(f"emit {label}: agrees ({json.dumps(out)})")
     return out
 
 
-def phase_emit(dev):
+def step_emissions(dev):
+    """The three emissions of one frisys step at the rung's shapes, as
+    {name: (label, plan)}: A+B weighted, E mixed, C+D without the kill mask
+    as the rung runs it.  Each draws from a generator of its own seed."""
     import torch
     from fries_tpu_torch import rung
 
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(2)
+    gen = lambda seed: torch.Generator(device=dev).manual_seed(seed)
     n, cap, m = rung.N_SAMP, rung.CAPACITY, rung.SPAWN_CAP
-    res = check_emit("A+B shapes (N=2^21, K=28), weighted",
-                     emission_plan(gen, dev, cap, 28, n, m, 0.0), timed=True)
+    return {
+        "A+B": ("A+B shapes (N=2^21, K=28), weighted",
+                emission_plan(gen(2), dev, cap, 28, n, m, 0.0)),
+        "E": ("level E shapes (N=1,032,768, K=7), mixed",
+              emission_plan(gen(4), dev, m, 7, n, m, 0.5)),
+        "C+D": ("C+D shapes (N=1,032,768, E=14, V=21), factored, 30% uniform",
+                factored_plan(gen(5), dev, m, 14, 21, n, m, 0.3, False)),
+    }
+
+
+def phase_emit(dev):
+    """Kernel B's cases; returns the check of each of the three shapes of one
+    frisys step (:func:`step_emissions`)."""
+    import torch
+    from fries_tpu_torch import rung
+
+    res = {name: check_emit(label, plan)
+           for name, (label, plan) in step_emissions(dev).items()}
+    gen = lambda seed: torch.Generator(device=dev).manual_seed(seed)
+    n, cap, m = rung.N_SAMP, rung.CAPACITY, rung.SPAWN_CAP
     check_emit("A+B shapes, 30% uniform parents",
-               emission_plan(gen, dev, cap, 28, n, m, 0.3))
-    check_emit("level E shapes (N=1,032,768, K=7), mixed",
-               emission_plan(gen, dev, m, 7, n, m, 0.5))
+               emission_plan(gen(3), dev, cap, 28, n, m, 0.3))
+    check_emit("C+D shapes, factored with kill_b0",
+               factored_plan(gen(6), dev, m, 14, 21, n, m, 0.3, True))
     return res
+
+
+# ---------------------------------------------------------------------------
+# kernel #6: the probe relayout
+# ---------------------------------------------------------------------------
+
+def probe_tile(dev):
+    """A random (8, 128) int32 tile."""
+    import torch
+    from fries_tpu_torch import probe_reshape as probe_mod
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    return torch.randint(-2**31, 2**31 - 1, (probe_mod.RB, probe_mod.LANES), generator=gen,
+                         dtype=torch.int32, device=dev)
+
+
+def phase_probe(dev):
+    """Kernel #6 on a random tile, then its entry point with the count reset
+    just before it (the launches it reports)."""
+    import torch
+    from fries_tpu_torch import probe_reshape as probe_mod
+
+    x = probe_tile(dev)
+    got, ref = probe_mod.reshape(x), probe_mod.reshape_plain(x)
+    torch.cuda.synchronize()
+    if not torch.equal(got, ref):
+        raise AssertionError("probe_reshape: kernel and plain version differ")
+    out = {"max_abs_err": float((got.long() - ref.long()).abs().max())}
+    probe_mod.LAUNCHES = 0
+    if probe_mod.main([]) != 0:
+        raise AssertionError("probe_reshape: the probe's column is wrong")
+    out["launches"] = probe_mod.LAUNCHES
+    if out["launches"] < 1:
+        raise AssertionError("probe_reshape: the entry point did not launch the kernel")
+    log(f"probe_reshape: agrees ({json.dumps(out)})")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -401,7 +585,7 @@ def phase_main_path(dev):
         num, den = float(m["proj_num"]), float(m["proj_den"])
         if not (torch.isfinite(torch.tensor([num, den])).all() and den != 0):
             raise AssertionError(f"main path: non-finite estimator at step {i}")
-    if launches["merge"] < N_TIMED or launches["emit"] < 2 * N_TIMED:
+    if launches["merge"] < N_TIMED or launches["emit"] < 3 * N_TIMED:
         raise AssertionError(f"main path did not run through the kernels: {launches}")
     last = metrics[-1]
     res = {
@@ -515,6 +699,54 @@ def phase_subspace(dev):
     return res
 
 
+# ---------------------------------------------------------------------------
+# timings
+# ---------------------------------------------------------------------------
+
+def phase_timings(dev):
+    """Each kernel's wrapper and its plain version on the inputs of its
+    check at the main path's shapes (the same seeds), with its bound:
+    call times first for every kernel, then device times, since the
+    profiler slows every later launch of the process."""
+    import torch
+    from fries_tpu_torch import probe_reshape as probe_mod
+    from fries_tpu_torch.runtime import arena as ar
+    from fries_tpu_torch.runtime import merge, merge_multi
+
+    cases = {}   # name: (kernel call, plain call, bound, library call or None)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    a, sk, sv, si, keep = rung_merge_case(gen, dev)
+    a = with_rows(a, 2)
+    cases["merge"] = (lambda: merge.accumulate(a, sk, sv, si, 0, 1, keep_mask=keep),
+                      lambda: merge.accumulate_plain(a, sk, sv, si, 0, 1, keep),
+                      merge_bound(a, (sk, sv, si), keep), None)
+    for name, (_, plan) in step_emissions(dev).items():
+        kernel, plain = emit_pair(plan)
+        _, rp, rs = plain(**plan)
+        cases[f"emit {name}"] = (lambda k=kernel, p=plan: k(**p),
+                                 lambda f=plain, p=plan: f(**p), emit_bound(plan, rp, rs), None)
+    gen.manual_seed(3)
+    _, ma, msk, msv, msr, msi = subspace_multi_case(gen, dev)
+    cases["merge_multi"] = (lambda: merge_multi.accumulate(ma, msk, msv, msr, msi),
+                            lambda: ar.accumulate_multi(ma, msk, msv, msr, msi),
+                            merge_bound(ma, (msk, msv, msr, msi)), None)
+    x = probe_tile(dev)
+    dst = torch.empty((probe_mod.TB, 1), dtype=torch.int32, device=dev)
+    cases["probe_reshape"] = (lambda: probe_mod.reshape(x),
+                              lambda: probe_mod.reshape_plain(x),
+                              bound(x.nbytes + dst.nbytes),
+                              lambda: dst.copy_(x.view(probe_mod.TB, 1)))
+    res = {}
+    for name, (kernel, plain, b, library) in cases.items():
+        res[name] = {"ms": cuda_ms(kernel), "plain_ms": cuda_ms(plain), **b,
+                     "library_ms": None if library is None else cuda_ms(library)}
+    for name, (kernel, plain, _, _) in cases.items():
+        res[name].update(device_ms=device_ms(kernel), plain_device_ms=device_ms(plain))
+        log(f"timing {name}: {json.dumps(res[name])}")
+    return res
+
+
 def main():
     import torch
 
@@ -536,30 +768,47 @@ def main():
         f"{torch.cuda.get_device_name(0)}")
 
     t0 = time.perf_counter()
+    _build.build(verbose=True)
     _build.load()
     log(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s")
     m = phase_merge(dev)
     e = phase_emit(dev)
     c = phase_merge_multi(dev)
+    p = phase_probe(dev)
     phase_small_step(dev)
     main_res = phase_main_path(dev)
     phase_subspace_small(dev)
     sub_res = phase_subspace(dev)
+    t = phase_timings(dev)   # last: its profiler would slow the workloads
 
+    keys = ("ms", "plain_ms", "device_ms", "plain_device_ms", "bound_ms", "bound_by",
+            "library_ms")
+    timing = lambda name: {key: t[name][key] for key in keys}
+    shapes = {name: {**timing(f"emit {name}"), "max_abs_err": r["max_abs_err"]}
+              for name, r in e.items()}
+    step_sum = lambda key: sum(s[key] for s in shapes.values())
     kernels = [
         {"name": "merge", "route": "cuda", "source": "fries_tpu_torch/csrc/merge.cu",
          "replaces": "fries_tpu/runtime/pallas_merge.py:617",
          "launches": main_res["launches"]["merge"], "max_abs_err": m["max_abs_err"],
-         "ms": m["ms"], "plain_ms": m["plain_ms"]},
+         **timing("merge")},
         {"name": "emit", "route": "cuda", "source": "fries_tpu_torch/csrc/emit.cu",
          "replaces": "fries_tpu/runtime/pallas_emit.py:147",
-         "launches": main_res["launches"]["emit"], "max_abs_err": e["max_abs_err"],
-         "ms": e["ms"], "plain_ms": e["plain_ms"]},
+         "launches": main_res["launches"]["emit"],
+         "max_abs_err": max(s["max_abs_err"] for s in shapes.values()),
+         **{key: step_sum(key) for key in ("ms", "plain_ms", "device_ms", "plain_device_ms",
+                                          "bound_ms")},
+         "bound_by": max((s["bound_ms"], s["bound_by"]) for s in shapes.values())[1],
+         "library_ms": None, "shapes": shapes},
         {"name": "merge_multi", "route": "cuda",
          "source": "fries_tpu_torch/csrc/merge_multi.cu",
          "replaces": "fries_tpu/runtime/pallas_merge.py:894",
          "launches": sub_res["launches"]["merge_multi"], "max_abs_err": c["max_abs_err"],
-         "ms": c["ms"], "plain_ms": c["plain_ms"]},
+         **timing("merge_multi")},
+        {"name": "probe_reshape", "route": "cuda",
+         "source": "fries_tpu_torch/csrc/probe_reshape.cu",
+         "replaces": "tools/probe_reshape.py:33", "launches": p["launches"],
+         "max_abs_err": p["max_abs_err"], **timing("probe_reshape")},
     ]
     log(f"chip_smoke: total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))

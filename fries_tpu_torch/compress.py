@@ -9,8 +9,9 @@ Counterpart of the main-path part of ``fries_tpu/compress.py``:
 * ``comp_sub``: one hierarchical compression level whose output slots are
   emitted by :func:`fries_tpu_torch.runtime.emit.emit` (the comp_sub
   emission kernel on the card).
-* ``comp_sub_factored``: the same level over a rank-1 factored row, with its
-  emission recomputing rows from the factors (plain torch).
+* ``comp_sub_factored``: the same level over a rank-1 factored row, emitted
+  by :func:`fries_tpu_torch.runtime.emit.emit_factored` (the same kernel,
+  reading the two factor rows).
 * ``adjust_shift`` / ``adjust_shift2``: the norm-control energy shift and
   the subspace iteration's norm-factor controller.
 * pivotal resampling: ``piv_select_tree`` / ``piv_select_tree_2d`` (the
@@ -402,20 +403,30 @@ def comp_sub(values, ndiv, sub_weights, sub_mask, n_samp, rn, out_size: int,
             plan["total"].clamp_max(out_size), overflow)
 
 
-def comp_sub_factored(values, ndiv, fac_a, fac_b, n_samp, rn, out_size: int,
-                      kill_b0=None, max_rounds: int = 64, row_chunk: int = 0):
-    """comp_sub over a rank-1 factored probability row, never materializing
-    the (N, E*V) joint stage: weighted parents carry
+def _factored_seed(chunks, u_uni, w_uni, ndiv_f, tot_norm0, n_samp, cdtype):
+    """comp_sub's histogram seed over the factored rows: the mass and count
+    above each edge, inner reductions over K in the stage dtype."""
+    edges = _seed_edges(tot_norm0, n_samp)
+    edges_c = edges.to(cdtype)
+    zero_c = torch.zeros((), dtype=cdtype, device=edges.device)
+    mass_above = torch.zeros(_SEED_EDGES, dtype=F64, device=edges.device)
+    cost_above = torch.zeros_like(mass_above)
+    for _, w in chunks():
+        for e in range(_SEED_EDGES):
+            ge = w >= edges_c[e]
+            mass_above[e] += torch.where(ge, w, zero_c).sum(1).sum(dtype=F64)
+            cost_above[e] += ge.sum(1).sum(dtype=F64)
+    m, c = _seed_hist_part(u_uni, w_uni, ndiv_f, edges)
+    return _seed_finish(mass_above + m, cost_above + c, n_samp, tot_norm0)
 
-        w_sub[i, e*V + v] = values[i] * fac_a[i, e] * fac_b[i, v]
 
-    with the v = 0 column zeroed where ``kill_b0[i, e]``.  Every (N, K)
-    quantity is recomputed from the factors in ``row_chunk``-row chunks
-    (0 = one pass), with identical elementwise expressions so keep masks
-    agree across passes.  Same returns as :func:`comp_sub`."""
+def comp_sub_factored_plan(values, ndiv, fac_a, fac_b, n_samp, rn, out_size: int,
+                           kill_b0=None, max_rounds: int = 64, row_chunk: int = 0):
+    """:func:`comp_sub_factored` up to its emission.  Returns (the keyword
+    arguments of :func:`fries_tpu_torch.runtime.emit.emit_factored`,
+    overflow flag)."""
     dev = values.device
-    n, e_k = fac_a.shape
-    v_k = fac_b.shape[1]
+    n = fac_a.shape[0]
     values = values.to(F64)
     cdtype = torch.float32 if fac_a.dtype == torch.float32 else F64
     n_samp = int(n_samp)
@@ -430,37 +441,17 @@ def comp_sub_factored(values, ndiv, fac_a, fac_b, n_samp, rn, out_size: int,
     w_uni = torch.where(uniform, values, 0.0)
     ndiv_f = ndiv.clamp_min(1).to(F64)
     u_uni = w_uni / ndiv_f
-    col_v0 = (torch.arange(e_k * v_k, device=dev) % v_k) == 0
-
-    def rows_of(a, b, kc):
-        w = a.repeat_interleave(v_k, dim=1) * b.repeat(1, e_k)
-        if kc is not None:
-            w = torch.where(kc.repeat_interleave(v_k, dim=1) & col_v0, zero_c, w)
-        return w
-
     row_chunk = n if not row_chunk or row_chunk >= n else row_chunk
 
     def chunks():
         for s in range(0, n, row_chunk):
             sl = slice(s, s + row_chunk)
-            yield sl, rows_of(fa[sl], fb[sl],
-                              None if kill_b0 is None else kill_b0[sl])
+            yield sl, emit_mod.factored_rows(fa[sl], fb[sl],
+                                             None if kill_b0 is None else kill_b0[sl])
 
     tot_norm0 = sum(w.sum(dtype=F64) for _, w in chunks()) + w_uni.sum()
     w_floor = (1e-14 * tot_norm0).to(cdtype)
-
-    # histogram seed; inner reductions over K stay in the stage dtype
-    edges = _seed_edges(tot_norm0, n_samp)
-    edges_c = edges.to(cdtype)
-    mass_above = torch.zeros(_SEED_EDGES, dtype=F64, device=dev)
-    cost_above = torch.zeros_like(mass_above)
-    for _, w in chunks():
-        for e in range(_SEED_EDGES):
-            ge = w >= edges_c[e]
-            mass_above[e] += torch.where(ge, w, zero_c).sum(1).sum(dtype=F64)
-            cost_above[e] += ge.sum(1).sum(dtype=F64)
-    m, c = _seed_hist_part(u_uni, w_uni, ndiv_f, edges)
-    t_est = _seed_finish(mass_above + m, cost_above + c, n_samp, tot_norm0)
+    t_est = _factored_seed(chunks, u_uni, w_uni, ndiv_f, tot_norm0, n_samp, cdtype)
 
     def keep_of(w, thr):
         return (w > w_floor) & (w.to(F64) >= thr)
@@ -493,17 +484,33 @@ def comp_sub_factored(values, ndiv, fac_a, fac_b, n_samp, rn, out_size: int,
     kept_counts = torch.where(keep_uni, ndiv, kept_counts_w)
     lay = _grid_layout(parent_rem, kept_counts, loc_norm, kept_budget, n_samp,
                        rn, out_size)
+    plan = dict(offsets=lay["offsets"], kept_counts=kept_counts,
+                g_start=lay["g_start"], ndiv=ndiv, uniform=uniform, fa=fa, fb=fb,
+                cum_parent=lay["cum_parent"], parent_rem=parent_rem,
+                u_val=values / ndiv_f, rn=rn, unit=lay["unit"], thr=thr_f,
+                w_floor=w_floor.to(F64), total=lay["total"], out_size=out_size,
+                kill_b0=kill_b0)
+    return plan, lay["overflow"]
 
-    def rows(parent):
-        return rows_of(fa[parent], fb[parent],
-                       None if kill_b0 is None else kill_b0[parent])
 
-    out_val, out_parent, out_sub = emit_mod.emit_plain(
-        lay["offsets"], kept_counts, lay["g_start"], ndiv, uniform, rows,
-        lay["cum_parent"], parent_rem, values / ndiv_f, rn, lay["unit"],
-        thr_f, w_floor.to(F64), lay["total"], out_size, k=e_k * v_k)
+def comp_sub_factored(values, ndiv, fac_a, fac_b, n_samp, rn, out_size: int,
+                      kill_b0=None, max_rounds: int = 64, row_chunk: int = 0):
+    """comp_sub over a rank-1 factored probability row, never materializing
+    the (N, E*V) joint stage: weighted parents carry
+
+        w_sub[i, e*V + v] = values[i] * fac_a[i, e] * fac_b[i, v]
+
+    with the v = 0 column zeroed where ``kill_b0[i, e]``.  Every (N, K)
+    quantity of the plan is recomputed from the factors in ``row_chunk``-row
+    chunks (0 = one pass), with identical elementwise expressions so keep
+    masks agree across passes; the emission
+    (:func:`fries_tpu_torch.runtime.emit.emit_factored`) reads the factors.
+    Same returns as :func:`comp_sub`."""
+    plan, overflow = comp_sub_factored_plan(values, ndiv, fac_a, fac_b, n_samp, rn,
+                                            out_size, kill_b0, max_rounds, row_chunk)
+    out_val, out_parent, out_sub = emit_mod.emit_factored(**plan)
     return (out_val, out_parent, out_sub,
-            lay["total"].clamp_max(out_size), lay["overflow"])
+            plan["total"].clamp_max(out_size), overflow)
 
 
 def comp_sub_piv(values, ndiv, sub_weights, sub_mask, n_samp, key, out_size: int,

@@ -8,15 +8,20 @@ steps, then
 * counts the host synchronizations of one step (``torch.cuda`` sync debug
   mode, one warning per synchronizing call),
 * profiles a few steps with ``torch.profiler`` and prints the device time of
-  each labelled phase (the spawn and its compression rounds, norm_weight,
-  the merges, the diagonal, the vector compressions, the pivotal
-  tournaments), the top kernels, the device's busy time and its idle share
-  of the traced span (from the chrome trace, written to
-  ``build/fries_tpu_torch/step_trace.json`` by default).
+  each labelled phase (the spawn and its compression rounds, the emissions,
+  C+D's histogram seed, the threshold fixpoints, norm_weight, the merges,
+  the diagonal, the vector compressions, the pivotal tournaments), the
+  device time inside each pair of nested phases (``"C+D & threshold
+  fixpoint"``: the fixpoint rounds of the C+D stage), the top kernels, the
+  device's busy time and its idle share of the traced span (from the chrome
+  trace, written to ``build/fries_tpu_torch/step_trace.json`` by default).
 
 The phase labels are ``record_function`` wrappers installed by this script
 around the package's functions; the package itself carries no
-instrumentation.  Usage (needs a CUDA device)::
+instrumentation.  A function the imported package lacks gets no label, so
+the script also profiles an older checkout of the package put first on
+``PYTHONPATH`` (its C+D emission is labelled ``emit_plain``).  Usage (needs
+a CUDA device)::
 
     python -m fries_tpu_torch.profile_step [--workload subsp] [--steps 3] [--trace out.json]
 """
@@ -26,6 +31,7 @@ from __future__ import annotations
 import argparse
 import bisect
 import functools
+import itertools
 import json
 import time
 import warnings
@@ -52,18 +58,23 @@ def install_labels():
 
     phases = (
         (compress, "comp_sub", "comp_sub (A+B, E)"),
-        (compress, "comp_sub_factored", "comp_sub_factored (C+D)"),
+        (compress, "comp_sub_factored", "C+D"),
+        (compress, "_factored_seed", "C+D histogram seed"),
+        (compress, "_threshold_fixpoint", "threshold fixpoint"),
         (compress, "comp_sub_piv", "comp_sub_piv (A+B, C+D, E)"),
         (compress, "piv_comp", "piv_comp (vector)"),
         (compress, "piv_select_tree", "piv_select_tree (1-D)"),
         (compress, "piv_select_tree_2d", "piv_select_tree_2d"),
         (compress, "find_preserve", "find_preserve"),
         (compress, "sys_comp", "sys_comp"),
-        (emit, "emit", "emit kernel"),
+        (emit, "emit", "emit, dense rows (A+B, E)"),
+        (emit, "emit_factored", "emit_factored (C+D)"),
+        (emit, "emit_plain", "emit_plain"),
         (merge, "accumulate", "merge (sort + kernel)"),
         (merge_multi, "accumulate", "merge_multi (sort + kernel)"),
         (molecule, "diag_matrel_chunked", "diagonal"),
         (heat_bath, "norm_weight", "norm_weight"))
+    phases = [(mod, name, label) for mod, name, label in phases if hasattr(mod, name)]
     for mod, name, label in phases:
         setattr(mod, name, _labelled(label, getattr(mod, name)))
     make = frisys.make_hbpp_spawner
@@ -73,23 +84,35 @@ def install_labels():
 
 def trace_device_activity(path, n_steps, labels):
     """(busy ms per step, idle share of the span, ops per step, top kernels,
-    busy ms per step of each labelled phase) from a chrome trace: the union
-    of kernel / memcpy / memset intervals, and per phase the summed time of
-    the device operations that start inside the phase's ranges on the device
-    timeline (nested phases count in each enclosing one)."""
+    busy ms per step of each labelled phase, busy ms per step inside each
+    pair of labelled phases) from a chrome trace: the union of kernel /
+    memcpy / memset intervals, and per phase the summed time of the device
+    operations that start inside the phase's ranges on the device timeline
+    (nested phases count in each enclosing one; the spawn, which encloses
+    most phases, is left out of the pairs)."""
     with open(path) as f:
         trace = json.load(f)
     events = trace["traceEvents"] if isinstance(trace, dict) else trace
     gpu = [e for e in events
            if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e]
+    if not gpu:
+        return 0.0, 1.0, 0.0, {}, {}, {}
     starts = sorted((e["ts"], e["dur"]) for e in gpu)
     ts = [t for t, _ in starts]
-    phase = {}
+    inside = [set() for _ in starts]
     for e in events:
         if e.get("cat") == "gpu_user_annotation" and e.get("name") in labels:
             lo = bisect.bisect_left(ts, e["ts"])
             hi = bisect.bisect_left(ts, e["ts"] + e["dur"])
-            phase[e["name"]] = phase.get(e["name"], 0.0) + sum(d for _, d in starts[lo:hi])
+            for i in range(lo, hi):
+                inside[i].add(e["name"])
+    phase, pairs = {}, {}
+    for (_, dur), names in zip(starts, inside):
+        for name in names:
+            phase[name] = phase.get(name, 0.0) + dur
+        for pair in itertools.combinations(sorted(names - {"spawn (total)"}), 2):
+            key = " & ".join(pair)
+            pairs[key] = pairs.get(key, 0.0) + dur
     spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in gpu)
     busy, (cur_s, cur_e) = 0.0, spans[0]
     for s, e in spans[1:]:
@@ -105,7 +128,8 @@ def trace_device_activity(path, n_steps, labels):
     top = sorted(total.items(), key=lambda kv: -kv[1])[:12]
     per_step = lambda d: {k: v / 1e3 / n_steps for k, v in d}
     return (busy / 1e3 / n_steps, 1.0 - busy / (spans[-1][1] - spans[0][0]),
-            len(gpu) / n_steps, per_step(top), per_step(sorted(phase.items())))
+            len(gpu) / n_steps, per_step(top), per_step(sorted(phase.items())),
+            per_step(sorted(pairs.items())))
 
 
 def main(argv=None):
@@ -150,8 +174,8 @@ def main(argv=None):
         wall = time.perf_counter() - t0
     Path(args.trace).parent.mkdir(parents=True, exist_ok=True)
     prof.export_chrome_trace(args.trace)
-    busy_ms, idle, n_ops, top, phases = trace_device_activity(args.trace, args.steps,
-                                                              labels)
+    busy_ms, idle, n_ops, top, phases, pairs = trace_device_activity(
+        args.trace, args.steps, labels)
     report = {
         "device": torch.cuda.get_device_name(0), "workload": args.workload,
         "steps": args.steps,
@@ -161,6 +185,7 @@ def main(argv=None):
         "device_ops_per_step": n_ops,
         "host_syncs_per_step": syncs,
         "phase_busy_ms_per_step": phases,
+        "nested_phase_busy_ms_per_step": pairs,
         "top_kernels_ms_per_step": top,
     }
     print(json.dumps(report, indent=1))

@@ -211,3 +211,68 @@ def test_comp_sub_piv_matches_reference(case, stage):
     np.testing.assert_array_equal(gp.numpy(), np.asarray(rp))
     np.testing.assert_array_equal(gs.numpy(), np.asarray(rs))
     np.testing.assert_allclose(gv.numpy(), np.asarray(rv), rtol=1e-12, atol=0)
+
+
+def factored_inputs(seed, n, e_k, v_k, kill, heavy=0.01):
+    rng = np.random.default_rng(seed)
+    values = np.where(rng.random(n) < 0.8, rng.gamma(1.0, 1.0, n), 0.0)
+    values = np.where(rng.random(n) < heavy, 300.0 * values, values)
+    fa = rng.random((n, e_k)) * (rng.random((n, e_k)) < 0.8)
+    fa /= np.maximum(fa.sum(1, keepdims=True), 1e-300)
+    fb = rng.random((n, v_k)) + 1e-3
+    fb /= fb.sum(1, keepdims=True)
+    ndiv = np.where(rng.random(n) < 0.3, rng.integers(1, 9, n), 0)
+    kill_b0 = torch.as_tensor(rng.random((n, e_k)) < 0.4) if kill else None
+    return values, ndiv, fa, fb, kill_b0
+
+
+@pytest.mark.parametrize("stage", ["f32", "f64"])
+@pytest.mark.parametrize("kill", [False, True])
+def test_emit_factored_equals_plain_over_joint(stage, kill):
+    """On the CPU, emit_factored gives emit_plain's output over the
+    materialized (N, E*V) joint, bit for bit."""
+    from fries_tpu_torch.runtime import emit
+
+    values, ndiv, fa, fb, kill_b0 = factored_inputs(20 + kill, 900, 6, 7, kill)
+    t_dt = torch.float32 if stage == "f32" else torch.float64
+    plan, _ = tc.comp_sub_factored_plan(
+        torch.as_tensor(values), torch.as_tensor(ndiv), torch.as_tensor(fa).to(t_dt),
+        torch.as_tensor(fb).to(t_dt), 1500, 0.417, 2048, kill_b0=kill_b0)
+    assert int(plan["total"]) > 0
+    got = emit.emit_factored(**plan)
+    dense = {k: v for k, v in plan.items() if k not in ("fa", "fb", "kill_b0")}
+    joint = emit.factored_rows(plan["fa"], plan["fb"], plan["kill_b0"])
+    assert joint.shape == (900, 42) and joint.dtype == t_dt
+    ref = emit.emit_plain(w_sub=joint, **dense)
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+
+
+def test_comp_sub_factored_goes_through_emit_factored(monkeypatch):
+    """comp_sub_factored hands its plan to emit_factored (the kernel on the
+    card) and never calls the plain emission itself."""
+    from fries_tpu_torch.runtime import emit
+
+    calls = []
+
+    def fake_emit_factored(**plan):
+        calls.append(plan)
+        m = plan["out_size"]
+        return (torch.zeros(m, dtype=torch.float64), torch.full((m,), -1),
+                torch.full((m,), -1))
+
+    def no_plain(*args, **kwargs):
+        raise AssertionError("comp_sub_factored called the plain emission")
+
+    monkeypatch.setattr(emit, "emit_factored", fake_emit_factored)
+    monkeypatch.setattr(emit, "emit_plain", no_plain)
+    monkeypatch.setattr(emit, "emit_factored_plain", no_plain)
+    values, ndiv, fa, fb, kill_b0 = factored_inputs(30, 400, 4, 5, True)
+    out = tc.comp_sub_factored(torch.as_tensor(values), torch.as_tensor(ndiv),
+                               torch.as_tensor(fa).float(), torch.as_tensor(fb).float(),
+                               600, 0.25, 800, kill_b0=kill_b0)
+    assert len(calls) == 1 and out[0].shape == (800,)
+    plan = calls[0]
+    assert plan["kill_b0"] is kill_b0
+    assert plan["fa"].shape == (400, 4) and plan["fb"].shape == (400, 5)
+    assert "w_sub" not in plan

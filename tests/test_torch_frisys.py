@@ -234,6 +234,7 @@ def test_imports_without_jax():
     code = (
         "import sys; sys.modules['jax'] = None; sys.modules['fries_tpu'] = None\n"
         "import fries_tpu_torch, fries_tpu_torch.cli, fries_tpu_torch.convert\n"
+        "import fries_tpu_torch.probe_reshape, fries_tpu_torch.profile_step\n"
         "from fries_tpu_torch import dets, synth\n"
         "from fries_tpu_torch.drivers import frisys, subspace\n"
         "ham = synth.make_system(5, 4, seed=1)\n"

@@ -13,7 +13,7 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
-from fries_tpu_torch import compress, dets, rng as trng, synth  # noqa: E402
+from fries_tpu_torch import compress, dets, probe_reshape, rng as trng, synth  # noqa: E402
 from fries_tpu_torch.drivers import frisys, subspace  # noqa: E402
 from fries_tpu_torch.runtime import arena as ar  # noqa: E402
 from fries_tpu_torch.runtime import emit, merge, merge_multi  # noqa: E402
@@ -188,7 +188,7 @@ def test_merge_multi_rejects_too_many_rows(cuda):
 
 
 # ---------------------------------------------------------------------------
-# kernel B: comp_sub emission
+# kernel B: comp_sub emission, dense and factored row sources
 # ---------------------------------------------------------------------------
 
 def emission_case(rng, n, k, n_samp, out_size, uniform_frac, dtype, zero=False):
@@ -229,6 +229,7 @@ def assert_emission_close(plan, got, ref):
     (2500, 9, 3000, 4096, 0.4),
     (600, 6, 900, 256, 0.3),        # overflow: total > out_size
     (20000, 28, 15000, 16384, 0.2),
+    (300, 2000, 600, 1024, 0.2),   # rows too wide to stage: walked in place
 ])
 def test_emit_matches_plain(cuda, dtype, n, k, n_samp, out_size, uniform_frac):
     rng = np.random.default_rng(n + k)
@@ -250,6 +251,112 @@ def test_emit_zero_budget(cuda):
     got = emit.emit(**{key: v.to(cuda) if isinstance(v, torch.Tensor) else v
                        for key, v in plan.items()})
     assert_emission_close(plan, got, ref)
+
+
+def test_emit_unaligned_rows(cuda):
+    """Rows that start off a 16-byte boundary are staged element by element."""
+    rng = np.random.default_rng(9)
+    plan = emission_case(rng, 2000, 7, 1500, 2048, 0.2, torch.float32)
+    ref = emit.emit(**plan)
+    dev_plan = {key: v.to(cuda) if isinstance(v, torch.Tensor) else v
+                for key, v in plan.items()}
+    padded = torch.cat([torch.zeros_like(dev_plan["w_sub"][:1]), dev_plan["w_sub"]])
+    dev_plan["w_sub"] = padded[1:]
+    assert dev_plan["w_sub"].data_ptr() % 16 != 0
+    assert_emission_close(plan, emit.emit(**dev_plan), ref)
+
+
+def factored_case(rng, n, e_k, v_k, n_samp, out_size, uniform_frac, dtype, kill,
+                  zero=False, one_heavy=False):
+    """comp_sub_factored's plan over random factors; 1% of the parents carry
+    300x the mass (kept subs), and with ``one_heavy`` one parent with no zero
+    sub carries nearly all of it, so that it keeps all of its K subs."""
+    values = np.where(rng.random(n) < 0.8, rng.gamma(1.0, 1.0, n), 0.0)
+    values = np.where(rng.random(n) < 0.01, 300.0 * values, values)
+    if one_heavy:
+        values[n // 2] = 1e4 * values.sum()
+    if zero:
+        values[:] = 0.0
+    fa = rng.random((n, e_k)) * (rng.random((n, e_k)) < 0.8)
+    fa[:, 0] += 1e-3
+    if one_heavy:
+        fa[n // 2] = rng.random(e_k) + 0.5
+    fa /= fa.sum(1, keepdims=True)
+    fb = rng.random((n, v_k)) + 1e-3
+    fb /= fb.sum(1, keepdims=True)
+    ndiv = np.where(rng.random(n) < uniform_frac, rng.integers(1, 9, n), 0)
+    if one_heavy:
+        ndiv[n // 2] = 0
+    kill_b0 = torch.as_tensor(rng.random((n, e_k)) < 0.4) if kill else None
+    plan, _ = compress.comp_sub_factored_plan(
+        torch.as_tensor(values), torch.as_tensor(ndiv), torch.as_tensor(fa).to(dtype),
+        torch.as_tensor(fb).to(dtype), n_samp, float(rng.random()), out_size,
+        kill_b0=kill_b0)
+    return plan
+
+
+FACTORED_CASES = {  # (n, e, v, n_samp, out_size, uniform_frac, extra)
+    "cd_widths_40pct_uniform": (5000, 14, 21, 5000, 6000, 0.4, {}),
+    "counts_straddle_blocks": (3 * 256 + 17, 5, 6, 4000, 5000, 0.0, {}),
+    "largest_count": (300, 14, 21, 3000, 4096, 0.0, {"one_heavy": True}),
+    "overflow": (600, 4, 5, 900, 256, 0.0, {}),
+    "zero_budget": (300, 4, 5, 100, 512, 0.0, {"zero": True}),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("kill", [False, True])
+@pytest.mark.parametrize("case", sorted(FACTORED_CASES))
+def test_emit_factored_matches_plain(cuda, dtype, kill, case):
+    n, e_k, v_k, n_samp, out_size, uf, extra = FACTORED_CASES[case]
+    rng = np.random.default_rng(n + e_k + kill)
+    plan = factored_case(rng, n, e_k, v_k, n_samp, out_size, uf, dtype, kill, **extra)
+    total = int(plan["total"])
+    counts = torch.diff(plan["offsets"], append=plan["total"].reshape(1))
+    if case == "largest_count":
+        assert int(counts.max()) >= e_k * v_k - e_k * kill   # all its live subs kept
+    assert (total > out_size) == (case == "overflow")
+    assert (total == 0) == (case == "zero_budget")
+    ref = emit.emit_factored(**plan)
+    dev_plan = {key: v.to(cuda) if isinstance(v, torch.Tensor) else v
+                for key, v in plan.items()}
+    before = emit.LAUNCHES
+    got = emit.emit_factored(**dev_plan)
+    torch.cuda.synchronize()
+    assert emit.LAUNCHES == before + 1
+    assert_emission_close(plan, got, ref)
+    # the dense kernel over the materialized joint gives the same slots
+    joint = emit.factored_rows(dev_plan["fa"], dev_plan["fb"], dev_plan["kill_b0"])
+    dense = {key: v for key, v in dev_plan.items() if key not in ("fa", "fb", "kill_b0")}
+    for g, d in zip(got, emit.emit(w_sub=joint, **dense)):
+        assert torch.equal(g, d)
+
+
+def test_emit_factored_unaligned_spans(cuda):
+    """Factor spans that start off a 16-byte boundary are staged element by
+    element."""
+    rng = np.random.default_rng(10)
+    plan = factored_case(rng, 2000, 14, 21, 2000, 2500, 0.3, torch.float32, True)
+    ref = emit.emit_factored(**plan)
+    dev_plan = {key: v.to(cuda) if isinstance(v, torch.Tensor) else v
+                for key, v in plan.items()}
+    for key in ("fa", "fb", "kill_b0"):
+        flat = dev_plan[key].reshape(-1)
+        padded = torch.cat([flat[:1], flat])[1:]
+        assert padded.data_ptr() % 16 != 0
+        dev_plan[key] = padded.view(dev_plan[key].shape)
+    assert_emission_close(plan, emit.emit_factored(**dev_plan), ref)
+
+
+def test_probe_reshape_kernel(cuda):
+    x = torch.randint(-2**31, 2**31 - 1, (probe_reshape.RB, probe_reshape.LANES),
+                      dtype=torch.int32, device=cuda)
+    before = probe_reshape.LAUNCHES
+    got = probe_reshape.reshape(x)
+    torch.cuda.synchronize()
+    assert probe_reshape.LAUNCHES == before + 1
+    assert torch.equal(got, probe_reshape.reshape_plain(x))
+    assert probe_reshape.probe(cuda)
 
 
 # ---------------------------------------------------------------------------
@@ -285,7 +392,7 @@ def test_frisys_step_cuda_matches_cpu(cuda):
         for key in mc:
             np.testing.assert_allclose(float(mg[key]), float(mc[key]), rtol=1e-10,
                                        atol=1e-12, err_msg=key)
-    assert merge.LAUNCHES - m0 == 5 and emit.LAUNCHES - e0 == 10
+    assert merge.LAUNCHES - m0 == 5 and emit.LAUNCHES - e0 == 15
 
 
 def test_subspace_step_cuda_matches_cpu(cuda):
