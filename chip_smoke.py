@@ -6,9 +6,13 @@ Phases, in order; any failure exits non-zero:
 1. require a CUDA device; print the card's name and power limit
    (``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``);
 2. build and load the hand-written kernels (``fries_tpu_torch/csrc/*.cu``);
+   the loader launches kernel #5 (the backend probe's copy) once, with its
+   count reset just before; then the probe against its plain version on a
+   random tile;
 3. kernel A (sorted-merge accumulate) against its plain torch version at the
    1e6 rung's shapes (C = 2^21 arena rows, S = 1,032,768 spawns), both row
-   layouts, plus the empty-spawn, empty-arena and overflow cases;
+   layouts and 200,000 spawns on one key, plus the empty-spawn, empty-arena
+   and overflow cases;
 4. kernel B (comp_sub emission) against its plain version at the A+B stage's
    shapes (N = 2^21, K = 28) and level E's (N = 1,032,768, K = 7) over the
    dense row source, and at the C+D stage's (N = 1,032,768 parents, E = 14,
@@ -17,8 +21,8 @@ Phases, in order; any failure exits non-zero:
    case emits kept subs;
 5. kernel C (multi-row merge) against its plain version at the subspace
    path's shapes (C = 2^20 arena rows, R = 2 value rows, S = 600,000
-   spawns), at R = 14, and in the empty-spawn, empty-arena and overflow
-   cases;
+   spawns) and with 200,000 of them on one key, at R = 14, and in the
+   empty-spawn, empty-arena and overflow cases;
 6. kernel #6 (the probe relayout, ``fries_tpu_torch.probe_reshape``)
    against its plain version on a random tile, then its entry point
    (``probe_reshape.main``, the port of ``tools/probe_reshape.py``) with its
@@ -28,8 +32,7 @@ Phases, in order; any failure exits non-zero:
    the CPU from the same state, then the 1e6 rung of
    ``fries_tpu_torch.rung`` (2 warm-up + 5 timed steps) with the kernel
    launch counters reset just before the timed steps; afterwards the longest
-   run of equal keys in one step's spawn stream (the merge kernel sums each
-   run in one thread) is logged;
+   run of equal keys in one step's spawn stream is logged;
 8. the subspace path: ``drivers.subspace.build``, first a small system
    stepped on the card and on the CPU from the same state with the same key
    tree across a restart and a norm-factor update, then bench.py's subsp
@@ -39,6 +42,11 @@ Phases, in order; any failure exits non-zero:
 9. the timings: each kernel's wrapper and its plain version on the inputs of
    its check at the main path's shapes (the same seeds), last, since the
    profiler that reads device times slows every later launch of the process.
+   For the two merges also the spawn sort alone (``sort_ms``,
+   ``sort_device_ms``: the key pack and ``torch.sort`` that run before the
+   kernel entry) and the one-key stress case (``stress_ms``,
+   ``stress_device_ms``); ``device_ops`` counts the device operations of one
+   call (the kernel entry's are ``device_ops - sort_device_ops``).
 
 Prints one JSON line of per-kernel results before the last line, and as the
 last line ``{"ok": true, "device": {...}}``.  Each kernel's ``bound_ms`` is
@@ -58,6 +66,7 @@ import sys
 import time
 
 N_WARM, N_TIMED = 2, 5
+STRESS_SPAWNS = 200_000
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM: device memory rate
 F32_OPS_PER_S = 67e12        # H100 SXM: f32 outside the tensor cores
 
@@ -83,10 +92,12 @@ def cuda_ms(fn, reps=5):
     return sorted(times)[len(times) // 2]
 
 
-def device_ms(fn, reps=5):
-    """Device milliseconds of one ``fn()``: the union of its kernels' and
-    copies' intervals in a ``torch.profiler`` trace of ``reps`` runs after one
-    warm-up, divided by ``reps`` (the host's work in the call left out)."""
+def device_profile(fn, reps=5):
+    """(device milliseconds, device operations, {operation name: device ms})
+    of one ``fn()``: the union of its kernels', copies' and memsets'
+    intervals in a ``torch.profiler`` trace of ``reps`` runs after one
+    warm-up, their count, and the time of the 12 longest by name, each
+    divided by ``reps`` (the host's work in the call left out)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from fries_tpu_torch import _build, profile_step
@@ -100,7 +111,9 @@ def device_ms(fn, reps=5):
     path = _build.BUILD_DIR / "chip_smoke_trace.json"
     path.parent.mkdir(parents=True, exist_ok=True)
     prof.export_chrome_trace(str(path))
-    return profile_step.trace_device_activity(path, reps, set())[0]
+    busy, _, n_ops, top, _, _ = profile_step.trace_device_activity(path, reps, set())
+    return busy, n_ops, top
+
 
 
 def bound(n_bytes, n_ops=0):
@@ -109,6 +122,39 @@ def bound(n_bytes, n_ops=0):
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / F32_OPS_PER_S
     return {"bound_ms": 1e3 * max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+# ---------------------------------------------------------------------------
+# kernel #5: the backend probe
+# ---------------------------------------------------------------------------
+
+def probe_copy_tile(dev):
+    """A random (16, 128) f32 tile."""
+    import torch
+    from fries_tpu_torch import _build
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    return torch.randn(_build.PROBE_SHAPE, generator=gen, device=dev)
+
+
+def phase_probe_copy(dev):
+    """Kernel #5's launches by the loader (its path), then the kernel against
+    its plain version on a random tile."""
+    import torch
+    from fries_tpu_torch import _build
+
+    out = {"launches": _build.PROBE_LAUNCHES}
+    if out["launches"] < 1:
+        raise AssertionError("the loader did not launch the probe copy")
+    x = probe_copy_tile(dev)
+    got, ref = _build.probe_copy(x), _build.probe_copy_plain(x)
+    torch.cuda.synchronize()
+    if not torch.equal(got, ref):
+        raise AssertionError("probe_copy: kernel and plain version differ")
+    out["max_abs_err"] = float((got - ref).abs().max())
+    log(f"probe_copy: agrees ({json.dumps(out)})")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -194,6 +240,16 @@ def rung_merge_case(gen, dev):
                         rung.N_SAMP * 8 // 5)
 
 
+def one_key_stress(a, sk):
+    """``sk`` with its first :data:`STRESS_SPAWNS` spawns on one key, the
+    arena row of largest origin value: a run far longer than the main path's
+    (~100), as early iterations send to HF."""
+    n = int(a.n_used[0])
+    sk = sk.clone()
+    sk[:STRESS_SPAWNS] = a.keys[int(a.vals[0, :n].abs().argmax())]
+    return sk
+
+
 def check_merge(label, a, sk, sv, si, layout, keep):
     from fries_tpu_torch.runtime import merge
 
@@ -216,6 +272,8 @@ def phase_merge(dev):
     a, sk, sv, si, keep = rung_merge_case(gen, dev)
     res = check_merge("rung layout (2,0,1) + keep_mask", a, sk, sv, si, (2, 0, 1), keep)
     check_merge("rung layout (1,0,0)", a, sk, sv, si, (1, 0, 0), None)
+    check_merge("rung, 200,000 spawns on one key, (2,0,1) + keep_mask", a,
+                one_key_stress(a, sk), sv, si, (2, 0, 1), keep)
     for w in (1, 2):
         a, sk, sv, si, keep = merge_inputs(gen, dev, 1024, 400, 700, 800, n_words=w)
         check_merge(f"small W={w} (2,0,1)", a, sk, sv, si, (2, 0, 1), keep)
@@ -282,7 +340,10 @@ def phase_merge_multi(dev):
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(3)
-    res = check_merge_multi(*subspace_multi_case(gen, dev))
+    label, ma, msk, msv, msr, msi = subspace_multi_case(gen, dev)
+    res = check_merge_multi(label, ma, msk, msv, msr, msi)
+    check_merge_multi("subspace shapes, 200,000 spawns on one key", ma,
+                      one_key_stress(ma, msk), msv, msr, msi)
     check_merge_multi("R=14 (C=2^16, S=100,000)",
                       *multi_inputs(gen, dev, 1 << 16, 20000, 100000, 40000, 14))
     for w in (1, 2):
@@ -540,7 +601,7 @@ def phase_small_step(dev):
 
 def longest_spawn_segment(spawn, state):
     """Longest run of one target key in the sorted spawn stream of a step
-    from ``state``: the longest sequential sum of the merge kernel."""
+    from ``state``."""
     import torch
     from fries_tpu_torch import dets, rung
 
@@ -709,6 +770,7 @@ def phase_timings(dev):
     call times first for every kernel, then device times, since the
     profiler slows every later launch of the process."""
     import torch
+    from fries_tpu_torch import _build
     from fries_tpu_torch import probe_reshape as probe_mod
     from fries_tpu_torch.runtime import arena as ar
     from fries_tpu_torch.runtime import merge, merge_multi
@@ -721,6 +783,10 @@ def phase_timings(dev):
     cases["merge"] = (lambda: merge.accumulate(a, sk, sv, si, 0, 1, keep_mask=keep),
                       lambda: merge.accumulate_plain(a, sk, sv, si, 0, 1, keep),
                       merge_bound(a, (sk, sv, si), keep), None)
+    sk1 = one_key_stress(a, sk)
+    extras = {"merge": {   # name: {field prefix: call}
+        "sort": lambda: merge.sort_spawns(sk),
+        "stress": lambda: merge.accumulate(a, sk1, sv, si, 0, 1, keep_mask=keep)}}
     for name, (_, plan) in step_emissions(dev).items():
         kernel, plain = emit_pair(plan)
         _, rp, rs = plain(**plan)
@@ -731,18 +797,34 @@ def phase_timings(dev):
     cases["merge_multi"] = (lambda: merge_multi.accumulate(ma, msk, msv, msr, msi),
                             lambda: ar.accumulate_multi(ma, msk, msv, msr, msi),
                             merge_bound(ma, (msk, msv, msr, msi)), None)
+    msk1 = one_key_stress(ma, msk)
+    extras["merge_multi"] = {
+        "sort": lambda: merge.sort_spawns(msk),
+        "stress": lambda: merge_multi.accumulate(ma, msk1, msv, msr, msi)}
     x = probe_tile(dev)
     dst = torch.empty((probe_mod.TB, 1), dtype=torch.int32, device=dev)
     cases["probe_reshape"] = (lambda: probe_mod.reshape(x),
                               lambda: probe_mod.reshape_plain(x),
                               bound(x.nbytes + dst.nbytes),
                               lambda: dst.copy_(x.view(probe_mod.TB, 1)))
+    pc = probe_copy_tile(dev)
+    pc_dst = torch.empty_like(pc)
+    cases["probe_copy"] = (lambda: _build.probe_copy(pc), lambda: _build.probe_copy_plain(pc),
+                           bound(pc.nbytes + pc_dst.nbytes), lambda: pc_dst.copy_(pc))
     res = {}
     for name, (kernel, plain, b, library) in cases.items():
         res[name] = {"ms": cuda_ms(kernel), "plain_ms": cuda_ms(plain), **b,
                      "library_ms": None if library is None else cuda_ms(library)}
+        for prefix, fn in extras.get(name, {}).items():
+            res[name][f"{prefix}_ms"] = cuda_ms(fn)
     for name, (kernel, plain, _, _) in cases.items():
-        res[name].update(device_ms=device_ms(kernel), plain_device_ms=device_ms(plain))
+        ms, ops, top = device_profile(kernel)
+        res[name].update(device_ms=ms, device_ops=ops, plain_device_ms=device_profile(plain)[0])
+        for prefix, fn in extras.get(name, {}).items():
+            res[name][f"{prefix}_device_ms"], res[name][f"{prefix}_device_ops"], _ = \
+                device_profile(fn)
+        if name in extras:   # what a merge's device time is made of
+            log(f"timing {name}: device ms by operation {json.dumps(top)}")
         log(f"timing {name}: {json.dumps(res[name])}")
     return res
 
@@ -769,8 +851,10 @@ def main():
 
     t0 = time.perf_counter()
     _build.build(verbose=True)
+    _build.PROBE_LAUNCHES = 0
     _build.load()
     log(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s")
+    pc = phase_probe_copy(dev)
     m = phase_merge(dev)
     e = phase_emit(dev)
     c = phase_merge_multi(dev)
@@ -784,6 +868,9 @@ def main():
     keys = ("ms", "plain_ms", "device_ms", "plain_device_ms", "bound_ms", "bound_by",
             "library_ms")
     timing = lambda name: {key: t[name][key] for key in keys}
+    merge_keys = ("device_ops", "sort_ms", "sort_device_ms", "sort_device_ops", "stress_ms",
+                  "stress_device_ms")
+    merge_timing = lambda name: {**timing(name), **{key: t[name][key] for key in merge_keys}}
     shapes = {name: {**timing(f"emit {name}"), "max_abs_err": r["max_abs_err"]}
               for name, r in e.items()}
     step_sum = lambda key: sum(s[key] for s in shapes.values())
@@ -791,7 +878,7 @@ def main():
         {"name": "merge", "route": "cuda", "source": "fries_tpu_torch/csrc/merge.cu",
          "replaces": "fries_tpu/runtime/pallas_merge.py:617",
          "launches": main_res["launches"]["merge"], "max_abs_err": m["max_abs_err"],
-         **timing("merge")},
+         **merge_timing("merge")},
         {"name": "emit", "route": "cuda", "source": "fries_tpu_torch/csrc/emit.cu",
          "replaces": "fries_tpu/runtime/pallas_emit.py:147",
          "launches": main_res["launches"]["emit"],
@@ -804,11 +891,14 @@ def main():
          "source": "fries_tpu_torch/csrc/merge_multi.cu",
          "replaces": "fries_tpu/runtime/pallas_merge.py:894",
          "launches": sub_res["launches"]["merge_multi"], "max_abs_err": c["max_abs_err"],
-         **timing("merge_multi")},
+         **merge_timing("merge_multi")},
         {"name": "probe_reshape", "route": "cuda",
          "source": "fries_tpu_torch/csrc/probe_reshape.cu",
          "replaces": "tools/probe_reshape.py:33", "launches": p["launches"],
          "max_abs_err": p["max_abs_err"], **timing("probe_reshape")},
+        {"name": "probe_copy", "route": "cuda", "source": "fries_tpu_torch/csrc/probe_copy.cu",
+         "replaces": "fries_tpu/runtime/pallas_merge.py:77", "launches": pc["launches"],
+         "max_abs_err": pc["max_abs_err"], **timing("probe_copy")},
     ]
     log(f"chip_smoke: total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))

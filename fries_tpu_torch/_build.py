@@ -5,7 +5,9 @@ own nvcc process, all started together, and one more nvcc links them.
 The library goes to ``build/fries_tpu_torch/libfries_kernels.so`` under the
 repository root, keyed on a hash of the sources (a stale build is rebuilt).
 It is built at first use, never at import.  There is no fallback: without
-nvcc or a CUDA device the loader raises.
+nvcc or a CUDA device the loader raises, and after loading it launches the
+backend probe (:func:`probe_copy`, ``csrc/probe_copy.cu``) once and raises
+if the launch fails or the copy differs.
 """
 
 from __future__ import annotations
@@ -24,7 +26,12 @@ LIB_NAME = "libfries_kernels.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC"]
 
+PROBE_SHAPE = (16, 128)   # two blocks of (8, 128), as pallas_merge.py:77
+
 _LIB: ctypes.CDLL | None = None
+
+PROBE_LAUNCHES = 0
+"""Kernel launches made by :func:`probe_copy` (CUDA tensors only)."""
 
 
 def sources() -> list[Path]:
@@ -90,8 +97,40 @@ def load() -> ctypes.CDLL:
             raise RuntimeError("the CUDA kernels need a CUDA device")
         lib = ctypes.CDLL(str(build()))
         lib.fries_error_string.restype = ctypes.c_char_p
+        x = torch.arange(PROBE_SHAPE[0] * PROBE_SHAPE[1], dtype=torch.float32,
+                         device="cuda").reshape(PROBE_SHAPE)
+        if not torch.equal(_probe_copy(lib, x), probe_copy_plain(x)):
+            raise RuntimeError("the kernel library's probe copy gave a wrong result")
         _LIB = lib
     return _LIB
+
+
+def probe_copy_plain(x):
+    """Kernel #5's plain version: a copy."""
+    return x.clone()
+
+
+def probe_copy(x):
+    """The backend probe's (16, 128) f32 copy: the CUDA kernel for a tensor
+    on the card, the plain version for a tensor on the CPU."""
+    if not x.is_cuda:
+        return probe_copy_plain(x)
+    return _probe_copy(load(), x)
+
+
+def _probe_copy(lib, x):
+    global PROBE_LAUNCHES
+    import torch
+
+    check_tensor("probe_copy", "x", x, torch.float32, PROBE_SHAPE)
+    out = torch.empty_like(x)
+    err = lib.fries_probe_copy(ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(out.data_ptr()),
+                               ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream))
+    if err != 0:
+        raise RuntimeError(f"probe_copy launch failed: {err} "
+                           f"({lib.fries_error_string(err).decode()})")
+    PROBE_LAUNCHES += 1
+    return out
 
 
 def check_tensor(kernel: str, name: str, t, dtype, shape) -> None:

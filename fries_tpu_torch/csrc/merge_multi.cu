@@ -1,10 +1,11 @@
-// Multi-row sorted merge: spawns that each carry their destination value row
-// merged into the sorted arena of R value rows.
+// Kernel C: the multi-row sorted merge; spawns that each carry their
+// destination value row merged into the sorted arena of R value rows.
 //
-// Replaces the TPU kernel fries_tpu/runtime/pallas_merge.py:_make_kernel_multi
-// (launched by _merge_call_multi), reached through arena.accumulate_multi_best
-// from the subspace driver.  Contract (see fries_tpu_torch/runtime/
-// merge_multi.py): the result of arena.accumulate_multi.
+// Replaces the TPU kernel fries_tpu/runtime/pallas_merge.py:894
+// _make_kernel_multi (launched by _merge_call_multi), reached through
+// arena.accumulate_multi_best from the subspace driver.  Contract
+// (fries_tpu_torch/runtime/merge_multi.py): the result of
+// arena.accumulate_multi.
 //
 //   * a spawn counts iff its key is valid, its row r_s is in [0, R), and it is
 //     an initiator or lands on an arena key whose value in row r_s is nonzero;
@@ -13,172 +14,25 @@
 //   * n_out counts the merged rows (overflow: n_out > C, the first C kept);
 //     nonini counts non-initiator spawns onto occupied targets, all rows.
 //
-// The TPU kernel walks both streams on a sequential grid with an OR-scan of
-// 2R+2 flag bits in an int32 (hence its R <= 14) and R compensated f32-pair
-// sums.  Blocks on the H100 run in no order, so this is kernel A's rank
-// arithmetic generalized to R rows, with native f64 values and int64 keys;
-// R is bounded only by the per-thread sum array (kMaxRows).  Memory-bound:
-// about C*(8 + 8R) bytes of arena in and out plus S*(8+8+4+1) of spawns, and
-// the binary searches, which hit L2.  Passes:
-//
-//   1. per spawn: binary search in the arena, the counted flag against the
-//      spawn's own row, the non-initiator-onto-occupied count;
-//   2. per segment head: one walk over the segment summing the R rows in
-//      sorted order (native f64) and counting the counted spawns; found
-//      keys write their R sums to a_add, new keys to new_val;
-//   3. alive flags (valid arena keys, new keys with a counted spawn) and two
-//      exclusive scans;
-//   4. scatter to rankA + #new keys below, sentinel fill of the tail.
+// What bounds it on the H100: bytes, about (16 + 8R) B per valid arena row
+// read, 41 B per spawn (sorted key, permutation, gathered value, row and
+// flag) and (16 + 8R) B per arena row written at capacity.  The TPU kernel
+// walks both streams on a sequential grid with an OR-scan of 2R+2 flag bits
+// in an int32 (hence its R <= 14); here kernel A's design (merge_common.cuh)
+// runs with one channel per value row, R <= 32 (one look-back lane each).
 
 #include "merge_common.cuh"
 
-namespace {
-
-constexpr int kMaxRows = 32;  // runtime/merge_multi.py MAX_ROWS
-
-constexpr uint8_t kCounted = 1;
-constexpr uint8_t kFound = 2;
-constexpr uint8_t kHead = 4;
-
-__global__ void spawn_lookup_multi(const int64_t* akey, const double* avals,
-                                   const int64_t* skey, const int32_t* srow,
-                                   const uint8_t* sini, int64_t sentinel,
-                                   int64_t c, int64_t s, int64_t r,
-                                   int64_t* s_pos, uint8_t* s_flag,
-                                   unsigned long long* nonini_out) {
-  const int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
-  bool nonini = false;
-  if (i < s) {
-    const int64_t k = skey[i];
-    const int32_t row = srow[i];
-    const bool key_valid = k != sentinel;
-    const bool valid = key_valid && row >= 0 && row < r;
-    const int64_t pos = lower_bound(akey, c, k);
-    const bool found = key_valid && pos < c && akey[pos] == k;
-    const bool occupied = valid && found && avals[row * c + pos] != 0.0;
-    const bool ini = sini[i] != 0;
-    const bool head = key_valid && (i == 0 || skey[i - 1] != k);
-    nonini = valid && !ini && occupied;
-    s_pos[i] = pos;
-    s_flag[i] = (valid && (ini || occupied) ? kCounted : 0) |
-                (found ? kFound : 0) | (head ? kHead : 0);
-  }
-  const unsigned ballot = __ballot_sync(0xffffffffu, nonini);
-  if ((threadIdx.x & 31) == 0 && ballot)
-    atomicAdd(nonini_out, (unsigned long long)__popc(ballot));
-}
-
-__global__ void segment_sums_multi(const int64_t* skey, const double* sval,
-                                   const int32_t* srow, const int64_t* s_pos,
-                                   const uint8_t* s_flag, int64_t c, int64_t s,
-                                   int64_t r, double* a_add, double* new_val,
-                                   int64_t* new_flag) {
-  const int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
-  if (i >= s) return;
-  const uint8_t f = s_flag[i];
-  if (!(f & kHead)) { new_flag[i] = 0; return; }
-  const int64_t k = skey[i];
-  double sum[kMaxRows];
-  for (int64_t row = 0; row < r; ++row) sum[row] = 0.0;
-  int64_t cnt = 0;
-  for (int64_t j = i; j < s && skey[j] == k; ++j) {
-    if (s_flag[j] & kCounted) { sum[srow[j]] += sval[j]; ++cnt; }
-  }
-  if (f & kFound) {
-    const int64_t pos = s_pos[i];
-    for (int64_t row = 0; row < r; ++row) a_add[row * c + pos] = sum[row];
-    new_flag[i] = 0;
-  } else {
-    for (int64_t row = 0; row < r; ++row) new_val[row * s + i] = sum[row];
-    new_flag[i] = cnt > 0;
-  }
-}
-
-__global__ void arena_valid(const int64_t* akey, int64_t sentinel, int64_t c,
-                            int64_t* alive) {
-  const int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
-  if (i < c) alive[i] = akey[i] != sentinel;
-}
-
-__global__ void scatter_arena_multi(const int64_t* akey, const double* avals,
-                                    const double* a_add, const int64_t* skey,
-                                    const int64_t* scan_a, const int64_t* scan_n,
-                                    int64_t c, int64_t s, int64_t r,
-                                    int64_t* okey, double* ovals) {
-  const int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
-  if (i >= c || scan_a[i + 1] == scan_a[i]) return;  // sentinel slot
-  const int64_t k = akey[i];
-  const int64_t out = scan_a[i] + scan_n[lower_bound(skey, s, k)];
-  if (out >= c) return;
-  okey[out] = k;
-  for (int64_t row = 0; row < r; ++row)
-    ovals[row * c + out] = avals[row * c + i] + a_add[row * c + i];
-}
-
-__global__ void scatter_new_multi(const int64_t* skey, const int64_t* s_pos,
-                                  const double* new_val, const int64_t* scan_a,
-                                  const int64_t* scan_n, int64_t c, int64_t s,
-                                  int64_t r, int64_t* okey, double* ovals) {
-  const int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
-  if (i >= s || scan_n[i + 1] == scan_n[i]) return;  // not a live new key
-  const int64_t out = scan_n[i] + scan_a[s_pos[i]];
-  if (out >= c) return;
-  okey[out] = skey[i];
-  for (int64_t row = 0; row < r; ++row)
-    ovals[row * c + out] = new_val[row * s + i];
-}
-
-__global__ void fill_tail_multi(const int64_t* scan_a, const int64_t* scan_n,
-                                int64_t sentinel, int64_t c, int64_t s,
-                                int64_t r, int64_t* okey, double* ovals,
-                                int64_t* stats) {
-  const int64_t j = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
-  const int64_t n_out = scan_a[c] + scan_n[s];
-  if (j == 0) stats[0] = n_out;
-  if (j >= c || j < n_out) return;
-  okey[j] = sentinel;
-  for (int64_t row = 0; row < r; ++row) ovals[row * c + j] = 0.0;
-}
-
-}  // namespace
-
-// All pointers are device pointers; avals/ovals are (R, C) row-major, srow
-// int32.  Scratch: s_pos (S), s_flag (S), new_val (R*S), a_add (R*C),
-// scan_a (C+1), scan_n (S+1), bsum (ceil((C+1)/1024) + ceil((S+1)/1024)).
-// stats = {n_out, nonini}.  R outside [1, kMaxRows] is refused.
-extern "C" int fries_merge_multi(const int64_t* akey, const double* avals,
-                                 const int64_t* skey, const double* sval,
-                                 const int32_t* srow, const uint8_t* sini,
-                                 int64_t sentinel, int64_t c, int64_t s,
-                                 int64_t r, int64_t* s_pos, uint8_t* s_flag,
-                                 double* new_val, double* a_add,
-                                 int64_t* scan_a, int64_t* scan_n,
-                                 int64_t* bsum, int64_t* okey, double* ovals,
-                                 int64_t* stats, void* stream_ptr) {
-  if (r < 1 || r > kMaxRows) return cudaErrorInvalidValue;
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  cudaError_t err;
-  if ((err = cudaMemsetAsync(stats, 0, 2 * sizeof(int64_t), stream))) return err;
-  if ((err = cudaMemsetAsync(a_add, 0, r * c * sizeof(double), stream))) return err;
-  if ((err = cudaMemsetAsync(scan_a + c, 0, sizeof(int64_t), stream))) return err;
-  if ((err = cudaMemsetAsync(scan_n + s, 0, sizeof(int64_t), stream))) return err;
-
-  spawn_lookup_multi<<<blocks(s), kThreads, 0, stream>>>(
-      akey, avals, skey, srow, sini, sentinel, c, s, r, s_pos, s_flag,
-      reinterpret_cast<unsigned long long*>(stats + 1));
-  segment_sums_multi<<<blocks(s), kThreads, 0, stream>>>(
-      skey, sval, srow, s_pos, s_flag, c, s, r, a_add, new_val, scan_n);
-  arena_valid<<<blocks(c), kThreads, 0, stream>>>(akey, sentinel, c, scan_a);
-  if ((err = cudaGetLastError())) return err;
-  if ((err = exclusive_scan(scan_a, c + 1, bsum, stream))) return err;
-  if ((err = exclusive_scan(scan_n, s + 1, bsum + (c + kScanTile) / kScanTile,
-                            stream)))
-    return err;
-  scatter_arena_multi<<<blocks(c), kThreads, 0, stream>>>(
-      akey, avals, a_add, skey, scan_a, scan_n, c, s, r, okey, ovals);
-  scatter_new_multi<<<blocks(s), kThreads, 0, stream>>>(
-      skey, s_pos, new_val, scan_a, scan_n, c, s, r, okey, ovals);
-  fill_tail_multi<<<blocks(c), kThreads, 0, stream>>>(
-      scan_a, scan_n, sentinel, c, s, r, okey, ovals, stats);
-  return cudaGetLastError();
+// As fries_merge (merge.cu), with srow (S) int64 the spawns' rows and R =
+// n_rows value rows, each its own channel.  R outside [1, 32] is refused.
+extern "C" int fries_merge_multi(const int64_t* akw, const double* avals, int64_t c, int w,
+                                 int n_rows, const int64_t* skey, const int64_t* perm,
+                                 const double* sval, const int64_t* srow, const uint8_t* sini,
+                                 int64_t s, int64_t sentinel, int64_t* ukey, double* usum,
+                                 int32_t* ucnt, double* records, int64_t* ctrl, int64_t* okw,
+                                 double* ovals, uint8_t* overflow, void* stream) {
+  const MergeArgs a{akw, avals, nullptr, c, n_rows, 1, 0, 0,
+                    skey, perm, sval, sini, srow, s, n_rows, sentinel,
+                    ukey, usum, ucnt, records, ctrl, okw, ovals, overflow};
+  return launch_merge(a, w, static_cast<cudaStream_t>(stream));
 }

@@ -1,7 +1,7 @@
 """Sorted-merge accumulate: dispatch between the plain torch merge
 (:func:`fries_tpu_torch.runtime.arena.accumulate`, after
 :func:`~fries_tpu_torch.runtime.arena.compact` when a keep mask is given) and
-the CUDA kernel ``csrc/merge.cu``.
+the CUDA kernel ``csrc/merge.cu`` (kernel A).
 
 Replaces the TPU kernel ``fries_tpu/runtime/pallas_merge.py:_kernel_v2``
 (and the v1 ``_kernel``, which computes the same function), reached through
@@ -22,12 +22,13 @@ The fused form equals compact-then-accumulate because the power step zeroes
 the dest row before each merge.  Layouts: (n_vecs, origin, dest) in
 {(1, 0, 0), (2, 0, 1)}.
 
-On the H100 the merge is memory-bound: about C*(8+16) + S*(8+8+1) bytes per
-call plus the O(log) binary-search reads, which hit L2.  The simple design is
-a handful of plain kernels (lookup, per-segment sums in sorted order,
-alive flags, two hand-written exclusive scans, scatter), each one pass over
-its stream with coalesced loads; the spawn sort runs before it with
-``torch.sort``.
+On the card the spawn keys are packed and sorted with ``torch.sort``
+(:func:`sort_spawns`); everything else is the kernel entry, four device
+operations (``csrc/merge_common.cuh`` has the design): it reads the arena's
+(C, W) words and (R, C) value rows and the spawns through the sort's
+permutation, and writes the merged arena's words and value rows.  The
+returned ``n_used`` and ``nonini_occ_add`` are views of the kernel's control
+block.
 """
 
 from __future__ import annotations
@@ -40,7 +41,8 @@ from fries_tpu_torch import _build, dets
 from fries_tpu_torch.runtime import arena as arena_mod
 
 F64 = torch.float64
-SCAN_TILE = 1024   # elements per scan block in csrc/merge.cu
+TILE = 1024        # kTile in csrc/merge_common.cuh
+CTRL_HEAD = 8      # kCtrlHead: {n_out, nonini_occ_add, n_used, ...}
 
 LAUNCHES = 0
 """Kernel launches made by :func:`accumulate` (CUDA tensors only)."""
@@ -68,6 +70,59 @@ def accumulate_plain(arena, spawn_keys, spawn_vals, spawn_ini,
                                 origin_row, dest_row)
 
 
+def sort_spawns(spawn_keys):
+    """The spawn stream's packed keys sorted (stable) and the permutation:
+    the work a CUDA merge does before its kernel entry."""
+    return torch.sort(dets.pack_key(spawn_keys), stable=True)
+
+
+def ptr(t):
+    """A tensor's device pointer for a C entry (NULL for None)."""
+    return ctypes.c_void_p(t.data_ptr() if t is not None else 0)
+
+
+def launch(kernel, entry, arena, spawn_keys, spawn_vals, spawn_ini, n_chan,
+           arena_args=(), spawn_args=()):
+    """Sort the spawns, allocate what kernel A or C writes and call its C
+    entry ``entry`` with the arena's words, values, C, W and R, then
+    ``arena_args``, the sorted keys, the permutation, the values, then
+    ``spawn_args``, the initiator flags, S, the sentinel, the scratch, the
+    control block, the outputs and the stream.  Returns the merged arena
+    and its stats."""
+    c, w = arena.keys.shape
+    s = spawn_keys.shape[0]
+    if c < 1 or s < 1:
+        raise ValueError(f"{kernel}: arena and spawn stream must be non-empty")
+    if c + s >= 2**31:
+        raise ValueError(f"{kernel}: C + S must stay below 2^31, got {c + s}")
+    dev = arena.device
+    keys, vals = arena.keys.contiguous(), arena.vals.contiguous()
+    _build.check_tensor(kernel, "arena keys", keys, torch.int64, (c, w))
+    _build.check_tensor(kernel, "arena values", vals, F64, (arena.n_vecs, c))
+    _build.check_tensor(kernel, "spawn values", spawn_vals, F64, (s,))
+    _build.check_tensor(kernel, "spawn initiator flags", spawn_ini, torch.bool, (s,))
+    skey, perm = sort_spawns(spawn_keys)
+    nt_r, nt_m = -(-s // TILE), -(-(c + s) // TILE)
+    scratch = (torch.empty(s, dtype=torch.int64, device=dev),               # unique keys
+               torch.empty(2 * n_chan * s, dtype=F64, device=dev),          # their sums
+               torch.empty((n_chan + 1) * s, dtype=torch.int32, device=dev),  # their counts
+               torch.empty(2 * nt_r * (2 + 3 * n_chan), dtype=F64, device=dev))  # look-back
+    ctrl = torch.empty(CTRL_HEAD + nt_r + nt_m, dtype=torch.int64, device=dev)
+    okw = torch.empty((c, w), dtype=torch.int64, device=dev)
+    ovals = torch.empty((arena.n_vecs, c), dtype=F64, device=dev)
+    overflow = torch.empty((), dtype=torch.bool, device=dev)
+    err = getattr(_build.load(), entry)(
+        ptr(keys), ptr(vals), ctypes.c_int64(c), ctypes.c_int(w), ctypes.c_int(arena.n_vecs),
+        *arena_args, ptr(skey), ptr(perm), ptr(spawn_vals), *spawn_args, ptr(spawn_ini),
+        ctypes.c_int64(s), ctypes.c_int64(dets.sentinel_key(w)), *map(ptr, scratch),
+        ptr(ctrl), ptr(okw), ptr(ovals), ptr(overflow),
+        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    if err != 0:
+        raise RuntimeError(f"{kernel} kernel launch failed: {_build.error_string(err)}")
+    return (arena_mod.Arena(keys=okw, vals=ovals, n_used=ctrl[2:3]),
+            {"overflow": overflow, "nonini_occ_add": ctrl[1]})
+
+
 def _accumulate_cuda(arena, spawn_keys, spawn_vals, spawn_ini, origin_row,
                      dest_row, keep_mask):
     global LAUNCHES
@@ -75,54 +130,11 @@ def _accumulate_cuda(arena, spawn_keys, spawn_vals, spawn_ini, origin_row,
     if layout not in ((1, 0, 0), (2, 0, 1)):
         raise NotImplementedError(
             f"merge kernel takes (n_vecs, origin, dest) in (1,0,0)|(2,0,1), got {layout}")
-    c, w = arena.keys.shape
-    s = spawn_keys.shape[0]
-    if c < 1 or s < 1:
-        raise ValueError("merge: arena and spawn stream must be non-empty")
-    dev = arena.device
-    akey = dets.pack_key(arena.keys).contiguous()
-    skey, perm = torch.sort(dets.pack_key(spawn_keys), stable=True)
-    sval = spawn_vals[perm].to(F64).contiguous()
-    sini = spawn_ini[perm].contiguous()
-    aorig = arena.vals[origin_row].contiguous()
-    adest = arena.vals[dest_row].contiguous()
-    _build.check_tensor("merge", "arena keys", akey, torch.int64, (c,))
-    _build.check_tensor("merge", "arena origin row", aorig, F64, (c,))
-    _build.check_tensor("merge", "spawn keys", skey, torch.int64, (s,))
-    _build.check_tensor("merge", "spawn values", sval, F64, (s,))
-    _build.check_tensor("merge", "spawn initiator flags", sini, torch.bool, (s,))
     if keep_mask is not None:
         keep_mask = keep_mask.contiguous()
-        _build.check_tensor("merge", "keep mask", keep_mask, torch.bool, (c,))
-
-    i64 = dict(dtype=torch.int64, device=dev)
-    s_pos = torch.empty(s, **i64)
-    s_flag = torch.empty(s, dtype=torch.uint8, device=dev)
-    new_val = torch.empty(s, dtype=F64, device=dev)
-    a_add = torch.empty(c, dtype=F64, device=dev)
-    a_hit = torch.empty(c, dtype=torch.uint8, device=dev)
-    scan_a = torch.empty(c + 1, **i64)
-    scan_n = torch.empty(s + 1, **i64)
-    bsum = torch.empty(-(-(c + 1) // SCAN_TILE) + -(-(s + 1) // SCAN_TILE), **i64)
-    okey = torch.empty(c, **i64)
-    oorig = torch.empty(c, dtype=F64, device=dev)
-    odest = torch.empty(c, dtype=F64, device=dev) if layout[0] == 2 else oorig
-    stats = torch.empty(2, **i64)
-
-    p = lambda t: ctypes.c_void_p(t.data_ptr() if t is not None else 0)
-    err = _build.load().fries_merge(
-        p(akey), p(aorig), p(adest if layout[0] == 2 else None), p(keep_mask),
-        p(skey), p(sval), p(sini), ctypes.c_int64(dets.sentinel_key(w)),
-        ctypes.c_int64(c), ctypes.c_int64(s),
-        p(s_pos), p(s_flag), p(new_val), p(a_add), p(a_hit),
-        p(scan_a), p(scan_n), p(bsum),
-        p(okey), p(oorig), p(odest if layout[0] == 2 else None), p(stats),
-        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
-    if err != 0:
-        raise RuntimeError(f"merge kernel launch failed: {_build.error_string(err)}")
+        _build.check_tensor("merge", "keep mask", keep_mask, torch.bool, (arena.capacity,))
+    out = launch("merge", "fries_merge", arena, spawn_keys, spawn_vals.to(F64).contiguous(),
+                 spawn_ini.contiguous(), 1,
+                 arena_args=(ptr(keep_mask), ctypes.c_int(origin_row), ctypes.c_int(dest_row)))
     LAUNCHES += 1
-    n_out = stats[0]
-    vals = torch.stack([oorig, odest]) if layout[0] == 2 else oorig[None]
-    new_arena = arena_mod.Arena(keys=dets.unpack_key(okey, w), vals=vals,
-                                n_used=n_out.clamp_max(c)[None])
-    return new_arena, {"overflow": n_out > c, "nonini_occ_add": stats[1]}
+    return out

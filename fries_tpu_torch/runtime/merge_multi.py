@@ -10,26 +10,21 @@ initiator rule checks occupancy in that row; every valid arena row passes
 through (no fused compaction: the subspace compacts before it spawns).
 
 The Pallas kernel's bound of 14 rows comes from its int32 flag word; kernel C
-sums each segment's rows in a per-thread array and takes up to
-:data:`MAX_ROWS`.  On the H100 the merge is memory-bound: about
-C*(8 + 8R) + S*(8+8+4+1) bytes per call plus the binary searches, which hit
-L2.  The design is kernel A's (``csrc/merge.cu``): lookup, per-segment sums
-in sorted order, two exclusive scans, scatter; the spawn sort runs before it
-with ``torch.sort``.
+runs kernel A's design (``csrc/merge_common.cuh``) with one channel per
+value row and takes up to :data:`MAX_ROWS`.  The spawn sort runs before it
+with ``torch.sort`` (:func:`merge.sort_spawns`).
 """
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
-from fries_tpu_torch import _build, dets
+from fries_tpu_torch import _build
 from fries_tpu_torch.runtime import arena as arena_mod
+from fries_tpu_torch.runtime import merge
 
 F64 = torch.float64
-MAX_ROWS = 32      # kMaxRows in csrc/merge_multi.cu
-SCAN_TILE = 1024   # elements per scan block in csrc/merge_common.cuh
+MAX_ROWS = 32      # kMaxChannels in csrc/merge_common.cuh
 
 LAUNCHES = 0
 """Kernel launches made by :func:`accumulate` (CUDA tensors only)."""
@@ -48,50 +43,14 @@ def accumulate(arena, spawn_keys, spawn_vals, spawn_rows, spawn_ini):
 
 def _accumulate_cuda(arena, spawn_keys, spawn_vals, spawn_rows, spawn_ini):
     global LAUNCHES
-    c, w = arena.keys.shape
     r = arena.n_vecs
-    s = spawn_keys.shape[0]
     if not 1 <= r <= MAX_ROWS:
         raise NotImplementedError(f"merge_multi kernel takes 1..{MAX_ROWS} rows, got {r}")
-    if c < 1 or s < 1:
-        raise ValueError("merge_multi: arena and spawn stream must be non-empty")
-    dev = arena.device
-    akey = dets.pack_key(arena.keys).contiguous()
-    avals = arena.vals.contiguous()
-    skey, perm = torch.sort(dets.pack_key(spawn_keys), stable=True)
-    sval = spawn_vals[perm].to(F64).contiguous()
-    srow = spawn_rows[perm].to(torch.int32).contiguous()
-    sini = spawn_ini[perm].contiguous()
-    _build.check_tensor("merge_multi", "arena keys", akey, torch.int64, (c,))
-    _build.check_tensor("merge_multi", "arena values", avals, F64, (r, c))
-    _build.check_tensor("merge_multi", "spawn keys", skey, torch.int64, (s,))
-    _build.check_tensor("merge_multi", "spawn values", sval, F64, (s,))
-    _build.check_tensor("merge_multi", "spawn rows", srow, torch.int32, (s,))
-    _build.check_tensor("merge_multi", "spawn initiator flags", sini, torch.bool, (s,))
-
-    i64 = dict(dtype=torch.int64, device=dev)
-    s_pos = torch.empty(s, **i64)
-    s_flag = torch.empty(s, dtype=torch.uint8, device=dev)
-    new_val = torch.empty(r * s, dtype=F64, device=dev)
-    a_add = torch.empty(r * c, dtype=F64, device=dev)
-    scan_a = torch.empty(c + 1, **i64)
-    scan_n = torch.empty(s + 1, **i64)
-    bsum = torch.empty(-(-(c + 1) // SCAN_TILE) + -(-(s + 1) // SCAN_TILE), **i64)
-    okey = torch.empty(c, **i64)
-    ovals = torch.empty((r, c), dtype=F64, device=dev)
-    stats = torch.empty(2, **i64)
-
-    p = lambda t: ctypes.c_void_p(t.data_ptr())
-    err = _build.load().fries_merge_multi(
-        p(akey), p(avals), p(skey), p(sval), p(srow), p(sini),
-        ctypes.c_int64(dets.sentinel_key(w)), ctypes.c_int64(c), ctypes.c_int64(s),
-        ctypes.c_int64(r), p(s_pos), p(s_flag), p(new_val), p(a_add),
-        p(scan_a), p(scan_n), p(bsum), p(okey), p(ovals), p(stats),
-        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
-    if err != 0:
-        raise RuntimeError(f"merge_multi kernel launch failed: {_build.error_string(err)}")
+    spawn_rows = spawn_rows.to(torch.int64).contiguous()
+    _build.check_tensor("merge_multi", "spawn rows", spawn_rows, torch.int64,
+                        (spawn_keys.shape[0],))
+    out = merge.launch("merge_multi", "fries_merge_multi", arena, spawn_keys,
+                       spawn_vals.to(F64).contiguous(), spawn_ini.contiguous(), r,
+                       spawn_args=(merge.ptr(spawn_rows),))
     LAUNCHES += 1
-    n_out = stats[0]
-    new_arena = arena_mod.Arena(keys=dets.unpack_key(okey, w), vals=ovals,
-                                n_used=n_out.clamp_max(c)[None])
-    return new_arena, {"overflow": n_out > c, "nonini_occ_add": stats[1]}
+    return out

@@ -189,3 +189,62 @@ def test_multi_row_merge_edge_cases(case):
                                        invalid_frac=0.0)
     stats = check_multi(a, sk, sv, sr, si)
     assert bool(stats["overflow"]) == (case == "overflow")
+
+
+# ---------------------------------------------------------------------------
+# the regimes the card's merges are sensitive to (runs of one key longer than
+# a tile, a full arena, every / no spawn found, one-word keys, many rows)
+# ---------------------------------------------------------------------------
+
+REGIMES = ["long_run", "full_arena", "all_found", "none_found", "one_word"]
+
+
+def packed(keys):
+    return np.asarray(jd.pack_key(jnp.asarray(keys)))
+
+
+def regime_case(rng, regime, n_vecs=1):
+    """rand_case's arena and spawns, reshaped into ``regime``."""
+    n_words = 1 if regime == "one_word" else 2
+    if regime == "full_arena":   # every slot holds a key
+        a, sk, sv, si = rand_case(rng, n_words, 512, 512, 700, 1200, n_vecs=n_vecs)
+        assert int(a.n_used[0]) == 512
+        return a, sk, sv, si
+    a, sk, sv, si = rand_case(rng, n_words, 1024, 400, 700, 800, n_vecs=n_vecs)
+    n = int(a.n_used[0])
+    okeys = np.asarray(a.keys)[:n]
+    if regime == "long_run":     # 600 spawns on one arena key: longer than the Pallas TILE
+        assert 600 > pallas_merge.TILE
+        sk[:600] = okeys[np.argmax(np.abs(np.asarray(a.vals[0])[:n]))]
+    elif regime == "all_found":
+        sk = okeys[rng.integers(0, n, sk.shape[0])]
+    elif regime == "none_found":
+        fresh = rng.integers(0, 2**20, size=(4 * sk.shape[0], n_words), dtype=np.uint32)
+        fresh = fresh[~np.isin(packed(fresh), packed(okeys))]
+        sk = fresh[: sk.shape[0]]
+    return a, sk, sv, si
+
+
+@pytest.mark.parametrize("layout", [(1, 0, 0), (2, 0, 1)])
+@pytest.mark.parametrize("regime", REGIMES)
+def test_merge_regimes(regime, layout):
+    n_vecs, origin, dest = layout
+    rng = np.random.default_rng(300 + REGIMES.index(regime))
+    a, sk, sv, si = regime_case(rng, regime, n_vecs)
+    keep = rng.random(a.capacity) < 0.05 if n_vecs == 2 else None
+    got, gstats = port_merge(a, sk, sv, si, origin, dest, keep)
+    for ref, rstats in both_references(a, sk, sv, si, origin, dest, keep):
+        assert_same(got, gstats, ref, rstats)
+
+
+@pytest.mark.parametrize("regime", REGIMES + ["rows_14"])
+def test_multi_row_merge_regimes(regime):
+    rng = np.random.default_rng(400 + len(regime))
+    a, sk, sv, si = regime_case(rng, "long_run" if regime == "rows_14" else regime)
+    n_rows = 14 if regime == "rows_14" else 3
+    n = int(a.n_used[0])
+    vals = rng.standard_normal((n_rows, a.capacity))
+    vals[rng.random(vals.shape) < 0.25] = 0.0
+    vals[:, n:] = 0.0
+    a = jar.Arena(keys=a.keys, vals=jnp.asarray(vals), n_used=a.n_used)
+    check_multi(a, sk, sv, rng.integers(0, n_rows, sk.shape[0]).astype(np.int32), si)

@@ -13,7 +13,7 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
-from fries_tpu_torch import compress, dets, probe_reshape, rng as trng, synth  # noqa: E402
+from fries_tpu_torch import _build, compress, dets, probe_reshape, rng as trng, synth  # noqa: E402
 from fries_tpu_torch.drivers import frisys, subspace  # noqa: E402
 from fries_tpu_torch.runtime import arena as ar  # noqa: E402
 from fries_tpu_torch.runtime import emit, merge, merge_multi  # noqa: E402
@@ -126,6 +126,63 @@ def test_merge_edge_cases(cuda, case):
     run_merge(cuda, a, sk, sv, si, (2, 0, 1), torch.zeros(a.capacity, dtype=torch.bool))
 
 
+CARD_REGIMES = ["long_run", "full_arena", "all_found", "none_found", "one_word",
+                "runs_cross_tiles", "one_key", "tile_edges", "empty_arena"]
+
+
+def regime_case(rng, regime):
+    """merge_case reshaped into a regime the kernels' tiles and look-backs
+    are sensitive to (one value row)."""
+    tile = merge.TILE
+    if regime == "full_arena":     # every slot holds a key
+        a, sk, sv, si = merge_case(rng, 2, 512, 512, 700, 1200)
+        assert int(a.n_used[0]) == 512
+    elif regime in ("runs_cross_tiles", "one_key"):
+        a, sk, sv, si = merge_case(rng, 2, 1 << 15, 12000, 40000, 30000)
+        n = int(a.n_used[0])
+        if regime == "one_key":    # every spawn on one arena key, 40 reduce tiles
+            sk[:] = a.keys[rng.integers(n)]
+        else:                      # runs of 5000 (an arena key) and 3000 (a new key)
+            sk[:5000] = a.keys[rng.integers(n)]
+            sk[5000:8000] = torch.tensor([123, 0x0FFFFFFF])
+    elif regime == "tile_edges":   # S = TILE + 1, arena of TILE keys: tiles end at edges
+        a, sk, sv, si = merge_case(rng, 2, 4 * tile, tile, tile + 1, 3 * tile)
+    elif regime == "empty_arena":  # n_used = 0
+        a = ar.make(1024, 2, 1)
+        sk = torch.as_tensor(rng.integers(0, 2**16, size=(700, 2)))
+        sv = torch.as_tensor(rng.standard_normal(700))
+        si = torch.as_tensor(rng.random(700) < 0.6)
+    else:
+        a, sk, sv, si = merge_case(rng, 1 if regime == "one_word" else 2, 1024, 400, 700, 800)
+        n = int(a.n_used[0])
+        if regime == "long_run":   # 600 spawns on one key, longer than the Pallas TILE
+            sk[:600] = a.keys[rng.integers(n)]
+        elif regime == "all_found":
+            sk = a.keys[torch.as_tensor(rng.integers(0, n, sk.shape[0]))]
+        elif regime == "none_found":
+            fresh = torch.as_tensor(rng.integers(0, 2**20, size=(4 * sk.shape[0], 2)))
+            fresh = fresh[~torch.isin(dets.pack_key(fresh), dets.pack_key(a.keys[:n]))]
+            sk = fresh[: sk.shape[0]]
+    return a, sk, sv, si
+
+
+@pytest.mark.parametrize("layout", [(1, 0, 0), (2, 0, 1)])
+@pytest.mark.parametrize("regime", CARD_REGIMES)
+def test_merge_regimes(cuda, regime, layout):
+    rng = np.random.default_rng(500 + CARD_REGIMES.index(regime))
+    a, sk, sv, si = regime_case(rng, regime)
+    keep = torch.as_tensor(rng.random(a.capacity) < 0.05) if layout[0] == 2 else None
+    run_merge(cuda, a, sk, sv, si, layout, keep)
+
+
+def test_merge_shapes_keep_mask_checked(cuda):
+    a = to_dev(ar.make(64, 2, 2), cuda)
+    with pytest.raises(ValueError):
+        merge.accumulate(a, a.keys[:4], torch.zeros(4, dtype=torch.float64, device=cuda),
+                         torch.ones(4, dtype=torch.bool, device=cuda), 0, 1,
+                         keep_mask=torch.ones(32, dtype=torch.bool, device=cuda))
+
+
 # ---------------------------------------------------------------------------
 # kernel C: multi-row merge
 # ---------------------------------------------------------------------------
@@ -177,6 +234,19 @@ def test_merge_multi_edge_cases(cuda, case):
         args = multi_case(rng, 2, 3, 64, 60, 200, 400, ini_frac=1.0, invalid_frac=0.0)
     stats = run_merge_multi(cuda, *args)
     assert bool(stats["overflow"]) == (case == "overflow")
+
+
+@pytest.mark.parametrize("regime", CARD_REGIMES + ["rows_14", "rows_32"])
+def test_merge_multi_regimes(cuda, regime):
+    rng = np.random.default_rng(600 + len(regime))
+    n_rows = {"rows_14": 14, "rows_32": 32}.get(regime, 3)
+    a, sk, sv, si = regime_case(rng, "runs_cross_tiles" if n_rows > 3 else regime)
+    n = int(a.n_used[0])
+    vals = rng.standard_normal((n_rows, a.capacity))
+    vals[rng.random(vals.shape) < 0.25] = 0.0
+    vals[:, n:] = 0.0
+    a = ar.Arena(keys=a.keys, vals=torch.as_tensor(vals), n_used=a.n_used)
+    run_merge_multi(cuda, a, sk, sv, torch.as_tensor(rng.integers(0, n_rows, sk.shape[0])), si)
 
 
 def test_merge_multi_rejects_too_many_rows(cuda):
@@ -357,6 +427,19 @@ def test_probe_reshape_kernel(cuda):
     assert probe_reshape.LAUNCHES == before + 1
     assert torch.equal(got, probe_reshape.reshape_plain(x))
     assert probe_reshape.probe(cuda)
+
+
+def test_probe_copy_kernel(cuda):
+    """Kernel #5, the backend probe: the loader has launched it once; a copy
+    of a random (16, 128) tile equals the plain version."""
+    _build.load()
+    assert _build.PROBE_LAUNCHES >= 1
+    x = torch.randn(_build.PROBE_SHAPE, device=cuda)
+    before = _build.PROBE_LAUNCHES
+    got = _build.probe_copy(x)
+    torch.cuda.synchronize()
+    assert _build.PROBE_LAUNCHES == before + 1
+    assert torch.equal(got, _build.probe_copy_plain(x))
 
 
 # ---------------------------------------------------------------------------
