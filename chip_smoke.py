@@ -12,7 +12,12 @@ Phases, in order; any failure exits non-zero:
 3. kernel A (sorted-merge accumulate) against its plain torch version at the
    1e6 rung's shapes (C = 2^21 arena rows, S = 1,032,768 spawns), both row
    layouts and 200,000 spawns on one key, plus the empty-spawn, empty-arena
-   and overflow cases;
+   and overflow cases; then a made-up stream in the regime of one chunk of
+   the exact-H step (C = 2^18, one-word keys, S = batch x template
+   excitations, no keep mask, a non-zero destination row, 40% of the stream
+   sentinel keys, every target repeated) and, in phase 9, at the
+   semistochastic merge's shapes (S = spawn_cap + the dense block's
+   elements, protected bits in the keep mask);
 4. kernel B (comp_sub emission) against its plain version at the A+B stage's
    shapes (N = 2^21, K = 28) and level E's (N = 1,032,768, K = 7) over the
    dense row source, and at the C+D stage's (N = 1,032,768 parents, E = 14,
@@ -39,7 +44,22 @@ Phases, in order; any failure exits non-zero:
    configuration (``fries_tpu_torch.rung.subspace_config``: the synthetic
    Ne/aug-cc-pVDZ-sized system, 2 states; 2 warm-up + 5 timed steps, the
    counters reset just before the timed steps);
-9. the timings: each kernel's wrapper and its plain version on the inputs of
+9. the semistochastic path: a small system with a protected deterministic
+   space, and one in the even time-reversal sector, stepped on the card and
+   on the CPU from one state; then the ``semistoch`` configuration of
+   ``fries_tpu_torch.rung`` (the 1e6 rung plus a deterministic space; 2 + 5
+   steps), kernel A's and B's launches read around the timed steps;
+10. the exact-H path: small systems stepped chunk by chunk on the card and on
+   the CPU, with and without the dedup and in the even sector; then
+   bench.py's frifull configuration (``rung.frifull_config``: 48 chunks per
+   step; two warm-up blocks of 3 steps, more while the vector holds fewer
+   than its 30,000 nonzeros, then 3 timed steps, each step's ``n_dets`` and
+   ``nnonz`` logged), 48 kernel A launches per step asserted; one real chunk
+   stream (the path's own tensors: the second chunk of the step after the
+   timed ones) merged by the kernel and by its plain version into the arena
+   that holds the first chunk's sums, which phase 11 also times; and 1 + 2
+   steps with ``dedup_cap = 2^19`` from the same state;
+11. the timings: each kernel's wrapper and its plain version on the inputs of
    its check at the main path's shapes (the same seeds), last, since the
    profiler that reads device times slows every later launch of the process.
    For the two merges also the spawn sort alone (``sort_ms``,
@@ -57,6 +77,10 @@ TFLOP/s (the H100 SXM's published peaks).  ``ms``, ``plain_ms`` and
 host's work included; ``device_ms`` and ``plain_device_ms`` the device time
 of one call, from a profiler trace.  Kernel B's entry sums its three
 launches of one frisys step (A+B, C+D, E); its ``shapes`` break that down.
+Kernel A's entry is the rung's case; its ``shapes`` add the exact-H chunk
+(``frifull_chunk``: phase 10's real stream and arena, with the bound of
+those tensors) and the semistochastic merge.  ``launches`` sums a kernel's launches over
+the timed steps of every path (``launches_by_path`` breaks them down).
 Usage: ``python3 chip_smoke.py``.
 """
 
@@ -240,6 +264,48 @@ def rung_merge_case(gen, dev):
                         rung.N_SAMP * 8 // 5)
 
 
+def frifull_chunk_case(gen, dev):
+    """A made-up case for kernel A in the regime of one chunk of the exact-H
+    step: (arena, spawn keys, values, initiator flags).  Keys of the
+    system's width (one word); C = 2^18 with 100,000 rows in use, as many
+    as the arena holds a few chunks into a step, among them rows of zero
+    origin value that carry a sum (an earlier chunk inserted them); S =
+    batch * template excitations, 40% of it the sentinel key, the rest
+    drawn from as many targets as the system has determinants, so each
+    repeats about ten times; no keep mask.  A check only: the timings
+    take the path's own chunk (:func:`phase_frifull`)."""
+    import torch
+    from fries_tpu_torch import rung
+    from fries_tpu_torch.ops import molecule as mol
+
+    cfg = rung.frifull_config()
+    ham = rung.frifull_system()
+    tmpl = mol.ExcitationTemplate.build(ham.n_orb, ham.n_elec)
+    s = cfg.batch * (tmpl.n_doub + tmpl.n_sing)
+    a, sk, sv, si, _ = merge_inputs(gen, dev, cfg.capacity, 100_000, s, 140_000,
+                                    n_words=ham.n_words, invalid_frac=0.4)
+    a = with_rows(a, 2)
+    n = int(a.n_used[0])
+    carried = torch.randn(n, generator=gen, device=dev, dtype=torch.float64)
+    a.vals[1, :n] = torch.where(torch.rand(n, generator=gen, device=dev) < 0.7, carried, 0.0)
+    return a, sk, sv, si
+
+
+def semistoch_merge_case(gen, dev, n_elements):
+    """Kernel A's case at the semistochastic merge's shapes: the rung's arena
+    and ``SPAWN_CAP + n_elements`` spawns, the dense block's all initiators;
+    150 rows of zero origin value protected by their keep bits."""
+    import torch
+    from fries_tpu_torch import rung
+
+    a, sk, sv, si, keep = merge_inputs(gen, dev, rung.CAPACITY, rung.N_SAMP,
+                                       rung.SPAWN_CAP + n_elements, rung.N_SAMP * 8 // 5)
+    si[rung.SPAWN_CAP:] = True
+    dead = torch.nonzero(a.vals[0, :int(a.n_used[0])] == 0)[:150, 0]
+    keep[dead] = True
+    return with_rows(a, 2), sk, sv, si, keep
+
+
 def one_key_stress(a, sk):
     """``sk`` with its first :data:`STRESS_SPAWNS` spawns on one key, the
     arena row of largest origin value: a run far longer than the main path's
@@ -251,10 +317,15 @@ def one_key_stress(a, sk):
 
 
 def check_merge(label, a, sk, sv, si, layout, keep):
+    """Kernel A against its plain version; ``layout`` None takes the arena's
+    value rows as they are, in the power step's (2, 0, 1) layout."""
     from fries_tpu_torch.runtime import merge
 
-    n_vecs, origin, dest = layout
-    a = with_rows(a, n_vecs)
+    if layout is None:
+        origin, dest = 0, 1
+    else:
+        n_vecs, origin, dest = layout
+        a = with_rows(a, n_vecs)
     out = compare_merges(f"merge {label}",
                          merge.accumulate(a, sk, sv, si, origin, dest, keep_mask=keep),
                          merge.accumulate_plain(a, sk, sv, si, origin, dest, keep))
@@ -289,7 +360,14 @@ def phase_merge(dev):
     o = check_merge("overflow", a, sk, sv, si, (2, 0, 1), keep)
     if not o["overflow"]:
         raise AssertionError("merge overflow case did not overflow")
-    return res
+    gen.manual_seed(7)
+    a, sk, sv, si = frifull_chunk_case(gen, dev)
+    chunk = check_merge(f"exact-H chunk regime, made-up stream (C={a.capacity}, "
+                        f"W={a.n_words}, S={sk.shape[0]}), no keep mask, non-zero dest row",
+                        a, sk, sv, si, None, None)
+    if chunk["n_out"] <= int(a.n_used[0]):
+        raise AssertionError("merge exact-H chunk case inserted no key")
+    return {"rung": res, "chunk_regime": chunk}
 
 
 # ---------------------------------------------------------------------------
@@ -559,44 +637,103 @@ def phase_probe(dev):
 # main path
 # ---------------------------------------------------------------------------
 
-def phase_small_step(dev):
-    """A small system stepped on the card and on the CPU (plain versions)
-    from the same state with the same uniforms: keys exact, values close."""
+SMALL_SYMM = (0, 1, 0, 1, 0, 1, 2, 3)
+
+
+def small_steps_match(label, dev, build, n_warm, n_steps, kernel_counts, protected=False):
+    """A small system (8 orbitals, 4 electrons) stepped on the card and on
+    the CPU (plain versions) from the same state with the same uniforms:
+    keys exact, values and metrics within rtol 1e-10.  ``build(ham)`` gives
+    a power iteration's (step, run_steps, state, aux); ``kernel_counts`` maps a
+    wrapper module to the launches it must count per step."""
     import numpy as np
     import torch
     from fries_tpu_torch import synth
-    from fries_tpu_torch.drivers import frisys, power
+    from fries_tpu_torch.drivers import power
     from fries_tpu_torch.runtime import arena as ar
 
-    symm = np.array([0, 1, 0, 1, 0, 1, 2, 3])
-    cfg = frisys.FrisysConfig(eps=0.02, vec_nonz=60, matr_samp=150, capacity=256,
-                              spawn_cap=200, target_norm=200.0, shift_interval=2)
-    step_c, run_c, state, aux_c = frisys.build(
-        synth.make_system(8, 4, symm=symm, seed=3), cfg, seed=4)
-    step_g, _, _, aux_g = frisys.build(
-        synth.make_system(8, 4, symm=symm, seed=3, device=dev), cfg, seed=4)
+    symm = np.array(SMALL_SYMM)
+    step_c, run_c, state, aux_c = build(synth.make_system(8, 4, symm=symm, seed=3))
+    step_g, _, _, aux_g = build(synth.make_system(8, 4, symm=symm, seed=3, device=dev))
     args = lambda aux: (aux["num_keys"], aux["num_vals"], aux["den_keys"],
                         aux["den_vals"], aux["ref_key"])
-    state, _ = run_c(state, *args(aux_c), 20)
+    kw = lambda aux: {"protected_keys": aux["protected_keys"]} if protected else {}
+    state, _ = run_c(state, *args(aux_c), n_warm, **kw(aux_c))
     rng = np.random.default_rng(0)
-    for it in range(3):
+    before = {mod: mod.LAUNCHES for mod in kernel_counts}
+    for it in range(n_steps):
         rns, rn = rng.random(6), float(rng.random())
         a = state.arena
         g_state = power.PowerState(
             ar.Arena(a.keys.to(dev), a.vals.to(dev), a.n_used.to(dev)),
             state.en_shift.to(dev), state.last_norm.to(dev), state.iterat,
             state.generator)
-        state, mc = step_c(state, *args(aux_c), rns=rns, rn_vec=rn)
-        g_state, mg = step_g(g_state, *args(aux_g), rns=rns, rn_vec=rn)
+        state, mc = step_c(state, *args(aux_c), rns=rns, rn_vec=rn, **kw(aux_c))
+        g_state, mg = step_g(g_state, *args(aux_g), rns=rns, rn_vec=rn, **kw(aux_g))
         if not torch.equal(g_state.arena.keys.cpu(), state.arena.keys):
-            raise AssertionError(f"small step {it}: card and CPU keys differ")
+            raise AssertionError(f"{label} step {it}: card and CPU keys differ")
         if not torch.allclose(g_state.arena.vals.cpu(), state.arena.vals,
                               rtol=1e-10, atol=1e-12):
-            raise AssertionError(f"small step {it}: card and CPU values differ")
+            raise AssertionError(f"{label} step {it}: card and CPU values differ")
         for k in mc:
             if not np.isclose(float(mg[k]), float(mc[k]), rtol=1e-10, atol=1e-12):
-                raise AssertionError(f"small step {it}: metric {k} differs")
-    log("small system: 3 steps on the card match the CPU plain path")
+                raise AssertionError(f"{label} step {it}: metric {k} differs")
+        if bool(mc["overflow"]):
+            raise AssertionError(f"{label} step {it}: overflow")
+    for mod, per_step in kernel_counts.items():
+        if mod.LAUNCHES - before[mod] != per_step * n_steps:
+            raise AssertionError(f"{label}: {mod.__name__} counted "
+                                 f"{mod.LAUNCHES - before[mod]} launches in {n_steps} steps")
+    log(f"{label}: {n_steps} steps on the card match the CPU plain path "
+        f"(n_dets {int(mc['n_dets'])}, shift {float(mc['shift']):.4f})")
+
+
+def phase_small_step(dev):
+    """The frisys step at a small size, card against CPU."""
+    from fries_tpu_torch.drivers import frisys
+    from fries_tpu_torch.runtime import emit, merge
+
+    cfg = frisys.FrisysConfig(eps=0.02, vec_nonz=60, matr_samp=150, capacity=256,
+                              spawn_cap=200, target_norm=200.0, shift_interval=2)
+    small_steps_match("small system", dev, lambda ham: frisys.build(ham, cfg, seed=4), 20, 3,
+                      {merge: 1, emit: 3})
+
+
+def phase_small_options(dev):
+    """The semistochastic step (a protected deterministic space of 8) and the
+    even-sector step at a small size, card against CPU."""
+    import dataclasses
+
+    import numpy as np
+    from fries_tpu_torch import rung, synth
+    from fries_tpu_torch.drivers import frisys
+    from fries_tpu_torch.runtime import emit, merge
+
+    cfg = frisys.FrisysConfig(eps=0.02, vec_nonz=60, matr_samp=700, capacity=256,
+                              spawn_cap=400, target_norm=110.0, shift_interval=2)
+    space = rung.determ_space(synth.make_system(8, 4, symm=np.array(SMALL_SYMM), seed=3), 8)
+    small_steps_match("small semistochastic system", dev,
+                      lambda ham: frisys.build(ham, cfg, seed=4, determ_keys=space), 20, 4,
+                      {merge: 1, emit: 3}, protected=True)
+    tr_cfg = dataclasses.replace(cfg, spin_parity=1)
+    small_steps_match("small system, even time-reversal sector", dev,
+                      lambda ham: frisys.build(ham, tr_cfg, seed=4), 20, 4, {merge: 1, emit: 3})
+
+
+def phase_small_frifull(dev):
+    """The chunked exact-H step at a small size (8 chunks of 32 rows), card
+    against CPU: without and with the dedup, and in the even sector."""
+    from fries_tpu_torch.drivers import frifull, power
+    from fries_tpu_torch.runtime import merge
+
+    for label, dedup_cap, parity in (("chunked", 0, 0), ("chunked, dedup", 4096, 0),
+                                     ("chunked, dedup, even sector", 4096, 1)):
+        cfg = power.PowerConfig(eps=0.02, target_nonz=60, capacity=512, target_norm=110.0,
+                                shift_interval=2, init_thresh=1.0, batch=32, spawn_rows=256,
+                                dedup_cap=dedup_cap)
+        small_steps_match(f"small exact-H system ({label})", dev,
+                          lambda ham: frifull.build(ham, cfg, seed=4, spin_parity=parity),
+                          12, 4, {merge: 8})
 
 
 def longest_spawn_segment(spawn, state):
@@ -665,12 +802,16 @@ def phase_main_path(dev):
 def phase_subspace_small(dev):
     """A small subspace system stepped on the card and on the CPU from the
     same state with the same key tree, across a restart and a norm-factor
-    update: keys and counts exact, values and h / d within rtol 1e-10."""
+    update, in the whole space and in the even time-reversal sector
+    (``spin_parity = +1``: folded trial vectors, H * trial, diagonal and
+    spawner): keys and counts exact, values and h / d within rtol 1e-10,
+    one kernel C launch per iteration."""
     import numpy as np
     import torch
     from fries_tpu_torch import dets, rng, synth
     from fries_tpu_torch.drivers import subspace
     from fries_tpu_torch.runtime import arena as ar
+    from fries_tpu_torch.runtime import merge_multi
 
     u_card = rng.KeyTree(11, dev).fold(3).uniform((1000,)).cpu()
     if not torch.equal(u_card, rng.KeyTree(11).fold(3).uniform((1000,))):
@@ -679,35 +820,41 @@ def phase_subspace_small(dev):
     hf = dets.hf_det(8, 4)
     d1, _ = dets.single_parity(hf[None], torch.tensor([1]), torch.tensor([5]))
     tk, tv = torch.stack([hf[None], d1]).numpy(), np.ones((2, 1))
-    cfg = subspace.SubspaceConfig(eps=0.02, n_trial=2, vec_nonz=60, matr_samp=150,
-                                  capacity=256, spawn_cap=200, restart_int=3,
-                                  shift_interval=3)
-    step_c, run_c, state, _ = subspace.build(synth.make_system(8, 4, symm=symm, seed=3),
-                                             cfg, tk, tv, seed=4)
-    step_g, _, _, _ = subspace.build(synth.make_system(8, 4, symm=symm, seed=3, device=dev),
-                                     cfg, tk, tv, seed=4)
-    state, _ = run_c(state, 4)
-    for it in range(4):   # the restart and the update come at iterat 5
-        a = state.arena
-        g_state = subspace.SubspaceState(
-            ar.Arena(a.keys.to(dev), a.vals.to(dev), a.n_used.to(dev)),
-            state.norm_factors.to(dev), state.last_norms.to(dev), rng.KeyTree(4, dev),
-            state.iterat)
-        state, mc = step_c(state)
-        g_state, mg = step_g(g_state)
-        if not torch.equal(g_state.arena.keys.cpu(), state.arena.keys):
-            raise AssertionError(f"subspace small step {it}: card and CPU keys differ")
-        if not torch.allclose(g_state.arena.vals.cpu(), state.arena.vals,
-                              rtol=1e-10, atol=1e-12):
-            raise AssertionError(f"subspace small step {it}: card and CPU values differ")
-        for k in mc:
-            x, y = mg[k].cpu(), mc[k]
-            same = (torch.allclose(x, y, rtol=1e-10, atol=1e-12) if y.is_floating_point()
-                    else torch.equal(x, y))
-            if not same:
-                raise AssertionError(f"subspace small step {it}: metric {k} differs")
-    log("subspace small system: 4 steps on the card match the CPU plain path "
-        "(a restart and a norm-factor update among them)")
+    for spin_parity in (0, 1):
+        label = f"subspace small (spin_parity {spin_parity})"
+        cfg = subspace.SubspaceConfig(eps=0.02, n_trial=2, vec_nonz=60, matr_samp=150,
+                                      capacity=256, spawn_cap=200, restart_int=3,
+                                      shift_interval=3, spin_parity=spin_parity)
+        step_c, run_c, state, _ = subspace.build(
+            synth.make_system(8, 4, symm=symm, seed=3), cfg, tk, tv, seed=4)
+        step_g, _, _, _ = subspace.build(
+            synth.make_system(8, 4, symm=symm, seed=3, device=dev), cfg, tk, tv, seed=4)
+        state, _ = run_c(state, 4)
+        c0 = merge_multi.LAUNCHES
+        for it in range(4):   # the restart and the update come at iterat 5
+            a = state.arena
+            g_state = subspace.SubspaceState(
+                ar.Arena(a.keys.to(dev), a.vals.to(dev), a.n_used.to(dev)),
+                state.norm_factors.to(dev), state.last_norms.to(dev), rng.KeyTree(4, dev),
+                state.iterat)
+            state, mc = step_c(state)
+            g_state, mg = step_g(g_state)
+            if not torch.equal(g_state.arena.keys.cpu(), state.arena.keys):
+                raise AssertionError(f"{label} step {it}: card and CPU keys differ")
+            if not torch.allclose(g_state.arena.vals.cpu(), state.arena.vals,
+                                  rtol=1e-10, atol=1e-12):
+                raise AssertionError(f"{label} step {it}: card and CPU values differ")
+            for k in mc:
+                x, y = mg[k].cpu(), mc[k]
+                same = (torch.allclose(x, y, rtol=1e-10, atol=1e-12) if y.is_floating_point()
+                        else torch.equal(x, y))
+                if not same:
+                    raise AssertionError(f"{label} step {it}: metric {k} differs")
+        if merge_multi.LAUNCHES - c0 != 4:
+            raise AssertionError(f"{label}: {merge_multi.LAUNCHES - c0} kernel C launches "
+                                 "in 4 iterations")
+        log(f"{label}: 4 steps on the card match the CPU plain path (a restart and a "
+            "norm-factor update among them), 1 kernel C launch per iteration")
 
 
 def phase_subspace(dev):
@@ -760,13 +907,177 @@ def phase_subspace(dev):
     return res
 
 
+def check_power_metrics(label, metrics):
+    import torch
+
+    for i, m in enumerate(metrics):
+        if bool(m["overflow"]):
+            raise AssertionError(f"{label}: overflow at step {i}")
+        num, den = float(m["proj_num"]), float(m["proj_den"])
+        if not (torch.isfinite(torch.tensor([num, den])).all() and den != 0):
+            raise AssertionError(f"{label}: non-finite estimator at step {i}")
+
+
+def phase_semistoch(dev):
+    """The ``semistoch`` configuration, then kernel A at its merge's shapes."""
+    import torch
+    from fries_tpu_torch import rung
+    from fries_tpu_torch.runtime import arena as ar
+    from fries_tpu_torch.runtime import emit, merge
+
+    t0 = time.perf_counter()
+    step, state, args, aux = rung.build_semistoch(dev)
+    prot = aux["protected_keys"]
+    torch.cuda.synchronize()
+    n_el, n_det = aux["n_elements"], prot.shape[0]
+    log(f"semistoch: built in {time.perf_counter() - t0:.1f} s (the 1e6 rung plus "
+        f"{n_det} deterministic determinants of at most {rung.N_DETERM}, {n_el} dense "
+        f"elements, sampling budget {rung.N_SAMP - n_el}, merge S = {rung.SPAWN_CAP + n_el})")
+    if not 0 < n_el < rung.DETERM_MAX_SHARE * rung.N_SAMP:
+        raise AssertionError(f"semistoch: dense block of {n_el} elements")
+    for _ in range(N_WARM):
+        state, m = step(state, *args, protected_keys=prot)
+        check_power_metrics("semistoch warm-up", [m])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    merge.LAUNCHES = 0
+    emit.LAUNCHES = 0
+    t0 = time.perf_counter()
+    metrics = []
+    for _ in range(N_TIMED):
+        state, m = step(state, *args, protected_keys=prot)
+        metrics.append(m)
+    torch.cuda.synchronize()
+    s_per_step = (time.perf_counter() - t0) / N_TIMED
+    launches = {"merge": merge.LAUNCHES, "emit": emit.LAUNCHES}
+    check_power_metrics("semistoch", metrics)
+    if launches != {"merge": N_TIMED, "emit": 3 * N_TIMED}:
+        raise AssertionError(f"semistoch did not run through the kernels: {launches}")
+    if not bool(ar.lookup(state.arena, prot)[1].all()):
+        raise AssertionError("semistoch: a protected determinant left the arena")
+    last = metrics[-1]
+    res = {
+        "config": "semistoch", "n_determ": n_det, "n_elements": n_el,
+        "ms_per_step": 1e3 * s_per_step,
+        "sampled_nonzeros_per_s": (rung.N_SAMP - n_el) / s_per_step,
+        "peak_mem_bytes": torch.cuda.max_memory_allocated(), "launches": launches,
+        "n_dets": int(last["n_dets"]), "norm": float(last["norm"]),
+        "e_corr_est": float(last["proj_num"]) / float(last["proj_den"]),
+    }
+    log(f"semistoch: {json.dumps(res)}")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(8)
+    a, sk, sv, si, keep = semistoch_merge_case(gen, dev, n_el)
+    res["merge_check"] = check_merge(
+        f"semistoch shapes (C={a.capacity}, S={sk.shape[0]}), protected keep bits",
+        a, sk, sv, si, None, keep)
+    return res
+
+
+def phase_frifull(dev):
+    """bench.py's frifull configuration, one real chunk stream through the
+    kernel and its plain version, and the dedup variant; returns the results
+    and that chunk's (arena, spawn keys, values, initiator flags)."""
+    import torch
+    from fries_tpu_torch import dets, rung
+    from fries_tpu_torch.runtime import arena as ar
+    from fries_tpu_torch.runtime import merge
+
+    cfg = rung.frifull_config()
+    n_chunks = -(-cfg.spawn_rows // cfg.batch)
+    t0 = time.perf_counter()
+    step, state, args, aux = rung.build_frifull(dev)
+    torch.cuda.synchronize()
+    s_chunk = cfg.batch * aux["n_excitations"]
+    log(f"frifull: built in {time.perf_counter() - t0:.1f} s (14 orbitals, 6 electrons, "
+        f"capacity {cfg.capacity}, {n_chunks} chunks of {cfg.batch} rows, "
+        f"{aux['n_excitations']} template excitations, S = {s_chunk} per chunk)")
+
+    def block(state, step, n, label):
+        metrics = []
+        for _ in range(n):
+            state, m = step(state, *args)
+            metrics.append(m)
+        torch.cuda.synchronize()
+        check_power_metrics(label, metrics)
+        return state, metrics
+
+    n_warm = nnonz = 0
+    while n_warm < 6 or (nnonz < cfg.target_nonz and n_warm < 50):
+        state, ms = block(state, step, 3, "frifull warm-up")
+        n_warm += 3
+        nnonz = int(ms[-1]["nnonz"])
+        log("frifull warm-up: n_dets / nnonz per step "
+            + ", ".join(f"{int(m['n_dets'])} / {int(m['nnonz'])}" for m in ms))
+    torch.cuda.reset_peak_memory_stats()
+    merge.LAUNCHES = 0
+    t0 = time.perf_counter()
+    state, metrics = block(state, step, 3, "frifull")
+    s_per_step = (time.perf_counter() - t0) / 3
+    launches = merge.LAUNCHES
+    if launches != 3 * n_chunks:
+        raise AssertionError(f"frifull: {launches} kernel A launches in 3 steps, "
+                             f"expected {3 * n_chunks}")
+    last = metrics[-1]
+    res = {
+        "config": "bench.py frifull_mol (synthetic)", "ms_per_step": 1e3 * s_per_step,
+        "warm_up_steps": n_warm, "merge_launches_per_step": launches // 3,
+        "spawns_per_chunk": s_chunk, "candidates_per_s": n_chunks * s_chunk / s_per_step,
+        "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+        "n_dets_nnonz_timed_steps": [[int(m["n_dets"]), int(m["nnonz"])] for m in metrics],
+        "norm": float(last["norm"]), "shift": float(last["shift"]),
+        "e_corr_est": float(last["proj_num"]) / float(last["proj_den"]),
+    }
+    log(f"frifull: {json.dumps(res)}")
+
+    # one real stream: chunk 1 merged into the arena that holds chunk 0's sums
+    a = state.arena
+    vals0 = torch.where(a.valid, a.vals[0], 0.0)
+    sentinel = dets.invalid_det(a.n_words, dev)
+    streams = []
+    for i in range(2):
+        rows = slice(i * cfg.batch, (i + 1) * cfg.batch)
+        w, amp, ini = aux["spawn"](a.keys[rows], vals0[rows], -cfg.eps, None)
+        streams.append((torch.where((amp != 0)[:, None], w, sentinel), amp, ini))
+    mid, _ = merge.accumulate(a, *streams[0], 0, 1)
+    skey = dets.pack_key(streams[1][0])
+    valid = skey != dets.sentinel_key(a.n_words)
+    runs = torch.unique_consecutive(torch.sort(skey[valid]).values, return_counts=True)[1]
+    res["real_chunk"] = {
+        "sentinel_share": 1.0 - float(valid.double().mean()),
+        "longest_run": int(runs.max()), "unique_targets": int(runs.shape[0]),
+        "arena_rows": int(mid.n_used[0]),
+        "rows_with_sum_and_zero_origin": int(((mid.vals[0] == 0) & (mid.vals[1] != 0)).sum()),
+        **check_merge("frifull, a real chunk's stream into the arena after chunk 0",
+                      mid, *streams[1], None, None)}
+    log(f"frifull real chunk: {json.dumps(res['real_chunk'])}")
+
+    dedup_cap = 1 << 19
+    step_d, _, _, _ = rung.build_frifull(dev, dedup_cap)
+    state_d, _ = block(state, step_d, 1, "frifull dedup warm-up")
+    torch.cuda.reset_peak_memory_stats()
+    merge.LAUNCHES = 0
+    t0 = time.perf_counter()
+    state_d, metrics_d = block(state_d, step_d, 2, "frifull dedup")
+    res["dedup"] = {"dedup_cap": dedup_cap, "ms_per_step": 1e3 * (time.perf_counter() - t0) / 2,
+                    "merge_launches_per_step": merge.LAUNCHES // 2,
+                    "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+                    "n_dets": int(metrics_d[-1]["n_dets"])}
+    if merge.LAUNCHES != 2 * n_chunks:
+        raise AssertionError(f"frifull dedup: {merge.LAUNCHES} kernel A launches in 2 steps")
+    log(f"frifull dedup: {json.dumps(res['dedup'])}")
+    res["launches"] = {"merge": launches + merge.LAUNCHES}
+    return res, (mid, *streams[1])
+
+
 # ---------------------------------------------------------------------------
 # timings
 # ---------------------------------------------------------------------------
 
-def phase_timings(dev):
+def phase_timings(dev, n_elements, chunk_case):
     """Each kernel's wrapper and its plain version on the inputs of its
-    check at the main path's shapes (the same seeds), with its bound:
+    check at the main path's shapes (the same seeds; ``chunk_case`` is the
+    exact-H path's own chunk), with its bound:
     call times first for every kernel, then device times, since the
     profiler slows every later launch of the process."""
     import torch
@@ -787,6 +1098,18 @@ def phase_timings(dev):
     extras = {"merge": {   # name: {field prefix: call}
         "sort": lambda: merge.sort_spawns(sk),
         "stress": lambda: merge.accumulate(a, sk1, sv, si, 0, 1, keep_mask=keep)}}
+    fa, fsk, fsv, fsi = chunk_case
+    cases["merge frifull_chunk"] = (lambda: merge.accumulate(fa, fsk, fsv, fsi, 0, 1),
+                                    lambda: merge.accumulate_plain(fa, fsk, fsv, fsi, 0, 1),
+                                    merge_bound(fa, (fsk, fsv, fsi)), None)
+    extras["merge frifull_chunk"] = {"sort": lambda: merge.sort_spawns(fsk)}
+    gen.manual_seed(8)
+    sa, ssk, ssv, ssi, skeep = semistoch_merge_case(gen, dev, n_elements)
+    cases["merge semistoch"] = (
+        lambda: merge.accumulate(sa, ssk, ssv, ssi, 0, 1, keep_mask=skeep),
+        lambda: merge.accumulate_plain(sa, ssk, ssv, ssi, 0, 1, skeep),
+        merge_bound(sa, (ssk, ssv, ssi), skeep), None)
+    extras["merge semistoch"] = {"sort": lambda: merge.sort_spawns(ssk)}
     for name, (_, plan) in step_emissions(dev).items():
         kernel, plain = emit_pair(plan)
         _, rp, rs = plain(**plan)
@@ -863,7 +1186,12 @@ def main():
     main_res = phase_main_path(dev)
     phase_subspace_small(dev)
     sub_res = phase_subspace(dev)
-    t = phase_timings(dev)   # last: its profiler would slow the workloads
+    phase_small_options(dev)
+    semi_res = phase_semistoch(dev)
+    phase_small_frifull(dev)
+    full_res, chunk_case = phase_frifull(dev)
+    # last: its profiler slows what follows
+    t = phase_timings(dev, semi_res["n_elements"], chunk_case)
 
     keys = ("ms", "plain_ms", "device_ms", "plain_device_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -874,14 +1202,30 @@ def main():
     shapes = {name: {**timing(f"emit {name}"), "max_abs_err": r["max_abs_err"]}
               for name, r in e.items()}
     step_sum = lambda key: sum(s[key] for s in shapes.values())
+    sort_keys = ("device_ops", "sort_ms", "sort_device_ms", "sort_device_ops")
+    merge_shapes = {
+        name: {**timing(f"merge {name}"), **{key: t[f"merge {name}"][key] for key in sort_keys},
+               "max_abs_err": err}
+        for name, err in (("frifull_chunk", full_res["real_chunk"]["max_abs_err"]),
+                          ("semistoch", semi_res["merge_check"]["max_abs_err"]))}
+    merge_shapes["frifull_chunk"].update(
+        {key: full_res["real_chunk"][key] for key in ("arena_rows", "sentinel_share",
+                                                      "unique_targets", "longest_run")},
+        spawns=full_res["spawns_per_chunk"])
+    by_path = lambda kernel: {path: r["launches"][kernel] for path, r in (
+        ("frisys rung", main_res), ("semistoch", semi_res), ("frifull", full_res))
+        if kernel in r["launches"]}
     kernels = [
         {"name": "merge", "route": "cuda", "source": "fries_tpu_torch/csrc/merge.cu",
          "replaces": "fries_tpu/runtime/pallas_merge.py:617",
-         "launches": main_res["launches"]["merge"], "max_abs_err": m["max_abs_err"],
-         **merge_timing("merge")},
+         "launches": sum(by_path("merge").values()), "launches_by_path": by_path("merge"),
+         "launches_per_frifull_step": full_res["merge_launches_per_step"],
+         "max_abs_err": max(m["rung"]["max_abs_err"], m["chunk_regime"]["max_abs_err"],
+                            *(sh["max_abs_err"] for sh in merge_shapes.values())),
+         **merge_timing("merge"), "shapes": merge_shapes},
         {"name": "emit", "route": "cuda", "source": "fries_tpu_torch/csrc/emit.cu",
          "replaces": "fries_tpu/runtime/pallas_emit.py:147",
-         "launches": main_res["launches"]["emit"],
+         "launches": sum(by_path("emit").values()), "launches_by_path": by_path("emit"),
          "max_abs_err": max(s["max_abs_err"] for s in shapes.values()),
          **{key: step_sum(key) for key in ("ms", "plain_ms", "device_ms", "plain_device_ms",
                                           "bound_ms")},

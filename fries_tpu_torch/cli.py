@@ -1,26 +1,33 @@
-"""Command line of the port: the ``frisys_mol`` and ``subsp_mol`` workloads.
+"""Command line of the port: the ``frifull_mol``, ``frisys_mol`` and
+``subsp_mol`` workloads.
 
 Same flags and per-iteration output streams as ``python -m fries_tpu.cli``:
 
-* ``frisys_mol``: projnum.txt, projden.txt, S.txt, norm.txt, N.txt,
-  nini.txt, nkept.txt, nnonz.txt, sgn_coh.txt, plus params.txt and
+* ``frifull_mol`` (exact H * v; no ``--mat_nonz``) and ``frisys_mol``
+  (``--det_space`` a text file of deterministic-subspace determinants,
+  ``--trial_vec`` / ``--ini_vec`` prefixes of ``<prefix>dets`` /
+  ``<prefix>vals`` text files): projnum.txt, projden.txt, S.txt, norm.txt,
+  N.txt, nini.txt, nkept.txt, nnonz.txt, sgn_coh.txt, plus params.txt and
   arena_occ.txt;
-* ``subsp_mol``: h_mat / d_mat (``--out_format`` txt, bin, npy or none),
-  shifts.txt (the norm factors every shift interval), norms.txt, n_ini.txt
-  and params.txt; the trial vectors are ``<prefix>XXdets`` /
-  ``<prefix>XXvals`` text files or one ``.dice`` file.
+* ``subsp_mol`` (``--time_reversal`` +1 / -1 for a spin-flip sector): h_mat /
+  d_mat (``--out_format`` txt, bin, npy or none), shifts.txt (the norm
+  factors every shift interval), norms.txt, n_ini.txt and params.txt; the
+  trial vectors are ``<prefix>XXdets`` / ``<prefix>XXvals`` text files or one
+  ``.dice`` file.
 
-Both run on ``--device`` (default ``cuda``; a run asking for CUDA where there
+All run on ``--device`` (default ``cuda``; a run asking for CUDA where there
 is no CUDA device stops with an error, ``--device cpu`` runs the plain
-versions on the CPU).  Neither writes ``checkpoint.npz`` (checkpoints are not
-ported), and ``--load_dir``, ``--hf_path``, ``--n_chips > 1`` and, for
-subsp_mol, ``--time_reversal`` other than 0 raise.  The other workloads of
-the reference (``subsp_mol_lowmem`` and ``subspfull_mol`` among them) exit
-with "not ported yet".
+versions on the CPU).  None writes ``checkpoint.npz`` (checkpoints are not
+ported), and ``--load_dir``, ``--hf_path`` and ``--n_chips > 1`` raise.  The
+other workloads of the reference (``fciqmc_mol``, ``frifull_hh``,
+``subsp_mol_lowmem`` and ``subspfull_mol`` among them) exit with "not ported
+yet".
 
 Usage:  python -m fries_tpu_torch.cli frisys_mol --fcidump_path FCIDUMP \\
             --epsilon 1e-3 --vec_nonz 100000 --mat_nonz 100000 \\
-            --max_dets 1000000 --max_iter 10000
+            --max_dets 1000000 --max_iter 10000 [--det_space dets.txt]
+        python -m fries_tpu_torch.cli frifull_mol --fcidump_path FCIDUMP \\
+            --epsilon 5e-3 --vec_nonz 30000 --max_dets 262144
         python -m fries_tpu_torch.cli subsp_mol --fcidump_path FCIDUMP \\
             --epsilon 0.02 --vec_nonz 100000 --mat_nonz 200000 \\
             --max_dets 524288 --trial_vecs trial --num_trial 2
@@ -35,7 +42,7 @@ import sys
 import numpy as np
 
 _OTHER_WORKLOADS = (
-    "frifull_mol", "frimulti_mol", "fciqmc_mol", "fciqmc_fp_mol", "frifull_hh",
+    "frimulti_mol", "fciqmc_mol", "fciqmc_fp_mol", "frifull_hh",
     "frisys_hh", "subsp_mol_lowmem", "subspfull_mol",
     "observables_mol", "obs_repl_mol", "dice_dots",
 )
@@ -47,7 +54,7 @@ _STREAMS = {
 }
 
 
-def _add_common(p):
+def _add_common(p, mat_nonz=True):
     p.add_argument("--fcidump_path")
     p.add_argument("--hf_path")
     p.add_argument("--point_group", default="C1")
@@ -62,8 +69,9 @@ def _add_common(p):
     p.add_argument("--n_chips", type=int, default=1)
     p.add_argument("--epsilon", type=float, required=True)
     p.add_argument("--vec_nonz", type=int, required=True)
-    p.add_argument("--mat_nonz", type=int, required=True)
-    p.add_argument("--ham_shift", type=float)
+    if mat_nonz:
+        p.add_argument("--mat_nonz", type=int, required=True)
+        p.add_argument("--ham_shift", type=float)
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (default cuda; cpu runs the "
                         "plain versions of the kernels)")
@@ -72,6 +80,8 @@ def _add_common(p):
 def _parser():
     parser = argparse.ArgumentParser(prog="fries_tpu_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
+    p = sub.add_parser("frifull_mol", help="exact H*v FRI power method")
+    _add_common(p, mat_nonz=False)
     p = sub.add_parser("frisys_mol", help="systematic HB-PP FCI-FRI")
     _add_common(p)
     p.add_argument("--distribution", default="HB", choices=["HB", "HB_unnorm"])
@@ -114,7 +124,8 @@ def _load(args):
 
     device = _device(args)
     ham, core_en = io.parse_fcidump(args.fcidump_path, args.point_group, device=device)
-    e_ref = None if args.ham_shift is None else args.ham_shift - core_en
+    ham_shift = getattr(args, "ham_shift", None)
+    e_ref = None if ham_shift is None else ham_shift - core_en
     return device, ham, e_ref
 
 
@@ -132,22 +143,10 @@ def _overflow_exit(done, n):
         "Re-run with larger --max_dets (or mat_nonz spawn capacity)")
 
 
-def run_frisys(args):
-    from fries_tpu_torch.drivers import frisys
+def _run_power_driver(args, run_steps, state, aux, protected=None):
+    """The iteration loop of the single-vector drivers: run in blocks and
+    stream the metrics to the reference's output files."""
     from fries_tpu_torch.runtime import arena as ar
-
-    _unported(args, (("hf_path", "HF-directory input"),
-                     ("load_dir", "checkpoint resume"),
-                     ("det_space", "the semistochastic subspace"),
-                     ("trial_vec", "trial vectors from files"),
-                     ("ini_vec", "initial vectors from files")))
-    _, ham, e_ref = _load(args)
-    cfg = frisys.FrisysConfig(
-        eps=args.epsilon, vec_nonz=args.vec_nonz, matr_samp=args.mat_nonz,
-        capacity=args.max_dets, spawn_cap=int(args.mat_nonz * 1.4),
-        init_thresh=args.init_thresh, target_norm=args.target_norm,
-        unnorm=args.distribution == "HB_unnorm")
-    _, run_steps, state, aux = frisys.build(ham, cfg, seed=args.seed, e_ref=e_ref)
 
     _write_params(args)
     est = (aux["num_keys"], aux["num_vals"], aux["den_keys"], aux["den_vals"],
@@ -158,7 +157,7 @@ def run_frisys(args):
         done = 0
         while done < args.max_iter:
             n = min(block, args.max_iter - done)
-            state, traj = run_steps(state, *est, n)
+            state, traj = run_steps(state, *est, n, protected_keys=protected)
             traj = {k: v.cpu().numpy() for k, v in traj.items()}
             if traj["overflow"].any():
                 _overflow_exit(done, n)
@@ -178,6 +177,41 @@ def run_frisys(args):
     finally:
         for f in files.values():
             f.close()
+
+
+_UNPORTED_INPUTS = (("hf_path", "HF-directory input"), ("load_dir", "checkpoint resume"))
+
+
+def run_frifull(args):
+    from fries_tpu_torch.drivers import frifull, power
+
+    _unported(args, _UNPORTED_INPUTS)
+    _, ham, _ = _load(args)
+    cfg = power.PowerConfig(
+        eps=args.epsilon, target_nonz=args.vec_nonz, capacity=args.max_dets,
+        init_thresh=args.init_thresh, target_norm=args.target_norm)
+    _, run_steps, state, aux = frifull.build(ham, cfg, seed=args.seed)
+    _run_power_driver(args, run_steps, state, aux)
+
+
+def run_frisys(args):
+    from fries_tpu_torch import io
+    from fries_tpu_torch.drivers import frisys
+
+    _unported(args, _UNPORTED_INPUTS)
+    _, ham, e_ref = _load(args)
+    determ_keys = io.read_dets(args.det_space, ham.n_bits) if args.det_space else None
+    trial = io.load_vec_txt(args.trial_vec, ham.n_bits) if args.trial_vec else None
+    init_vec = io.load_vec_txt(args.ini_vec, ham.n_bits) if args.ini_vec else None
+    cfg = frisys.FrisysConfig(
+        eps=args.epsilon, vec_nonz=args.vec_nonz, matr_samp=args.mat_nonz,
+        capacity=args.max_dets, spawn_cap=int(args.mat_nonz * 1.4),
+        init_thresh=args.init_thresh, target_norm=args.target_norm,
+        unnorm=args.distribution == "HB_unnorm")
+    _, run_steps, state, aux = frisys.build(
+        ham, cfg, seed=args.seed, determ_keys=determ_keys, trial=trial,
+        init_vec=init_vec, e_ref=e_ref)
+    _run_power_driver(args, run_steps, state, aux, protected=aux["protected_keys"])
 
 
 def _csv(row, fmt=lambda x: repr(float(x))):
@@ -207,16 +241,14 @@ def run_subspace(args):
     from fries_tpu_torch import io
     from fries_tpu_torch.drivers import subspace
 
-    _unported(args, (("hf_path", "HF-directory input"),
-                     ("load_dir", "checkpoint resume"),
-                     ("time_reversal", "the time-reversal sector")))
+    _unported(args, _UNPORTED_INPUTS)
     _, ham, e_ref = _load(args)
     trial_keys, trial_vals = _trial_vectors(args, ham)
     cfg = subspace.SubspaceConfig(
         eps=args.epsilon, n_trial=args.n_trial, vec_nonz=args.vec_nonz,
         matr_samp=args.mat_nonz, capacity=args.max_dets,
         spawn_cap=int(args.mat_nonz * 1.4), restart_int=args.restart_int,
-        init_thresh=args.init_thresh)
+        init_thresh=args.init_thresh, spin_parity=args.time_reversal)
     _, run_steps, state, _ = subspace.build(ham, cfg, trial_keys, trial_vals,
                                             seed=args.seed, e_ref=e_ref)
 
@@ -267,10 +299,11 @@ def run_subspace(args):
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else list(argv)
     if argv and argv[0] in _OTHER_WORKLOADS:
-        raise SystemExit(f"{argv[0]}: not ported yet (the port runs frisys_mol "
-                         "and subsp_mol)")
+        raise SystemExit(f"{argv[0]}: not ported yet (the port runs frifull_mol, "
+                         "frisys_mol and subsp_mol)")
     args = _parser().parse_args(argv)
-    return run_subspace(args) if args.cmd == "subsp_mol" else run_frisys(args)
+    return {"frifull_mol": run_frifull, "frisys_mol": run_frisys,
+            "subsp_mol": run_subspace}[args.cmd](args)
 
 
 if __name__ == "__main__":

@@ -193,6 +193,20 @@ def hf_det(n_orb: int, n_elec: int, n_bits: int | None = None,
 
 
 # ---------------------------------------------------------------------------
+# spin flip (time reversal)
+# ---------------------------------------------------------------------------
+
+def flip_spins_bits(bits: torch.Tensor, n_orb: int) -> torch.Tensor:
+    """Exchange the alpha (0..n_orb-1) and beta (n_orb..2n_orb-1) blocks."""
+    return torch.cat([bits[..., n_orb:2 * n_orb], bits[..., :n_orb],
+                      bits[..., 2 * n_orb:]], dim=-1)
+
+
+def flip_spins(words: torch.Tensor, n_orb: int, n_bits: int) -> torch.Tensor:
+    return pack_bits(flip_spins_bits(unpack_bits(words, n_bits), n_orb), words.shape[-1])
+
+
+# ---------------------------------------------------------------------------
 # comparison and sort keys
 # ---------------------------------------------------------------------------
 
@@ -207,6 +221,12 @@ def is_invalid(words: torch.Tensor) -> torch.Tensor:
 
 def det_eq(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (a == b).all(dim=-1)
+
+
+def det_less(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a < b in the arena's order (the last word is the most significant):
+    the order of :func:`pack_key`."""
+    return pack_key(a) < pack_key(b)
 
 
 def pack_key(words: torch.Tensor) -> torch.Tensor:

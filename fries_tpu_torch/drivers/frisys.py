@@ -19,6 +19,13 @@ and consumes the scalar uniforms ``rns[1]``, ``rns[2]`` and ``rns[4]`` of the
 step's six (the reference's level numbering), or with ``pivotal=True``
 pivotal (``comp_sub_piv``, C+D over the materialized joint) and consumes the
 key nodes ``key.fold(77).split(5)[level]`` (:mod:`fries_tpu_torch.rng`).
+
+Options: the semistochastic deterministic subspace (``determ_keys``: its
+members are exempt from sampling and their dense H block is applied
+exactly), time reversal (``spin_parity`` +1 / -1: sampled excitations and
+the diagonal fold onto the spin-flip symmetrized basis), a trial vector and
+an initial vector other than HF.  ``fuse_ab=False``, ``fuse_cd=False`` and
+sharding over several devices are not ported and raise.
 """
 
 from __future__ import annotations
@@ -32,6 +39,7 @@ from fries_tpu_torch import compress, dets
 from fries_tpu_torch.drivers import power
 from fries_tpu_torch.ops import heat_bath as hb
 from fries_tpu_torch.ops import molecule as mol
+from fries_tpu_torch.ops import time_reversal as tr_mod
 from fries_tpu_torch.runtime import arena as ar
 
 F64 = torch.float64
@@ -48,18 +56,19 @@ class FrisysConfig:
     target_norm: float = 0.0
     shift_interval: int = 10
     shift_damping: float = 0.05
+    shift_tracking: float = 0.0   # see power.PowerConfig.shift_tracking
     unnorm: bool = False
     pivotal: bool = False
-    spin_parity: int = 0
+    spin_parity: int = 0    # time-reversal sector (+1 / -1; 0 = off)
     stage_f32: bool = True
     fuse_ab: bool = True
     fuse_cd: bool = True
     axis_name: str | None = None
     n_shards: int = 1
+    spawn_rows: int = 0     # see power.PowerConfig.spawn_rows
 
     def check_ported(self):
-        for name, bad in (("spin_parity", self.spin_parity),
-                          ("fuse_ab=False", not self.fuse_ab),
+        for name, bad in (("fuse_ab=False", not self.fuse_ab),
                           ("fuse_cd=False", not self.fuse_cd),
                           ("axis_name / n_shards > 1",
                            self.axis_name or self.n_shards > 1)):
@@ -71,7 +80,8 @@ class FrisysConfig:
             eps=self.eps, target_nonz=self.vec_nonz, capacity=self.capacity,
             init_thresh=self.init_thresh, target_norm=self.target_norm,
             shift_interval=self.shift_interval,
-            shift_damping=self.shift_damping)
+            shift_damping=self.shift_damping,
+            shift_tracking=self.shift_tracking, spawn_rows=self.spawn_rows)
 
 
 def _rank_to_index(mask, rank):
@@ -91,13 +101,18 @@ def _at(rows, idx):
 
 def make_hbpp_spawner(ham: mol.MolecularHamiltonian, tens: hb.HeatBathTensors,
                       syminfo: mol.SymmInfo, p_doub: float, cfg: FrisysConfig,
-                      e_ref):
+                      e_ref, determ=None):
     """Stochastically compressed H application conforming to the power core's
     spawn interface ``spawn(keys, vals, h_fac, rand, thresh=None) -> (words,
     amps, ini)``.  ``rand`` is the six uniforms ``rns`` of a systematic
     spawner or the key node of a pivotal one; ``thresh`` overrides
     ``cfg.init_thresh`` as the initiator cutoff.  ``e_ref`` is unused, as in
-    the reference (the diagonal carries it)."""
+    the reference (the diagonal carries it).
+
+    ``determ`` (:func:`build_determ_block`): the semistochastic deterministic
+    subspace.  Its members are left out of the sampling, whose budget shrinks
+    by the block's element count, and the dense block spawns exactly: its
+    rows follow the ``spawn_cap`` sampled ones, all as initiators."""
     cfg.check_ported()
     dets.require_packable(ham.n_words)
     dev = ham.device
@@ -108,6 +123,11 @@ def make_hbpp_spawner(ham: mol.MolecularHamiltonian, tens: hb.HeatBathTensors,
     symm = torch.as_tensor(syminfo.symm, device=dev)
     symm_counts = torch.as_tensor(syminfo.counts, device=dev)
     s_cap, m_samp, unnorm = cfg.spawn_cap, cfg.matr_samp, cfg.unnorm
+    if determ is not None:
+        m_samp -= determ["n_elements"]
+        if m_samp <= 0:
+            raise ValueError("matr_samp must exceed the dense block's "
+                             f"{determ['n_elements']} elements")
     stage = torch.float32 if cfg.stage_f32 else F64
     # chunk the factored stage's row passes at ~256 MB of (chunk, K) rows
     kj_bytes = n_elec * n_virt * (4 if cfg.stage_f32 else 8)
@@ -131,6 +151,12 @@ def make_hbpp_spawner(ham: mol.MolecularHamiltonian, tens: hb.HeatBathTensors,
         c = keys.shape[0]
         rand = rand.fold(77).split(5) if cfg.pivotal else rand
         occ = dets.occ_list(keys, n_bits, n_elec)
+        vals_full = vals
+        if determ is not None:
+            dpos, dfound = dets.lookup_dets(keys, determ["keys"])
+            is_determ = torch.zeros(c + 1, dtype=torch.bool, device=dev)
+            is_determ.index_fill_(0, torch.where(dfound, dpos, c), True)
+            vals = torch.where(is_determ[:c], 0.0, vals)
         absv = vals.abs()
 
         # ---- fused level A+B: joint (kind, o1 / allowed-electron rank) ----
@@ -280,19 +306,47 @@ def make_hbpp_spawner(ham: mol.MolecularHamiltonian, tens: hb.HeatBathTensors,
             h_fac * smel * ssign * sign * val * n_occ_allowed * s_nvirt / (1.0 - p_doub),
             0.0)
 
-        amps = torch.where(is_doub, damp, samp)
-        new_words = torch.where(is_doub[:, None], dwords, swords)
+        if cfg.spin_parity:
+            # fold the sampled excitations: the direct and the reverse
+            # (spin-flipped) elements and selection weights combine
+            direct_mel = torch.where(is_doub, dmel * dsign, smel * ssign)
+            w_doub = tot.clamp_min(1e-300) * p_doub
+            w_sing = (1.0 - p_doub) / (n_occ_allowed * s_nvirt).to(F64).clamp_min(1e-300)
+            ok = torch.where(is_doub, doub_ok & (tot > 0), sing_ok)
+            new_words, t_mel, t_w, t_keep = tr_mod.adjust_sampled(
+                ham, tens, symm, counts, n_occ_allowed, s_keys, s_occ, occ_bits,
+                torch.where(is_doub[:, None], dwords, swords), direct_mel,
+                torch.where(is_doub, w_doub, w_sing), cfg.spin_parity, p_doub, unnorm)
+            amps = torch.where(ok & t_keep & live,
+                               h_fac * sign * val * t_mel / t_w.clamp_min(1e-300), 0.0)
+        else:
+            amps = torch.where(is_doub, damp, samp)
+            new_words = torch.where(is_doub[:, None], dwords, swords)
         new_words = torch.where((amps != 0)[:, None], new_words, sentinel)
-        return new_words, amps, pval.abs() >= (cfg.init_thresh if thresh is None else thresh)
+        ini = pval.abs() >= (cfg.init_thresh if thresh is None else thresh)
+        if determ is not None:
+            # exact multiplication by the dense block: amp = h_fac H_elem v[from]
+            v_from = torch.where(dfound, vals_full[dpos], 0.0)[determ["from"]]
+            d_amp = h_fac * determ["amp"] * v_from
+            new_words = torch.cat([new_words, torch.where((d_amp != 0)[:, None],
+                                                          determ["words"], sentinel)])
+            amps = torch.cat([amps, d_amp])
+            ini = torch.cat([ini, torch.ones_like(d_amp, dtype=torch.bool)])
+        return new_words, amps, ini
 
     return spawn
 
 
-def make_diag_fn(ham: mol.MolecularHamiltonian, e_ref):
-    """Diagonal closure for the power core, recomputed from keys each step."""
+def make_diag_fn(ham: mol.MolecularHamiltonian, e_ref, spin_parity: int = 0):
+    """Diagonal closure for the power core, recomputed from keys each step,
+    with the folded-basis correction under time reversal."""
     def diag_fn(keys):
         occ = dets.occ_list(keys, ham.n_bits, ham.n_elec)
-        return mol.diag_matrel_chunked(ham, occ) - e_ref
+        d = mol.diag_matrel_chunked(ham, occ) - e_ref
+        if spin_parity:
+            delta, forbid = tr_mod.tr_diag(ham, keys, occ, spin_parity)
+            d = torch.where(forbid, d, d + delta)
+        return d
 
     return diag_fn
 
@@ -313,12 +367,36 @@ def hf_p_doub(ham: mol.MolecularHamiltonian, syminfo: mol.SymmInfo) -> float:
     return n_doub / (n_doub + n_sing)
 
 
-def compute_htrial(ham: mol.MolecularHamiltonian, trial_keys, trial_vals,
-                   e_ref=None):
-    """(keys, vals) numpy of (H - e_ref)|trial> by exact application plus the
-    diagonal; ``e_ref`` defaults to the HF diagonal energy."""
+def build_determ_block(ham: mol.MolecularHamiltonian, determ_keys):
+    """The dense H block of the deterministic subspace: every
+    symmetry-allowed excitation from each member determinant with its
+    sign-carrying matrix element.  Compacted once here: the template
+    enumerates every (occupied pair, target pair) slot and most carry no
+    element.  Returns dict(keys (D, W), words (DH, W), amp (DH,), from (DH,)
+    member index of each element, n_elements)."""
     dev = ham.device
-    trial_keys = np.asarray(trial_keys, np.int64)
+    determ_keys = torch.as_tensor(np.asarray(determ_keys).astype(np.int64), device=dev)
+    d = determ_keys.shape[0]
+    occ = dets.occ_list(determ_keys, ham.n_bits, ham.n_elec)
+    tmpl = mol.ExcitationTemplate.build(ham.n_orb, ham.n_elec)
+    w, amp = mol.exact_offdiag_batch(ham, tmpl, determ_keys, occ,
+                                     torch.ones(d, dtype=F64, device=dev), 1.0)
+    from_idx = torch.arange(d, device=dev).repeat_interleave(amp.shape[1])
+    amp = amp.reshape(-1)
+    live = amp != 0
+    return {"keys": determ_keys, "words": w.reshape(-1, ham.n_words)[live],
+            "amp": amp[live], "from": from_idx[live], "n_elements": int(live.sum())}
+
+
+def compute_htrial(ham: mol.MolecularHamiltonian, trial_keys, trial_vals,
+                   e_ref=None, spin_parity: int = 0):
+    """(keys, vals) numpy of (H - e_ref)|trial> by exact application plus the
+    diagonal; ``e_ref`` defaults to the HF diagonal energy.  With
+    ``spin_parity`` the trial vector lives on the folded basis, and the
+    elements and the diagonal are the folded ones (the subspace iteration's
+    H * trial; the frisys estimator's stays unfolded, as in the reference)."""
+    dev = ham.device
+    trial_keys = np.asarray(trial_keys).astype(np.int64)
     trial_vals = np.asarray(trial_vals, np.float64)
     live = trial_vals != 0
     tk = torch.as_tensor(trial_keys[live], device=dev)
@@ -330,16 +408,24 @@ def compute_htrial(ham: mol.MolecularHamiltonian, trial_keys, trial_vals,
     chunk = max(1, min(len(tv), (1 << 22) // max(tmpl.n_doub, 1) + 1))
     w_parts, a_parts = [], []
     for s in range(0, len(tv), chunk):
-        w, amp, _ = mol.exact_offdiag_batch(ham, tmpl, tk[s:s + chunk],
-                                            occ[s:s + chunk], tv[s:s + chunk], 1.0)
+        rows = slice(s, s + chunk)
+        w, amp = mol.exact_offdiag_batch(ham, tmpl, tk[rows], occ[rows], tv[rows], 1.0)
+        nc = amp.shape[1]
         w = w.reshape(-1, ham.n_words)
         amp = amp.reshape(-1)
+        if spin_parity:
+            w, amp = tr_mod.adjust_exact(
+                ham, tk[rows].repeat_interleave(nc, 0), occ[rows].repeat_interleave(nc, 0),
+                w, amp, spin_parity, scale=tv[rows].repeat_interleave(nc))
         keep = amp != 0
         w_parts.append(w[keep].cpu().numpy())
         a_parts.append(amp[keep].cpu().numpy())
-    diag = (mol.diag_matrel(ham, occ) - float(e_ref)).cpu().numpy()
+    diag = mol.diag_matrel(ham, occ) - float(e_ref)
+    if spin_parity:
+        delta, forbid = tr_mod.tr_diag(ham, tk, occ, spin_parity)
+        diag = torch.where(forbid, 0.0, diag + delta)
     keys_all = np.concatenate([tk.cpu().numpy()] + w_parts)
-    vals_all = np.concatenate([tv.cpu().numpy() * diag] + a_parts)
+    vals_all = np.concatenate([tv.cpu().numpy() * diag.cpu().numpy()] + a_parts)
     packed = dets.pack_key(torch.as_tensor(keys_all)).numpy()
     uniq, first, inv = np.unique(packed, return_index=True, return_inverse=True)
     summed = np.bincount(inv.reshape(-1), weights=vals_all, minlength=len(uniq))
@@ -347,15 +433,21 @@ def compute_htrial(ham: mol.MolecularHamiltonian, trial_keys, trial_vals,
 
 
 def build(ham: mol.MolecularHamiltonian, cfg: FrisysConfig, seed: int,
-          init_val: float = 100.0, determ_keys=None, e_ref=None):
+          init_val: float = 100.0, determ_keys=None, trial=None, init_vec=None,
+          e_ref=None):
     """Assemble the frisys workload on ``ham``'s device: HB-PP spawner + power
-    core + the HF trial vector and its H-trial vector, starting from HF *
-    ``init_val``.  ``e_ref`` overrides the HF diagonal energy as the
-    diagonal's shift.  Returns (step, run_steps, state, aux); ``aux`` holds
-    the trial / H-trial estimator vectors, ``e_ref``, ``p_doub`` and the
+    core + the trial vector and its H-trial vector.
+
+    ``determ_keys`` (D, W): the deterministic subspace; ``aux["protected_keys"]``
+    carries it for the power step, and the vector starts on its members (HF
+    with ``init_val``, the others 0) so that the dense block is live from the
+    start.  ``trial``: (keys (N, W), vals (N,)) estimator trial vector
+    (default the HF unit vector).  ``init_vec``: (keys, vals) starting vector
+    (default HF * ``init_val``).  ``e_ref`` overrides the HF diagonal energy
+    as the diagonal's shift.  Returns (step, run_steps, state, aux); ``aux``
+    holds the trial / H-trial estimator vectors, ``e_ref``, ``p_doub``,
+    ``protected_keys`` (or None), the dense block's ``n_elements`` and the
     spawner (``aux["spawn"]``)."""
-    if determ_keys is not None:
-        raise NotImplementedError("the semistochastic deterministic subspace is not ported")
     dev = ham.device
     syminfo = mol.SymmInfo.build(ham.symm.cpu().numpy())
     tens = hb.setup(ham)
@@ -363,21 +455,42 @@ def build(ham: mol.MolecularHamiltonian, cfg: FrisysConfig, seed: int,
     hf_words, _, hf_en = mol.hf_reference(ham)
     hf_en = float(hf_en) if e_ref is None else float(e_ref)
 
-    spawn = make_hbpp_spawner(ham, tens, syminfo, p_doub, cfg, hf_en)
-    diag_fn = make_diag_fn(ham, hf_en)
-    step, run_steps = power.make_stepper(spawn, diag_fn, cfg.power())
-    htrial_keys, htrial_vals = compute_htrial(ham, hf_words.cpu().numpy()[None],
-                                              np.ones(1), e_ref=hf_en)
+    determ = None if determ_keys is None else build_determ_block(ham, determ_keys)
+    spawn = make_hbpp_spawner(ham, tens, syminfo, p_doub, cfg, hf_en, determ=determ)
+    diag_fn = make_diag_fn(ham, hf_en, cfg.spin_parity)
+    step, run_steps = power.make_stepper(spawn, diag_fn, cfg.power(), estimator="direct")
+
+    hf_np = hf_words.cpu().numpy()
+    if trial is None:
+        trial_keys, trial_vals = hf_np[None], np.ones(1)
+    else:
+        trial_keys = np.asarray(trial[0]).astype(np.int64)
+        trial_vals = np.asarray(trial[1], np.float64)
+    htrial_keys, htrial_vals = compute_htrial(ham, trial_keys, trial_vals, e_ref=hf_en)
     aux = {
         "e_ref": hf_en,
         "num_keys": torch.as_tensor(htrial_keys, device=dev),
         "num_vals": torch.as_tensor(htrial_vals, device=dev),
-        "den_keys": hf_words[None],
-        "den_vals": torch.ones(1, dtype=F64, device=dev),
+        "den_keys": torch.as_tensor(trial_keys, device=dev),
+        "den_vals": torch.as_tensor(trial_vals, device=dev),
         "ref_key": hf_words,
         "p_doub": p_doub,
+        "protected_keys": None if determ is None else determ["keys"],
+        "n_elements": 0 if determ is None else determ["n_elements"],
         "spawn": spawn,
     }
-    a = ar.from_unsorted(ar.make(cfg.capacity, ham.n_words, 2, device=dev), hf_words[None],
-                         torch.tensor([[init_val], [0.0]], dtype=F64, device=dev))
+
+    if init_vec is not None:
+        init_keys = np.asarray(init_vec[0]).astype(np.int64)
+        init_vals = np.asarray(init_vec[1], np.float64)
+    elif determ is not None:
+        dkeys = determ["keys"].cpu().numpy()
+        others = dkeys[(dkeys != hf_np[None]).any(1)]
+        init_keys = np.concatenate([hf_np[None], others])
+        init_vals = np.concatenate([[init_val], np.zeros(len(others))])
+    else:
+        init_keys, init_vals = hf_np[None], np.array([init_val])
+    a = ar.from_unsorted(
+        ar.make(cfg.capacity, ham.n_words, 2, device=dev), torch.as_tensor(init_keys),
+        torch.as_tensor(np.stack([init_vals, np.zeros_like(init_vals)])))
     return step, run_steps, power.fresh_state(a, seed), aux

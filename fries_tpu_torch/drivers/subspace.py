@@ -23,6 +23,12 @@ step, ``.fold(100 + j)`` for row j's compression and ``.fold(200 + j)`` for
 its spawn (:mod:`fries_tpu_torch.rng`).  The spawn stream is row-major (row
 0's ``spawn_cap`` slots, then row 1's, ...), the order the merge sums each
 target's contributions in.
+
+``spin_parity`` (+1 / -1, the CLI's ``--time_reversal``): the trial vectors
+fold onto spin-flip canonical representatives at build time, H * trial and
+the step's diagonal are the folded ones, and the spawner folds its sampled
+excitations.  ``lowmem``, ``exact_h``, ``compress_mode="multi"`` and sharding
+are not ported and raise.
 """
 
 from __future__ import annotations
@@ -36,6 +42,7 @@ from fries_tpu_torch import compress, dets, linalg, rng
 from fries_tpu_torch.drivers import frisys
 from fries_tpu_torch.ops import heat_bath as hb
 from fries_tpu_torch.ops import molecule as mol
+from fries_tpu_torch.ops import time_reversal as tr_mod
 from fries_tpu_torch.runtime import arena as ar
 
 F64 = torch.float64
@@ -64,7 +71,6 @@ class SubspaceConfig:
 
     def check_ported(self):
         for name, bad in (("lowmem", self.lowmem), ("exact_h", self.exact_h),
-                          ("spin_parity", self.spin_parity),
                           ("compress_mode='multi'", self.compress_mode == "multi"),
                           ("axis_name / n_shards > 1",
                            self.axis_name or self.n_shards > 1)):
@@ -110,18 +116,22 @@ def build(ham: mol.MolecularHamiltonian, cfg: SubspaceConfig, trial_keys,
     t, n_words = cfg.n_trial, ham.n_words
     trial_keys = np.asarray(trial_keys).astype(np.int64).reshape(t, -1, n_words)
     trial_vals = np.asarray(trial_vals, np.float64).reshape(t, -1)
+    if cfg.spin_parity:
+        trial_keys, trial_vals = pad_rows(
+            [tr_mod.fold_vector_host(ham, trial_keys[j], trial_vals[j], cfg.spin_parity)
+             for j in range(t)], n_words)
     syminfo = mol.SymmInfo.build(ham.symm.cpu().numpy())
     p_doub = frisys.hf_p_doub(ham, syminfo)
     hf_en = float(mol.hf_reference(ham)[2]) if e_ref is None else float(e_ref)
     fcfg = frisys.FrisysConfig(
         eps=cfg.eps, vec_nonz=cfg.vec_nonz, matr_samp=cfg.matr_samp,
         capacity=cfg.capacity, spawn_cap=cfg.spawn_cap, unnorm=cfg.unnorm,
-        pivotal=cfg.pivotal_h)
+        pivotal=cfg.pivotal_h, spin_parity=cfg.spin_parity)
     spawn = frisys.make_hbpp_spawner(ham, hb.setup(ham), syminfo, p_doub, fcfg, hf_en)
 
-    h_keys, h_vals = pad_rows([frisys.compute_htrial(ham, trial_keys[j], trial_vals[j],
-                                                    e_ref=hf_en) for j in range(t)],
-                              n_words)
+    h_keys, h_vals = pad_rows(
+        [frisys.compute_htrial(ham, trial_keys[j], trial_vals[j], e_ref=hf_en,
+                               spin_parity=cfg.spin_parity) for j in range(t)], n_words)
     est = {name: torch.as_tensor(x, device=dev) for name, x in (
         ("trial_keys", trial_keys), ("trial_vals", trial_vals),
         ("htrial_keys", h_keys), ("htrial_vals", h_vals))}
@@ -155,6 +165,8 @@ def build(ham: mol.MolecularHamiltonian, cfg: SubspaceConfig, trial_keys,
         new_vals = torch.as_tensor(rinv, device=dev).T @ vals
         scale = vals.abs().sum(1) / new_vals.abs().sum(1).clamp_min(1e-300)
         return new_vals * scale[:, None]
+
+    diag_fn = frisys.make_diag_fn(ham, hf_en, cfg.spin_parity)
 
     def compress_row(key, v):
         if cfg.compress_mode == "piv":
@@ -199,8 +211,7 @@ def build(ham: mol.MolecularHamiltonian, cfg: SubspaceConfig, trial_keys,
                                  thresh=thr_rows[j]))
         words, amps, ini = zip(*spawned)
         rows = torch.arange(t, device=dev).repeat_interleave(amps[0].shape[0])
-        occ = dets.occ_list(a.keys, ham.n_bits, ham.n_elec)
-        death = 1 - cfg.eps * (mol.diag_matrel_chunked(ham, occ) - hf_en)
+        death = 1 - cfg.eps * diag_fn(a.keys)
         dvals = torch.where(valid[None], a.vals * death[None], 0.0)
         a2, stats = ar.accumulate_multi_best(
             ar.Arena(a.keys, dvals, a.n_used), torch.cat(words), torch.cat(amps),

@@ -1,16 +1,20 @@
 """Where the time of one step goes on the card.
 
 Builds one of the configurations of :mod:`fries_tpu_torch.rung` (the ones
-``chip_smoke.py`` times: ``--workload frisys``, the 1e6 rung, or
-``--workload subsp``, bench.py's subspace configuration), runs warm-up
-steps, then
+``chip_smoke.py`` times: ``--workload frisys``, the 1e6 rung; ``--workload
+semistoch``, the rung with a deterministic space; ``--workload frifull``,
+bench.py's exact-H configuration, ``--dedup_cap N`` for its dedup variant;
+or ``--workload subsp``, bench.py's subspace configuration), runs warm-up
+steps (frifull: until the vector holds its budget of nonzeros), then
 
 * counts the host synchronizations of one step (``torch.cuda`` sync debug
   mode, one warning per synchronizing call),
 * profiles a few steps with ``torch.profiler`` and prints the device time of
   each labelled phase (the spawn and its compression rounds, the emissions,
-  C+D's histogram seed, the threshold fixpoints, norm_weight, the merges,
-  the diagonal, the vector compressions, the pivotal tournaments), the
+  C+D's histogram seed, the threshold fixpoints, norm_weight, the merges
+  and their spawn sort, the exact spawn, the dedup and the compaction of
+  the chunked exact-H step, the diagonal, the vector compressions, the
+  pivotal tournaments), the
   device time inside each pair of nested phases (``"C+D & threshold
   fixpoint"``: the fixpoint rounds of the C+D stage), the top kernels, the
   device's busy time and its idle share of the traced span (from the chrome
@@ -18,12 +22,17 @@ steps, then
 
 The phase labels are ``record_function`` wrappers installed by this script
 around the package's functions; the package itself carries no
-instrumentation.  A function the imported package lacks gets no label, so
-the script also profiles an older checkout of the package put first on
-``PYTHONPATH`` (its C+D emission is labelled ``emit_plain``).  Usage (needs
-a CUDA device)::
+instrumentation.  The profiler ties a device operation to the innermost
+range that launched it, and a range's span on the device runs from its own
+first operation to its last: a range whose work begins with a nested one
+shows without it.  So a merge's wrapper is two rows, ``merge: spawn sort``
+(shared by both merges) and ``merge: kernel entry`` (kernel A) or
+``merge_multi: kernel entry`` (kernel C), to be summed.  A function the
+imported package lacks gets no label, so the script also profiles an older
+checkout of the package put first on ``PYTHONPATH`` (its C+D emission is
+labelled ``emit_plain``).  Usage (needs a CUDA device)::
 
-    python -m fries_tpu_torch.profile_step [--workload subsp] [--steps 3] [--trace out.json]
+    python -m fries_tpu_torch.profile_step [--workload frifull] [--steps 3] [--trace out.json]
 """
 
 from __future__ import annotations
@@ -54,7 +63,7 @@ def install_labels():
     from fries_tpu_torch import compress
     from fries_tpu_torch.drivers import frisys
     from fries_tpu_torch.ops import heat_bath, molecule
-    from fries_tpu_torch.runtime import emit, merge, merge_multi
+    from fries_tpu_torch.runtime import arena, emit, merge, merge_multi
 
     phases = (
         (compress, "comp_sub", "comp_sub (A+B, E)"),
@@ -70,8 +79,12 @@ def install_labels():
         (emit, "emit", "emit, dense rows (A+B, E)"),
         (emit, "emit_factored", "emit_factored (C+D)"),
         (emit, "emit_plain", "emit_plain"),
-        (merge, "accumulate", "merge (sort + kernel)"),
-        (merge_multi, "accumulate", "merge_multi (sort + kernel)"),
+        (merge, "accumulate", "merge: kernel entry"),
+        (merge, "sort_spawns", "merge: spawn sort"),
+        (arena, "dedup_spawns", "dedup_spawns"),
+        (arena, "compact", "compact"),
+        (molecule, "exact_offdiag_batch", "exact spawn"),
+        (merge_multi, "accumulate", "merge_multi: kernel entry"),
         (molecule, "diag_matrel_chunked", "diagonal"),
         (heat_bath, "norm_weight", "norm_weight"))
     phases = [(mod, name, label) for mod, name, label in phases if hasattr(mod, name)]
@@ -134,7 +147,10 @@ def trace_device_activity(path, n_steps, labels):
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--workload", choices=["frisys", "subsp"], default="frisys")
+    parser.add_argument("--workload", choices=["frisys", "semistoch", "frifull", "subsp"],
+                        default="frisys")
+    parser.add_argument("--dedup_cap", type=int, default=0,
+                        help="frifull: collapse each chunk's stream to this many rows")
     parser.add_argument("--steps", type=int, default=3)
     parser.add_argument("--trace", default=str(
         Path(__file__).resolve().parent.parent / "build" / "fries_tpu_torch" / "step_trace.json"))
@@ -148,13 +164,25 @@ def main(argv=None):
     labels = install_labels()
     from fries_tpu_torch import rung
 
+    dev = torch.device("cuda")
+    kw = {}
     if args.workload == "frisys":
-        step, state, est, _ = rung.build(torch.device("cuda"))
+        step, state, est, _ = rung.build(dev)
+    elif args.workload == "semistoch":
+        step, state, est, aux = rung.build_semistoch(dev)
+        kw = {"protected_keys": aux["protected_keys"]}
+    elif args.workload == "frifull":
+        step, state, est, _ = rung.build_frifull(dev, args.dedup_cap)
     else:
-        step, state, _ = rung.build_subspace(torch.device("cuda"))
+        step, state, _ = rung.build_subspace(dev)
         est = ()
-    for _ in range(3):
-        state, _ = step(state, *est)
+    step_kw = step
+    step = lambda state, *est: step_kw(state, *est, **kw)
+    for i in range(50):
+        state, m = step(state, *est)
+        if i >= 2 and (args.workload != "frifull"
+                       or int(m["nnonz"]) >= rung.frifull_config().target_nonz):
+            break
     torch.cuda.synchronize()
 
     torch.cuda.set_sync_debug_mode("warn")

@@ -15,7 +15,22 @@
   and at 2^19 the merge overflows at the sixth iteration (bench.py never
   reads the subsp overflow flag).
 
-``chip_smoke.py`` times both and :mod:`fries_tpu_torch.profile_step`
+* ``semistoch``: the 1e6 rung unchanged plus a deterministic space of
+  :data:`N_DETERM` determinants, as the published semistochastic runs add
+  one to the flagship (tools/flagship.py, "150 largest CISD").  The port has
+  no CISD, so the space is HF and the determinants with the largest
+  |((H - E_HF) HF)| (ties by key): fixed by the system's seed.  Its dense
+  block must leave at least 30% of ``matr_samp`` for sampling; the largest
+  space of at most :data:`N_DETERM` that does is taken
+  (:func:`determ_space`).
+* ``frifull``: bench.py's frifull_mol configuration (``bench_frifull_mol``,
+  its synthetic branch): ``synth.make_system(14, 6, seed=1, scale_two=0.1)``,
+  eps 0.005, target_nonz 30,000, capacity 2^18, target_norm 60,000, batch
+  1024, spawn_rows 49,152 (48 chunks per step), dedup_cap 0; seed 0.
+  ``frifull_config(dedup_cap=1 << 19)`` is its real-molecule branch's
+  setting of the dedup on the same system.
+
+``chip_smoke.py`` times them and :mod:`fries_tpu_torch.profile_step`
 profiles them.
 """
 
@@ -23,13 +38,18 @@ from __future__ import annotations
 
 import torch
 
+import numpy as np
+
 from fries_tpu_torch import dets, synth
-from fries_tpu_torch.drivers import frisys, subspace
+from fries_tpu_torch.drivers import frifull, frisys, power, subspace
+from fries_tpu_torch.ops import molecule as mol
 
 N_SAMP = 1_000_000
 CAPACITY = 1 << 21
 SPAWN_CAP = 1_032_768
 EPS = 1e-3
+N_DETERM = 150
+DETERM_MAX_SHARE = 0.7   # of matr_samp, for the dense block's elements
 
 
 def config() -> frisys.FrisysConfig:
@@ -38,15 +58,69 @@ def config() -> frisys.FrisysConfig:
                                target_norm=2.0 * N_SAMP)
 
 
+def estimator_args(aux):
+    return (aux["num_keys"], aux["num_vals"], aux["den_keys"], aux["den_vals"],
+            aux["ref_key"])
+
+
 def build(device, seed: int = 0):
     """The rung's workload on ``device``.  Returns (step, state, est, aux):
     ``step(state, *est)`` advances one iteration, and ``aux`` is
     :func:`fries_tpu_torch.drivers.frisys.build`'s."""
     ham = synth.n2_ccpvdz_like(seed=1, device=device)
     step, _, state, aux = frisys.build(ham, config(), seed=seed)
-    est = (aux["num_keys"], aux["num_vals"], aux["den_keys"], aux["den_vals"],
-           aux["ref_key"])
-    return step, state, est, aux
+    return step, state, estimator_args(aux), aux
+
+
+def determ_space(ham, n_determ: int = N_DETERM, max_elements: float | None = None):
+    """HF and the ``n_determ - 1`` determinants with the largest
+    |((H - E_HF) HF)|, ties by packed key, as (n, W) int64 words; cut to the
+    largest prefix whose dense block has fewer than ``max_elements``
+    elements when that is given."""
+    hf = dets.hf_det(ham.n_orb, ham.n_elec)
+    keys, vals = frisys.compute_htrial(ham, hf[None].numpy(), np.ones(1))
+    packed = dets.pack_key(torch.as_tensor(keys)).numpy()
+    rest = packed != int(dets.pack_key(hf))
+    order = np.lexsort((packed[rest], -np.abs(vals[rest])))[:n_determ - 1]
+    space = np.concatenate([hf[None].numpy(), keys[rest][order]])
+    if max_elements is not None:
+        block = frisys.build_determ_block(ham, space)
+        per_member = torch.bincount(block["from"], minlength=len(space)).cumsum(0)
+        space = space[:max(1, int((per_member < max_elements).sum()))]
+    return space
+
+
+def build_semistoch(device, seed: int = 0):
+    """The ``semistoch`` configuration on ``device``.  Returns (step, state,
+    est, aux); ``step(state, *est, protected_keys=aux["protected_keys"])``
+    advances one iteration; the merge sees ``SPAWN_CAP + aux["n_elements"]``
+    spawns."""
+    ham = synth.n2_ccpvdz_like(seed=1, device=device)
+    space = determ_space(ham, max_elements=DETERM_MAX_SHARE * N_SAMP)
+    step, _, state, aux = frisys.build(ham, config(), seed=seed, determ_keys=space)
+    return step, state, estimator_args(aux), aux
+
+
+def frifull_system(device=None):
+    return synth.make_system(14, 6, seed=1, scale_two=0.1, device=device)
+
+
+def frifull_config(dedup_cap: int = 0) -> power.PowerConfig:
+    return power.PowerConfig(eps=0.005, target_nonz=30_000, capacity=1 << 18,
+                             target_norm=60_000.0, batch=1024, spawn_rows=49_152,
+                             dedup_cap=dedup_cap)
+
+
+def build_frifull(device, dedup_cap: int = 0, seed: int = 0):
+    """The ``frifull`` configuration on ``device``.  Returns (step, state,
+    est, aux) as :func:`build` does; ``aux["n_excitations"]`` is the
+    template's candidates per determinant (a chunk's merge sees
+    ``batch * n_excitations`` spawns, or ``dedup_cap``)."""
+    ham = frifull_system(device)
+    step, _, state, aux = frifull.build(ham, frifull_config(dedup_cap), seed=seed)
+    tmpl = mol.ExcitationTemplate.build(ham.n_orb, ham.n_elec)
+    aux["n_excitations"] = tmpl.n_doub + tmpl.n_sing
+    return step, state, estimator_args(aux), aux
 
 
 def subspace_config() -> subspace.SubspaceConfig:

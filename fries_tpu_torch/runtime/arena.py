@@ -24,6 +24,7 @@ import torch
 from fries_tpu_torch import dets
 
 F64 = torch.float64
+DEDUP_SPARE = 4096   # spare slots that dedup_spawns spreads its dead rows over
 
 
 @dataclass(frozen=True)
@@ -97,6 +98,17 @@ def lookup(arena: Arena, query_keys: torch.Tensor):
     """(positions, found) of query determinants."""
     pos, found = dets.lookup_dets(arena.keys, query_keys)
     return pos, found & ~dets.is_invalid(query_keys)
+
+
+def dot(arena: Arena, query_keys, query_vals, row: int = 0) -> torch.Tensor:
+    """Dot product of one value row with a sparse vector (keys, values)."""
+    pos, found = lookup(arena, query_keys)
+    gathered = torch.where(found, arena.vals[row][pos], 0.0)
+    return (gathered * query_vals.to(F64)).sum()
+
+
+def n_nonzero(arena: Arena, row: int = 0) -> torch.Tensor:
+    return ((arena.vals[row] != 0) & arena.valid).sum()
 
 
 def set_row(arena: Arena, row: int, values: torch.Tensor) -> Arena:
@@ -224,6 +236,49 @@ def accumulate_multi(arena: Arena, spawn_keys, spawn_vals, spawn_rows, spawn_ini
     vals[:, upos[u_found]] += seg_sum[:, u_found]
     is_new = u_valid & ~u_found & (seg_cnt > 0)
     return _insert(arena, akey, vals, ukey[is_new], seg_sum[:, is_new], nonini)
+
+
+def dedup_spawns(spawn_keys, spawn_vals, spawn_ini, cap: int):
+    """Collapse duplicate spawn targets into at most ``cap`` rows before a
+    merge (plain torch, as the reference's is plain XLA).
+
+    An exact-H stream repeats each target once per connected source.  Live
+    rows (valid key, nonzero value) are summed per (key, initiator flag), so
+    the merge's per-spawn gate sees the same sums; each segment sums its rows
+    in the stream's order.  Returns (keys (cap, W), vals (cap,), ini (cap,),
+    overflow): rows sorted by (key, flag) and sentinel-padded; ``overflow``
+    says that more than ``cap`` segments were live, and then the first
+    ``cap`` are kept.  Every shape is fixed, so nothing is read on the
+    host."""
+    s, w = spawn_keys.shape
+    dev = spawn_keys.device
+    sent = dets.sentinel_key(w)
+    key = torch.where(spawn_vals == 0, sent, dets.pack_key(spawn_keys))
+    skey, perm = torch.sort(key, stable=True)
+    sval = spawn_vals[perm].to(F64)
+    sini = spawn_ini[perm]
+    live = skey != sent
+    # bin 2 * (index of the key among the sorted unique keys) + flag; the
+    # dead rows go to spare slots of their own, spread so that their writes
+    # and adds do not all meet at one address
+    new_key = torch.ones(s, dtype=torch.int64, device=dev)
+    new_key[1:] = (skey[1:] != skey[:-1]).to(torch.int64)
+    spare = torch.arange(s, device=dev) % DEDUP_SPARE
+    bins = torch.where(live, 2 * (torch.cumsum(new_key, 0) - 1) + sini.to(torch.int64),
+                       2 * s + spare)
+    has = torch.zeros(2 * s + DEDUP_SPARE, dtype=torch.bool, device=dev)
+    has.index_fill_(0, bins, True)   # has[bins] = True would copy the scalar from the host
+    has[2 * s:] = False
+    rank = torch.cumsum(has, 0) - 1
+    dest = torch.where(live & (rank[bins] < cap), rank[bins], cap + spare)
+    out_keys = torch.full((cap + DEDUP_SPARE,), sent, dtype=torch.int64, device=dev)
+    out_keys[dest] = skey
+    out_vals = torch.zeros(cap + DEDUP_SPARE, dtype=F64, device=dev).index_add_(
+        0, dest, torch.where(live, sval, 0.0))
+    out_ini = torch.zeros(cap + DEDUP_SPARE, dtype=torch.bool, device=dev)
+    out_ini[dest] = sini
+    return (dets.unpack_key(out_keys[:cap], w), out_vals[:cap], out_ini[:cap],
+            has.sum() > cap)
 
 
 def accumulate_multi_best(arena: Arena, spawn_keys, spawn_vals, spawn_rows,

@@ -18,9 +18,16 @@ computes exactly what compact-then-accumulate computes, in one call:
   survive, and the first C of the merged order are kept;
 * ``nonini_occ_add`` counts non-initiator spawns onto occupied targets.
 
-The fused form equals compact-then-accumulate because the power step zeroes
-the dest row before each merge.  Layouts: (n_vecs, origin, dest) in
-{(1, 0, 0), (2, 0, 1)}.
+What the fused form requires of the dest row: with a keep mask, a row that
+the mask lets drop (zero origin value, False bit) must hold no dest value,
+because compact-then-accumulate would lose it while the kernel keeps it when
+an initiator spawn re-creates the row.  The power step's single merge meets
+this (it zeroes the dest row first).  Without a keep mask nothing is
+required: every valid row survives, the dest row passes through whatever it
+holds and the sums add to it, as the chunked exact-H step needs, whose dest
+row carries the earlier chunks' sums; rows an earlier chunk inserted have
+origin value 0, so a non-initiator spawn onto them does not count.  Layouts:
+(n_vecs, origin, dest) in {(1, 0, 0), (2, 0, 1)}.
 
 On the card the spawn keys are packed and sorted with ``torch.sort``
 (:func:`sort_spawns`); everything else is the kernel entry, four device

@@ -113,7 +113,7 @@ def test_hbpp_exact_when_budget_large(unnorm, with_symm):
     avals = torch.where(a.valid, a.vals[0], 0.0)
     tmpl = tmol.ExcitationTemplate.build(5, 4)
     aocc = td.occ_list(a.keys, 10, 4)
-    ew, ea, _ = tmol.exact_offdiag_batch(t, tmpl, a.keys, aocc, avals, -0.01)
+    ew, ea = tmol.exact_offdiag_batch(t, tmpl, a.keys, aocc, avals, -0.01)
     want = spawn_map(ew.reshape(-1, 1), ea.reshape(-1), 10)
     rns = torch.tensor([0.3, 0.7, 0.1, 0.9, 0.45, 0.2], dtype=torch.float64)
     for stage_f32, rtol, atol in ((False, 1e-8, 1e-12), (True, 3e-6, 1e-10)):
@@ -222,12 +222,12 @@ def test_frisys_energy_matches_dense_fci():
 def test_unported_options_raise():
     j, t = system()
     base = dict(eps=0.02, vec_nonz=60, matr_samp=150, capacity=64, spawn_cap=200)
-    for opt in (dict(spin_parity=1), dict(fuse_ab=False),
-                dict(fuse_cd=False), dict(axis_name="x", n_shards=2)):
+    for opt in (dict(fuse_ab=False), dict(fuse_cd=False), dict(axis_name="x", n_shards=2)):
         with pytest.raises(NotImplementedError):
             tfs.build(t, tfs.FrisysConfig(**base, **opt), seed=0)
-    with pytest.raises(NotImplementedError):
-        tfs.build(t, tfs.FrisysConfig(**base), seed=0, determ_keys=np.zeros((1, 1)))
+    with pytest.raises(ValueError, match="matr_samp"):   # the dense block eats the budget
+        tfs.build(t, tfs.FrisysConfig(**dict(base, matr_samp=20)), seed=0,
+                  determ_keys=td.hf_det(8, 4)[None].numpy())
 
 
 def test_imports_without_jax():
@@ -235,8 +235,9 @@ def test_imports_without_jax():
         "import sys; sys.modules['jax'] = None; sys.modules['fries_tpu'] = None\n"
         "import fries_tpu_torch, fries_tpu_torch.cli, fries_tpu_torch.convert\n"
         "import fries_tpu_torch.probe_reshape, fries_tpu_torch.profile_step\n"
+        "import fries_tpu_torch.rung, fries_tpu_torch.ops.time_reversal\n"
         "from fries_tpu_torch import dets, synth\n"
-        "from fries_tpu_torch.drivers import frisys, subspace\n"
+        "from fries_tpu_torch.drivers import frifull, frisys, power, subspace\n"
         "ham = synth.make_system(5, 4, seed=1)\n"
         "cfg = frisys.FrisysConfig(eps=0.05, vec_nonz=20, matr_samp=40, capacity=64,"
         " spawn_cap=64)\n"
@@ -250,6 +251,12 @@ def test_imports_without_jax():
         " [[1.0]], seed=0)\n"
         "sstate, sm = srun(sstate, 3)\n"
         "assert not bool(sm['overflow'].any())\n"
+        "pcfg = power.PowerConfig(eps=0.05, target_nonz=20, capacity=128, batch=8,"
+        " dedup_cap=256)\n"
+        "_, frun, fstate, faux = frifull.build(ham, pcfg, seed=0, spin_parity=1)\n"
+        "fstate, fm = frun(fstate, faux['num_keys'], faux['num_vals'], faux['den_keys'],"
+        " faux['den_vals'], faux['ref_key'], 3)\n"
+        "assert not bool(fm['overflow'].any())\n"
         "assert not any(n == 'jax' or n.startswith(('jax.', 'fries_tpu.'))"
         " for n in sys.modules if sys.modules[n] is not None)\n"
         "print('ok')\n")
@@ -278,7 +285,7 @@ def test_cli_frisys_mol(tmp_path):
     with pytest.raises(NotImplementedError):
         cli.main(["frisys_mol", "--fcidump_path", str(fcidump), "--epsilon", "0.02",
                   "--vec_nonz", "40", "--mat_nonz", "100", "--max_dets", "256",
-                  "--det_space", "dets.txt"])
+                  "--load_dir", str(tmp_path)])
 
 
 def test_rung_is_bench_ladder_1e6():

@@ -14,7 +14,7 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 from fries_tpu_torch import _build, compress, dets, probe_reshape, rng as trng, synth  # noqa: E402
-from fries_tpu_torch.drivers import frisys, subspace  # noqa: E402
+from fries_tpu_torch.drivers import frifull, frisys, power, subspace  # noqa: E402
 from fries_tpu_torch.runtime import arena as ar  # noqa: E402
 from fries_tpu_torch.runtime import emit, merge, merge_multi  # noqa: E402
 
@@ -173,6 +173,55 @@ def test_merge_regimes(cuda, regime, layout):
     a, sk, sv, si = regime_case(rng, regime)
     keep = torch.as_tensor(rng.random(a.capacity) < 0.05) if layout[0] == 2 else None
     run_merge(cuda, a, sk, sv, si, layout, keep)
+
+
+def chunk_regime_case(rng, capacity, s_ratio, sentinel_frac):
+    """The chunked exact-H step's merge: a two-row arena a third full, S =
+    ``s_ratio`` * C spawns drawn with heavy repetition from C / 4 targets
+    (half of them arena keys), a ``sentinel_frac`` share of them the
+    sentinel key."""
+    a, _, _, _ = merge_case(rng, 2, capacity, capacity // 3, 8, 2 * capacity, n_vecs=2)
+    n = int(a.n_used[0])
+    fresh = torch.as_tensor(rng.integers(0, 2**20, size=(capacity // 8, 2)))
+    fresh[:, 1] &= 0x0FFFFFFF
+    targets = torch.cat([a.keys[torch.as_tensor(rng.integers(0, n, capacity // 8))], fresh])
+    s = int(s_ratio * capacity)
+    sk = targets[torch.as_tensor(rng.integers(0, targets.shape[0], s))].clone()
+    sk[torch.as_tensor(rng.random(s) < sentinel_frac)] = dets.WORD_MASK
+    return a, sk, torch.as_tensor(rng.standard_normal(s) * 0.3), \
+        torch.as_tensor(rng.random(s) < 0.5)
+
+
+@pytest.mark.parametrize("sentinel_frac", [0.0, 0.6, 0.95])
+@pytest.mark.parametrize("s_ratio", [0.25, 2, 8])
+@pytest.mark.parametrize("capacity", [1024, 1 << 18])
+def test_merge_chunked_regime(cuda, capacity, s_ratio, sentinel_frac):
+    """Kernel A as the chunked exact-H step drives it: layout (2, 0, 1), the
+    destination row zero or carrying earlier chunks' sums (rows with a zero
+    origin value among them), no keep mask or one with protected bits."""
+    rng = np.random.default_rng(int(1000 * sentinel_frac + 10 * s_ratio) + capacity)
+    a, sk, sv, si = chunk_regime_case(rng, capacity, s_ratio, sentinel_frac)
+    n = int(a.n_used[0])
+    keep = torch.as_tensor(rng.random(capacity) < 0.05)
+    dest = torch.zeros(capacity, dtype=torch.float64)
+    dest[:n] = torch.as_tensor(rng.standard_normal(n))
+    for dest_row, mask in ((None, None), (dest, None), (None, keep),
+                           # with a mask, a row it lets drop carries no sum yet
+                           (torch.where((a.vals[0] != 0) | keep, dest, 0.0), keep)):
+        vals = a.vals.clone()
+        if dest_row is not None:
+            vals[1] = dest_row
+        arena = ar.Arena(keys=a.keys, vals=vals, n_used=a.n_used)
+        ref, rstats = merge.accumulate(arena, sk, sv, si, 0, 1, keep_mask=mask)
+        before = merge.LAUNCHES
+        got, gstats = merge.accumulate(to_dev(arena, cuda), sk.to(cuda), sv.to(cuda),
+                                       si.to(cuda), 0, 1,
+                                       keep_mask=None if mask is None else mask.to(cuda))
+        torch.cuda.synchronize()
+        assert merge.LAUNCHES == before + 1
+        assert_merge_equal(got, gstats, ref, rstats)
+        if mask is None:
+            assert int(got.n_used[0]) >= n   # every valid row survives
 
 
 def test_merge_shapes_keep_mask_checked(cuda):
@@ -478,16 +527,19 @@ def test_frisys_step_cuda_matches_cpu(cuda):
     assert merge.LAUNCHES - m0 == 5 and emit.LAUNCHES - e0 == 15
 
 
-def test_subspace_step_cuda_matches_cpu(cuda):
+@pytest.mark.parametrize("spin_parity", [0, 1])
+def test_subspace_step_cuda_matches_cpu(cuda, spin_parity):
     """Pivotal subspace steps on the card and on the CPU from the same state
-    with the same key tree, across a restart and a norm-factor update."""
+    with the same key tree, across a restart and a norm-factor update, in
+    the whole space and in the even time-reversal sector (folded trial
+    vectors, H * trial, diagonal and spawner)."""
     symm = np.array([0, 1, 0, 1, 0, 1, 2, 3])
     hf = dets.hf_det(8, 4)
     d1, _ = dets.single_parity(hf[None], torch.tensor([1]), torch.tensor([5]))
     tk, tv = torch.stack([hf[None], d1]).numpy(), np.ones((2, 1))
     cfg = subspace.SubspaceConfig(eps=0.02, n_trial=2, vec_nonz=60, matr_samp=150,
                                   capacity=256, spawn_cap=200, restart_int=3,
-                                  shift_interval=3)
+                                  shift_interval=3, spin_parity=spin_parity)
     built = {dev: subspace.build(synth.make_system(8, 4, symm=symm, seed=3, device=dev),
                                  cfg, tk, tv, seed=4)
              for dev in ("cpu", cuda)}
@@ -510,3 +562,69 @@ def test_subspace_step_cuda_matches_cpu(cuda):
             np.testing.assert_allclose(mg[key].cpu().numpy(), mc[key].numpy(),
                                        rtol=1e-10, atol=1e-12, err_msg=key)
     assert merge_multi.LAUNCHES - c0 == 4
+
+
+def card_steps_match_cpu(cuda, built, n_warm, n_steps, **step_kw):
+    """Steps on the card and on the CPU from one state with the same
+    uniforms; ``built`` maps "cpu" and the card to ``build``'s results."""
+    step_c, run_c, state, aux_c = built["cpu"]
+    step_g, _, _, aux_g = built[cuda]
+    args = lambda aux: (aux["num_keys"], aux["num_vals"], aux["den_keys"],
+                        aux["den_vals"], aux["ref_key"])
+    kw = lambda aux: {k: aux[v] for k, v in step_kw.items()}
+    state, _ = run_c(state, *args(aux_c), n_warm, **kw(aux_c))
+    rng = np.random.default_rng(0)
+    for _ in range(n_steps):
+        rns, rn = rng.random(6), float(rng.random())
+        g_state = power.PowerState(to_dev(state.arena, cuda), state.en_shift.to(cuda),
+                                   state.last_norm.to(cuda), state.iterat, state.generator)
+        state, mc = step_c(state, *args(aux_c), rns=rns, rn_vec=rn, **kw(aux_c))
+        g_state, mg = step_g(g_state, *args(aux_g), rns=rns, rn_vec=rn, **kw(aux_g))
+        np.testing.assert_array_equal(g_state.arena.keys.cpu().numpy(),
+                                      state.arena.keys.numpy())
+        np.testing.assert_allclose(g_state.arena.vals.cpu().numpy(),
+                                   state.arena.vals.numpy(), rtol=1e-10, atol=1e-12)
+        for key in mc:
+            np.testing.assert_allclose(float(mg[key]), float(mc[key]), rtol=1e-10,
+                                       atol=1e-12, err_msg=key)
+    return mc
+
+
+SYMM8 = np.array([0, 1, 0, 1, 0, 1, 2, 3])
+
+
+@pytest.mark.parametrize("path", ["semistoch", "spin_parity"])
+def test_frisys_options_step_cuda_matches_cpu(cuda, path):
+    """The semistochastic step (a deterministic space of 8, protected) and
+    the even-sector step on the card against the CPU."""
+    from fries_tpu_torch import rung
+
+    cfg = frisys.FrisysConfig(eps=0.02, vec_nonz=60, matr_samp=700, capacity=256,
+                              spawn_cap=400, target_norm=110.0, shift_interval=2,
+                              spin_parity=int(path == "spin_parity"))
+    space = rung.determ_space(synth.make_system(8, 4, symm=SYMM8, seed=3), 8)
+    built = {dev: frisys.build(synth.make_system(8, 4, symm=SYMM8, seed=3, device=dev), cfg,
+                               seed=4, determ_keys=space if path == "semistoch" else None)
+             for dev in ("cpu", cuda)}
+    m0, e0 = merge.LAUNCHES, emit.LAUNCHES
+    kw = dict(protected_keys="protected_keys") if path == "semistoch" else {}
+    mc = card_steps_match_cpu(cuda, built, 20, 4, **kw)
+    assert merge.LAUNCHES - m0 == 4 and emit.LAUNCHES - e0 == 12
+    assert float(mc["shift"]) != 0.0
+
+
+@pytest.mark.parametrize("dedup_cap", [0, 4096])
+@pytest.mark.parametrize("spin_parity", [0, 1])
+def test_frifull_step_cuda_matches_cpu(cuda, spin_parity, dedup_cap):
+    """The chunked exact-H step on the card against the CPU: one kernel A
+    launch per chunk."""
+    cfg = power.PowerConfig(eps=0.02, target_nonz=60, capacity=512, target_norm=110.0,
+                            shift_interval=2, init_thresh=1.0, batch=32, spawn_rows=256,
+                            dedup_cap=dedup_cap)
+    built = {dev: frifull.build(synth.make_system(8, 4, symm=SYMM8, seed=3, device=dev), cfg,
+                                seed=4, spin_parity=spin_parity)
+             for dev in ("cpu", cuda)}
+    m0 = merge.LAUNCHES
+    mc = card_steps_match_cpu(cuda, built, 12, 4)
+    assert merge.LAUNCHES - m0 == 4 * 8
+    assert not bool(mc["overflow"]) and int(mc["nnonz"]) > 30

@@ -2,7 +2,9 @@
 trial, the initial arena, e_ref), steps from the reference's state converted
 to the port and fed the reference's key tree (``jax_keys.JaxKeys``) in both
 the pivotal (piv / pivotal_h) and the systematic (sys / no pivotal_h) modes
-across restarts and norm-factor updates, the energies against dense FCI, the
+and in the even time-reversal sector (``spin_parity = +1``: folded trial
+vectors, H * trial, diagonal and spawner) across restarts and norm-factor
+updates, the energies against dense FCI, the
 subsp_mol command line and the options that raise.  Exact keys, counts and
 flags; values, h_mat and d_mat at rtol 1e-10 (sums in another order).  The
 port runs its plain merge here (CPU tensors)."""
@@ -29,7 +31,8 @@ from jax_keys import JaxKeys  # noqa: E402
 
 SYMM = np.array([0, 1, 0, 1, 0, 1, 2, 3])
 MODES = {"piv": dict(compress_mode="piv", pivotal_h=True),
-         "sys": dict(compress_mode="sys", pivotal_h=False)}
+         "sys": dict(compress_mode="sys", pivotal_h=False),
+         "tr": dict(compress_mode="piv", pivotal_h=True, spin_parity=1)}
 BASE = dict(eps=0.02, n_trial=2, vec_nonz=60, matr_samp=150, capacity=256,
             spawn_cap=200, restart_int=2, shift_interval=2)
 
@@ -185,6 +188,38 @@ def test_cli_subsp_mol(tmp_path):
                  + ["--result_dir", str(tmp_path / "ovf")])
 
 
+def test_cli_subsp_mol_time_reversal(tmp_path):
+    """--time_reversal 1 runs (it raised before the sector was ported) and
+    gives other projections than the unfolded run."""
+    t = tsynth.make_system(6, 4, symm=np.array([0, 1, 0, 1, 2, 3]), seed=2)
+    fcidump = tmp_path / "FCIDUMP"
+    tio.write_fcidump(t, fcidump, point_group="D2h")
+    hf = td.hf_det(6, 4)
+    d1, _ = td.single_parity(hf[None], torch.tensor([1]), torch.tensor([3]))
+    for j, (k, v) in enumerate(((hf[None], [1.0]), (d1, [0.8]))):
+        tio.save_vec_txt(tmp_path / f"trial{j:02d}", k.numpy(), v, 12)
+    base = ["subsp_mol", "--fcidump_path", str(fcidump), "--point_group", "D2h",
+            "--epsilon", "0.02", "--vec_nonz", "40", "--mat_nonz", "100",
+            "--max_dets", "256", "--max_iter", "8", "--save_interval", "4",
+            "--trial_vecs", str(tmp_path / "trial"), "--num_trial", "2",
+            "--restart_int", "4", "--seed", "3", "--device", "cpu"]
+    h = {}
+    for tr in ("0", "1"):
+        out = tmp_path / f"tr{tr}"
+        cli.main(base + ["--result_dir", str(out), "--time_reversal", tr])
+        h[tr] = np.loadtxt(out / "h_mat.txt", delimiter=",")
+        assert h[tr].shape == (8, 4) and np.isfinite(h[tr]).all()
+        assert np.loadtxt(out / "d_mat.txt", delimiter=",").shape == (8, 4)
+        assert "time_reversal: " + tr in (out / "params.txt").read_text()
+    assert not np.allclose(h["0"], h["1"])
+    # the folded single has 1 / sqrt(2) of its amplitude on the representative
+    d0 = np.loadtxt(tmp_path / "tr1" / "d_mat.txt", delimiter=",")[0].reshape(2, 2)
+    np.testing.assert_allclose(d0[1, 1], 0.8 ** 2 / 2, rtol=1e-12)
+    if not torch.cuda.is_available():
+        with pytest.raises(SystemExit, match="no CUDA device"):
+            cli.main(base[:-2] + ["--time_reversal", "1"])
+
+
 def test_vector_files_match_reference(tmp_path):
     """read_dets / load_vec_txt / load_vec_dice / npy_append against the
     reference's readers and writer on the same files."""
@@ -221,8 +256,7 @@ def test_unported_options_raise(tmp_path):
     tk, tv = hf[None, None].numpy(), np.ones((1, 1))
     base = dict(eps=0.02, n_trial=1, vec_nonz=40, matr_samp=100, capacity=64,
                 spawn_cap=128)
-    for opt in (dict(lowmem=True), dict(exact_h=True), dict(spin_parity=1),
-                dict(compress_mode="multi"), dict(axis_name="x", n_shards=2)):
+    for opt in (dict(lowmem=True), dict(exact_h=True), dict(compress_mode="multi"), dict(axis_name="x", n_shards=2)):
         with pytest.raises(NotImplementedError):
             tsub.build(t, tsub.SubspaceConfig(**base, **opt), tk, tv, seed=0)
     fcidump = tmp_path / "FCIDUMP"
@@ -234,7 +268,7 @@ def test_unported_options_raise(tmp_path):
     for cmd in ("subsp_mol_lowmem", "subspfull_mol"):
         with pytest.raises(SystemExit, match="not ported yet"):
             cli.main([cmd] + args)
-    for extra in (["--time_reversal", "1"], ["--load_dir", str(tmp_path)],
+    for extra in (["--load_dir", str(tmp_path)], ["--hf_path", str(tmp_path)],
                   ["--n_chips", "2"]):
         with pytest.raises(NotImplementedError):
             cli.main(["subsp_mol"] + args + extra)
@@ -261,6 +295,7 @@ def test_cli_device_cuda_raises_without_card(tmp_path):
     common = ["--fcidump_path", str(fcidump), "--epsilon", "0.02", "--vec_nonz", "40",
               "--mat_nonz", "100", "--max_dets", "64", "--result_dir", str(tmp_path)]
     for argv in (["frisys_mol"] + common,
+                 ["frifull_mol"] + [x for x in common if x not in ("--mat_nonz", "100")],
                  ["subsp_mol"] + common + ["--num_trial", "1", "--trial_vecs",
                                            str(tmp_path / "trial")]):
         with pytest.raises(SystemExit, match="no CUDA device"):
