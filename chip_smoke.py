@@ -59,7 +59,20 @@ Phases, in order; any failure exits non-zero:
    timed ones) merged by the kernel and by its plain version into the arena
    that holds the first chunk's sums, which phase 11 also times; and 1 + 2
    steps with ``dedup_cap = 2^19`` from the same state;
-11. the timings: each kernel's wrapper and its plain version on the inputs of
+11. the FCIQMC path: a small system stepped on the card and on the CPU from
+   one state, both drawing from one key tree on the CPU (near-uniform and
+   heat-bath, integer and fp walkers): keys, counts and integer values
+   exact; then the ``fciqmc`` configuration of ``fries_tpu_torch.rung``
+   (bench.py's 5M-walker rung: 12 blocks of 5 warm-up steps, 5 timed, 1
+   kernel A launch per step asserted; ms/step, walker-iterations/s, peak
+   memory) and two real steps' merge inputs (the post-death one-row arena
+   and the spawn stream, layout (1, 0, 0): the first step's, all attempts
+   from HF, and the one after the timed steps) through kernel A and its
+   plain version, equal exactly, values included; phase 13 times the
+   second;
+12. the frimulti path: small systems card against CPU (NU, HB), then the
+   ``frimulti`` configuration (2 warm-up + 3 timed steps);
+13. the timings: each kernel's wrapper and its plain version on the inputs of
    its check at the main path's shapes (the same seeds), last, since the
    profiler that reads device times slows every later launch of the process.
    For the two merges also the spawn sort alone (``sort_ms``,
@@ -79,7 +92,8 @@ of one call, from a profiler trace.  Kernel B's entry sums its three
 launches of one frisys step (A+B, C+D, E); its ``shapes`` break that down.
 Kernel A's entry is the rung's case; its ``shapes`` add the exact-H chunk
 (``frifull_chunk``: phase 10's real stream and arena, with the bound of
-those tensors) and the semistochastic merge.  ``launches`` sums a kernel's launches over
+those tensors), the semistochastic merge and FCIQMC's merge (``fciqmc``:
+phase 11's real input).  ``launches`` sums a kernel's launches over
 the timed steps of every path (``launches_by_path`` breaks them down).
 Usage: ``python3 chip_smoke.py``.
 """
@@ -213,10 +227,11 @@ def merge_inputs(gen, dev, capacity, n_occ, n_spawn, n_universe, n_words=2,
     return a, sk, sv, si, keep
 
 
-def compare_merges(label, kernel_out, plain_out):
+def compare_merges(label, kernel_out, plain_out, exact=False):
     """Raise unless a merge kernel's (arena, stats) equal its plain version's:
     keys, n_out, overflow and nonini_occ_add exact, values within rtol 1e-12
-    (atol 1e-12: per-segment sums in another order); return a summary."""
+    (atol 1e-12: per-segment sums in another order), or equal with
+    ``exact`` (integer sums); return a summary."""
     import torch
 
     (got, gs), (ref, rs) = kernel_out, plain_out
@@ -228,6 +243,8 @@ def compare_merges(label, kernel_out, plain_out):
                        ("nonini_occ_add", gs["nonini_occ_add"], rs["nonini_occ_add"])):
         if int(x.reshape(-1)[0]) != int(y.reshape(-1)[0]):
             raise AssertionError(f"{label}: {name} {int(x)} != {int(y)}")
+    if exact and not torch.equal(got.vals, ref.vals):
+        raise AssertionError(f"{label}: values not equal")
     if not torch.allclose(got.vals, ref.vals, rtol=1e-12, atol=1e-12):
         raise AssertionError(f"{label}: values differ")
     return {"max_abs_err": float((got.vals - ref.vals).abs().max()),
@@ -316,19 +333,20 @@ def one_key_stress(a, sk):
     return sk
 
 
-def check_merge(label, a, sk, sv, si, layout, keep):
+def check_merge(label, a, sk, sv, si, layout, keep, exact=False):
     """Kernel A against its plain version; ``layout`` None takes the arena's
-    value rows as they are, in the power step's (2, 0, 1) layout."""
+    value rows as they are, in the power step's (2, 0, 1) layout, or in
+    FCIQMC's (1, 0, 0) for a one-row arena."""
     from fries_tpu_torch.runtime import merge
 
     if layout is None:
-        origin, dest = 0, 1
+        origin, dest = 0, min(1, a.n_vecs - 1)
     else:
         n_vecs, origin, dest = layout
         a = with_rows(a, n_vecs)
     out = compare_merges(f"merge {label}",
                          merge.accumulate(a, sk, sv, si, origin, dest, keep_mask=keep),
-                         merge.accumulate_plain(a, sk, sv, si, origin, dest, keep))
+                         merge.accumulate_plain(a, sk, sv, si, origin, dest, keep), exact)
     log(f"merge {label}: agrees ({json.dumps(out)})")
     return out
 
@@ -1070,14 +1088,253 @@ def phase_frifull(dev):
     return res, (mid, *streams[1])
 
 
+def fciqmc_steps_match(label, dev, cfg, n_warm, n_steps):
+    """FCIQMC on a small system (8 orbitals, 4 electrons) stepped on the card
+    and on the CPU from one state, both drawing from one key tree on the CPU
+    (the card's draws moved there): keys, counts, flags, walker counts and
+    integer values exact, fp values and the float metrics within rtol 1e-12;
+    one kernel A launch per step."""
+    import numpy as np
+    import torch
+    from fries_tpu_torch import rung, synth
+    from fries_tpu_torch.drivers import fciqmc
+    from fries_tpu_torch.runtime import arena as ar
+    from fries_tpu_torch.runtime import merge
+
+    symm = np.array(SMALL_SYMM)
+    step_c, run_c, state, aux_c = fciqmc.build(synth.make_system(8, 4, symm=symm, seed=3),
+                                               cfg, seed=4, init_walkers=300)
+    step_g, _, _, aux_g = fciqmc.build(synth.make_system(8, 4, symm=symm, seed=3, device=dev),
+                                       cfg, seed=4, init_walkers=300)
+    args_c, args_g = rung.estimator_args(aux_c), rung.estimator_args(aux_g)
+    state, _ = run_c(state, *args_c, n_warm)
+    c0 = merge.LAUNCHES
+    for it in range(n_steps):
+        a = state.arena
+        g_state = fciqmc.FciqmcState(
+            ar.Arena(a.keys.to(dev), a.vals.to(dev), a.n_used.to(dev)),
+            state.en_shift.to(dev), state.last_norm.to(dev), state.key, state.iterat)
+        state, mc = step_c(state, *args_c)
+        g_state, mg = step_g(g_state, *args_g)
+        if not (torch.equal(g_state.arena.keys.cpu(), state.arena.keys)
+                and torch.equal(g_state.arena.n_used.cpu(), state.arena.n_used)):
+            raise AssertionError(f"{label} step {it}: card and CPU keys differ")
+        gv = g_state.arena.vals.cpu()
+        same = (torch.equal(gv, state.arena.vals) if cfg.integer_walkers
+                else torch.allclose(gv, state.arena.vals, rtol=1e-12, atol=0))
+        if not same:
+            raise AssertionError(f"{label} step {it}: card and CPU values differ")
+        for k in mc:
+            x, y = float(mg[k]), float(mc[k])
+            exact = k not in ("proj_num", "proj_den", "shift") and (
+                cfg.integer_walkers or k != "norm")
+            if (x != y) if exact else not np.isclose(x, y, rtol=1e-12, atol=0):
+                raise AssertionError(f"{label} step {it}: metric {k} {x} != {y}")
+        if bool(mc["overflow"]):
+            raise AssertionError(f"{label} step {it}: overflow")
+    if merge.LAUNCHES - c0 != n_steps:
+        raise AssertionError(f"{label}: {merge.LAUNCHES - c0} kernel A launches in "
+                             f"{n_steps} steps")
+    log(f"{label}: {n_steps} steps on the card equal the CPU's (n_dets "
+        f"{int(mc['n_dets'])}, norm {float(mc['norm'])}), 1 kernel A launch per step")
+
+
+def phase_small_fciqmc(dev):
+    """The FCIQMC step at a small size, card against CPU: near-uniform and
+    heat-bath, integer and fp walkers, one with a spawn buffer."""
+    from fries_tpu_torch.drivers import fciqmc
+
+    for dist, integer, spawn_cap in (("NU", True, 0), ("NU", False, 0), ("HB", True, 1024),
+                                     ("HB", False, 0)):
+        cfg = fciqmc.FciqmcConfig(eps=0.02, target_walkers=600.0, capacity=256,
+                                  attempt_cap=4096, init_thresh=2.0, distribution=dist,
+                                  integer_walkers=integer, shift_damping=0.25,
+                                  shift_interval=4, spawn_cap=spawn_cap)
+        label = (f"small fciqmc ({dist}, {'integer' if integer else 'fp'} walkers"
+                 + (f", spawn_cap {spawn_cap})" if spawn_cap else ")"))
+        fciqmc_steps_match(label, dev, cfg, 20, 4)
+
+
+def phase_small_frimulti(dev):
+    """The frimulti step at a small size, card against CPU from one state
+    with one key tree on the CPU: keys exact, values and metrics within
+    rtol 1e-10, one kernel A launch per step."""
+    import numpy as np
+    import torch
+    from fries_tpu_torch import synth
+    from fries_tpu_torch.drivers import frimulti, power
+    from fries_tpu_torch.runtime import arena as ar
+    from fries_tpu_torch.runtime import merge
+
+    symm = np.array(SMALL_SYMM)
+    args = lambda aux: (aux["num_keys"], aux["num_vals"], aux["den_keys"], aux["den_vals"],
+                        aux["ref_key"])
+    for dist in ("NU", "HB"):
+        label = f"small frimulti ({dist})"
+        cfg = frimulti.FrimultiConfig(eps=0.02, vec_nonz=40, matr_samp=120, capacity=256,
+                                      spawn_cap=200, init_thresh=0.5, target_norm=50.0,
+                                      shift_interval=3, distribution=dist)
+        step_c, run_c, state, aux_c = frimulti.build(
+            synth.make_system(8, 4, symm=symm, seed=3), cfg, seed=4, init_val=30.0)
+        step_g, _, _, aux_g = frimulti.build(
+            synth.make_system(8, 4, symm=symm, seed=3, device=dev), cfg, seed=4, init_val=30.0)
+        state, _ = run_c(state, *args(aux_c), 10)
+        c0 = merge.LAUNCHES
+        for it in range(4):
+            a = state.arena
+            g_state = power.PowerState(
+                ar.Arena(a.keys.to(dev), a.vals.to(dev), a.n_used.to(dev)),
+                state.en_shift.to(dev), state.last_norm.to(dev), state.iterat,
+                state.generator, state.key)
+            state, mc = step_c(state, *args(aux_c))
+            g_state, mg = step_g(g_state, *args(aux_g))
+            if not torch.equal(g_state.arena.keys.cpu(), state.arena.keys):
+                raise AssertionError(f"{label} step {it}: card and CPU keys differ")
+            if not torch.allclose(g_state.arena.vals.cpu(), state.arena.vals,
+                                  rtol=1e-10, atol=1e-12):
+                raise AssertionError(f"{label} step {it}: card and CPU values differ")
+            for k in mc:
+                if not np.isclose(float(mg[k]), float(mc[k]), rtol=1e-10, atol=1e-12):
+                    raise AssertionError(f"{label} step {it}: metric {k} differs")
+        if merge.LAUNCHES - c0 != 4:
+            raise AssertionError(f"{label}: {merge.LAUNCHES - c0} kernel A launches in 4 steps")
+        log(f"{label}: 4 steps on the card match the CPU plain path (n_dets "
+            f"{int(mc['n_dets'])}), 1 kernel A launch per step")
+
+
+def merge_stream_stats(a, sk):
+    """Arena rows, live spawns, unique targets and the longest run of one
+    key of a merge's input."""
+    import torch
+    from fries_tpu_torch import dets
+
+    skey = dets.pack_key(sk)
+    live = skey != dets.sentinel_key(a.n_words)
+    runs = torch.unique_consecutive(torch.sort(skey[live]).values, return_counts=True)[1]
+    return {"arena_rows": int(a.n_used[0]), "spawns": sk.shape[0],
+            "live_spawns": int(live.sum()), "unique_targets": int(runs.shape[0]),
+            "longest_run": int(runs.max()) if runs.numel() else 0}
+
+
+def phase_fciqmc(dev):
+    """bench.py's fciqmc configuration as bench.py runs it (12 blocks of 5
+    warm-up steps, then 5 timed), then one real step's merge input through
+    kernel A and its plain version; returns the results and that input."""
+    import torch
+    from fries_tpu_torch import rung
+    from fries_tpu_torch.runtime import merge
+
+    cfg = rung.fciqmc_config()
+    t0 = time.perf_counter()
+    step, state, args, aux = rung.build_fciqmc(dev)
+    torch.cuda.synchronize()
+    log(f"fciqmc: built in {time.perf_counter() - t0:.1f} s (28 orbitals, 14 electrons, "
+        f"capacity {cfg.capacity}, attempt_cap {cfg.attempt_cap}, spawn_cap {cfg.spawn_cap}, "
+        f"{rung.FCIQMC_INIT_WALKERS:.0f} walkers on HF)")
+    # the first step's merge: every attempt comes from HF, so the stream
+    # holds long runs of HF's connections
+    case = aux["merge_input"](state)
+    first = {**merge_stream_stats(case[0], case[1]),
+             **check_merge("fciqmc, the first step's stream (all attempts from HF), (1,0,0) "
+                           "no keep mask, exact", *case, None, None, exact=True)}
+    del case
+    log(f"fciqmc first step: {json.dumps(first)}")
+    t0 = time.perf_counter()
+    for b in range(12):
+        ms = []
+        for _ in range(5):
+            state, m = step(state, *args)
+            ms.append(m)
+        check_power_metrics(f"fciqmc warm-up block {b}", ms)
+        log(f"fciqmc warm-up block {b}: norm / n_dets per step "
+            + ", ".join(f"{float(m['norm']):.0f} / {int(m['n_dets'])}" for m in ms))
+    warm_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    merge.LAUNCHES = 0
+    t0 = time.perf_counter()
+    metrics = []
+    for _ in range(N_TIMED):
+        state, m = step(state, *args)
+        metrics.append(m)
+    torch.cuda.synchronize()
+    s_per_step = (time.perf_counter() - t0) / N_TIMED
+    launches = merge.LAUNCHES
+    check_power_metrics("fciqmc", metrics)
+    if launches != N_TIMED:
+        raise AssertionError(f"fciqmc: {launches} kernel A launches in {N_TIMED} steps")
+    last = metrics[-1]
+    norm = float(last["norm"])
+    res = {
+        "config": "bench.py fciqmc_mol (synthetic)", "ms_per_step": 1e3 * s_per_step,
+        "warm_up_ms_per_step": 1e3 * warm_s / 60,
+        "walker_iterations_per_s": norm / s_per_step,
+        "ns_per_walker_iteration": 1e9 * s_per_step / norm,
+        "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+        "launches": {"merge": launches}, "merge_launches_per_step": launches // N_TIMED,
+        "norm_timed_steps": [float(m["norm"]) for m in metrics],
+        "n_dets": int(last["n_dets"]), "nnonz": int(last["nnonz"]), "norm": norm,
+        "shift": float(last["shift"]), "overflow": any(bool(m["overflow"]) for m in metrics),
+        "e_corr_est": float(last["proj_num"]) / float(last["proj_den"]),
+    }
+    log(f"fciqmc: {json.dumps(res)}")
+    case = aux["merge_input"](state)
+    res["first_step"] = first
+    res["real_step"] = {**merge_stream_stats(case[0], case[1]),
+                        **check_merge("fciqmc, a real step's post-death arena and spawn "
+                                      "stream, (1,0,0) no keep mask, exact", *case, None, None,
+                                      exact=True)}
+    log(f"fciqmc real step: {json.dumps(res['real_step'])}")
+    return res, case
+
+
+def phase_frimulti(dev):
+    """The ``frimulti`` configuration: 2 warm-up and 3 timed steps."""
+    import torch
+    from fries_tpu_torch import rung
+    from fries_tpu_torch.runtime import merge
+
+    cfg = rung.frimulti_config()
+    t0 = time.perf_counter()
+    step, state, args, _ = rung.build_frimulti(dev)
+    torch.cuda.synchronize()
+    log(f"frimulti: built in {time.perf_counter() - t0:.1f} s (28 orbitals, 14 electrons, "
+        f"capacity {cfg.capacity}, {cfg.spawn_cap} sample slots, HB)")
+    for i in range(2):
+        state, m = step(state, *args)
+        check_power_metrics(f"frimulti warm-up step {i}", [m])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    merge.LAUNCHES = 0
+    t0 = time.perf_counter()
+    metrics = []
+    for _ in range(3):
+        state, m = step(state, *args)
+        metrics.append(m)
+    torch.cuda.synchronize()
+    s_per_step = (time.perf_counter() - t0) / 3
+    launches = merge.LAUNCHES
+    check_power_metrics("frimulti", metrics)
+    if launches != 3:
+        raise AssertionError(f"frimulti: {launches} kernel A launches in 3 steps")
+    last = metrics[-1]
+    res = {"config": "frimulti (1e6 rung system, HB)", "ms_per_step": 1e3 * s_per_step,
+           "sampled_nonzeros_per_s": cfg.matr_samp / s_per_step,
+           "peak_mem_bytes": torch.cuda.max_memory_allocated(), "launches": {"merge": launches},
+           "n_dets": int(last["n_dets"]), "norm": float(last["norm"]),
+           "e_corr_est": float(last["proj_num"]) / float(last["proj_den"])}
+    log(f"frimulti: {json.dumps(res)}")
+    return res
+
+
 # ---------------------------------------------------------------------------
 # timings
 # ---------------------------------------------------------------------------
 
-def phase_timings(dev, n_elements, chunk_case):
+def phase_timings(dev, n_elements, chunk_case, fciqmc_case):
     """Each kernel's wrapper and its plain version on the inputs of its
     check at the main path's shapes (the same seeds; ``chunk_case`` is the
-    exact-H path's own chunk), with its bound:
+    exact-H path's own chunk, ``fciqmc_case`` FCIQMC's own merge input),
+    with its bound:
     call times first for every kernel, then device times, since the
     profiler slows every later launch of the process."""
     import torch
@@ -1103,6 +1360,11 @@ def phase_timings(dev, n_elements, chunk_case):
                                     lambda: merge.accumulate_plain(fa, fsk, fsv, fsi, 0, 1),
                                     merge_bound(fa, (fsk, fsv, fsi)), None)
     extras["merge frifull_chunk"] = {"sort": lambda: merge.sort_spawns(fsk)}
+    qa, qsk, qsv, qsi = fciqmc_case
+    cases["merge fciqmc"] = (lambda: merge.accumulate(qa, qsk, qsv, qsi, 0, 0),
+                             lambda: merge.accumulate_plain(qa, qsk, qsv, qsi, 0, 0),
+                             merge_bound(qa, (qsk, qsv, qsi)), None)
+    extras["merge fciqmc"] = {"sort": lambda: merge.sort_spawns(qsk)}
     gen.manual_seed(8)
     sa, ssk, ssv, ssi, skeep = semistoch_merge_case(gen, dev, n_elements)
     cases["merge semistoch"] = (
@@ -1190,8 +1452,12 @@ def main():
     semi_res = phase_semistoch(dev)
     phase_small_frifull(dev)
     full_res, chunk_case = phase_frifull(dev)
+    phase_small_fciqmc(dev)
+    fq_res, fciqmc_case = phase_fciqmc(dev)
+    phase_small_frimulti(dev)
+    fm_res = phase_frimulti(dev)
     # last: its profiler slows what follows
-    t = phase_timings(dev, semi_res["n_elements"], chunk_case)
+    t = phase_timings(dev, semi_res["n_elements"], chunk_case, fciqmc_case)
 
     keys = ("ms", "plain_ms", "device_ms", "plain_device_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -1207,20 +1473,28 @@ def main():
         name: {**timing(f"merge {name}"), **{key: t[f"merge {name}"][key] for key in sort_keys},
                "max_abs_err": err}
         for name, err in (("frifull_chunk", full_res["real_chunk"]["max_abs_err"]),
-                          ("semistoch", semi_res["merge_check"]["max_abs_err"]))}
+                          ("semistoch", semi_res["merge_check"]["max_abs_err"]),
+                          ("fciqmc", fq_res["real_step"]["max_abs_err"]))}
     merge_shapes["frifull_chunk"].update(
         {key: full_res["real_chunk"][key] for key in ("arena_rows", "sentinel_share",
                                                       "unique_targets", "longest_run")},
         spawns=full_res["spawns_per_chunk"])
+    merge_shapes["fciqmc"].update(
+        {key: fq_res["real_step"][key] for key in ("arena_rows", "spawns", "live_spawns",
+                                                   "unique_targets", "longest_run")},
+        first_step_longest_run=fq_res["first_step"]["longest_run"])
     by_path = lambda kernel: {path: r["launches"][kernel] for path, r in (
-        ("frisys rung", main_res), ("semistoch", semi_res), ("frifull", full_res))
+        ("frisys rung", main_res), ("semistoch", semi_res), ("frifull", full_res),
+        ("fciqmc", fq_res), ("frimulti", fm_res))
         if kernel in r["launches"]}
     kernels = [
         {"name": "merge", "route": "cuda", "source": "fries_tpu_torch/csrc/merge.cu",
          "replaces": "fries_tpu/runtime/pallas_merge.py:617",
          "launches": sum(by_path("merge").values()), "launches_by_path": by_path("merge"),
          "launches_per_frifull_step": full_res["merge_launches_per_step"],
+         "launches_per_fciqmc_step": fq_res["merge_launches_per_step"],
          "max_abs_err": max(m["rung"]["max_abs_err"], m["chunk_regime"]["max_abs_err"],
+                            fq_res["first_step"]["max_abs_err"],
                             *(sh["max_abs_err"] for sh in merge_shapes.values())),
          **merge_timing("merge"), "shapes": merge_shapes},
         {"name": "emit", "route": "cuda", "source": "fries_tpu_torch/csrc/emit.cu",

@@ -1,15 +1,18 @@
 """fries_tpu_torch: the PyTorch / CUDA port of fries_tpu.
 
 The frisys (HB-PP FCI-FRI, also semistochastic and in a time-reversal
-sector), frifull (exact H * v) and subspace-iteration paths on one NVIDIA
-H100: determinant bit strings (``dets``), the molecular Hamiltonian,
-heat-bath tables and time-reversal folding (``ops``), systematic and pivotal vector compression
-(``compress``, drawing from the key tree of ``rng``), the sorted arena and
-its three hand-written CUDA kernels (``runtime.merge`` / ``runtime.emit`` /
-``runtime.merge_multi`` over ``csrc/*.cu``), the power-iteration core, the
-frisys, frifull and subspace drivers (``drivers``), host linear algebra
-(``linalg``), and the ``frisys_mol`` / ``frifull_mol`` / ``subsp_mol``
-command line (``cli``).
+sector), frifull (exact H * v), frimulti (multinomial FRI), FCIQMC (integer
+and fp walkers) and subspace-iteration paths on one NVIDIA H100:
+determinant bit strings (``dets``), the molecular Hamiltonian, heat-bath
+tables, near-uniform and heat-bath excitation samplers and time-reversal
+folding (``ops``), systematic and pivotal vector compression and the walker
+roundings (``compress``, drawing from the key tree of ``rng``), the sorted
+arena and its three hand-written CUDA kernels (``runtime.merge`` /
+``runtime.emit`` / ``runtime.merge_multi`` over ``csrc/*.cu``), the
+power-iteration core, the frisys, frifull, frimulti, fciqmc and subspace
+drivers (``drivers``), host linear algebra (``linalg``), and the
+``frisys_mol`` / ``frifull_mol`` / ``frimulti_mol`` / ``fciqmc_mol`` /
+``fciqmc_fp_mol`` / ``subsp_mol`` command line (``cli``).
 
 The package imports torch, numpy and scipy only; ``fries_tpu`` (JAX) is the
 reference it is tested against.  Importing builds nothing: the kernels are

@@ -1,5 +1,6 @@
-"""Command line of the port: the ``frifull_mol``, ``frisys_mol`` and
-``subsp_mol`` workloads.
+"""Command line of the port: the ``frifull_mol``, ``frisys_mol``,
+``frimulti_mol``, ``fciqmc_mol``, ``fciqmc_fp_mol`` and ``subsp_mol``
+workloads.
 
 Same flags and per-iteration output streams as ``python -m fries_tpu.cli``:
 
@@ -9,6 +10,14 @@ Same flags and per-iteration output streams as ``python -m fries_tpu.cli``:
   ``<prefix>vals`` text files): projnum.txt, projden.txt, S.txt, norm.txt,
   N.txt, nini.txt, nkept.txt, nnonz.txt, sgn_coh.txt, plus params.txt and
   arena_occ.txt;
+* ``frimulti_mol`` (``--distribution`` NU or HB, ``--trial_vec``,
+  ``--ini_vec``, ``--ham_shift``): the same streams;
+* ``fciqmc_mol`` (integer walkers, ``--distribution`` default NU) and
+  ``fciqmc_fp_mol`` (fp walkers, default HB): ``--target`` is the walker
+  target of the shift control, ``--attempt_cap`` the spawn attempts per
+  step (default 4 x ``--target``, or 400,000), ``--epsilon`` defaults to
+  1e-3 and there is no ``--vec_nonz``; the same streams but nini.txt and
+  nkept.txt, which FCIQMC does not report;
 * ``subsp_mol`` (``--time_reversal`` +1 / -1 for a spin-flip sector): h_mat /
   d_mat (``--out_format`` txt, bin, npy or none), shifts.txt (the norm
   factors every shift interval), norms.txt, n_ini.txt and params.txt; the
@@ -19,15 +28,16 @@ All run on ``--device`` (default ``cuda``; a run asking for CUDA where there
 is no CUDA device stops with an error, ``--device cpu`` runs the plain
 versions on the CPU).  None writes ``checkpoint.npz`` (checkpoints are not
 ported), and ``--load_dir``, ``--hf_path`` and ``--n_chips > 1`` raise.  The
-other workloads of the reference (``fciqmc_mol``, ``frifull_hh``,
-``subsp_mol_lowmem`` and ``subspfull_mol`` among them) exit with "not ported
-yet".
+other workloads of the reference (``frifull_hh``, ``subsp_mol_lowmem`` and
+``subspfull_mol`` among them) exit with "not ported yet".
 
 Usage:  python -m fries_tpu_torch.cli frisys_mol --fcidump_path FCIDUMP \\
             --epsilon 1e-3 --vec_nonz 100000 --mat_nonz 100000 \\
             --max_dets 1000000 --max_iter 10000 [--det_space dets.txt]
         python -m fries_tpu_torch.cli frifull_mol --fcidump_path FCIDUMP \\
             --epsilon 5e-3 --vec_nonz 30000 --max_dets 262144
+        python -m fries_tpu_torch.cli fciqmc_mol --fcidump_path FCIDUMP \\
+            --target 1000000 --max_dets 1000000 --initiator 3
         python -m fries_tpu_torch.cli subsp_mol --fcidump_path FCIDUMP \\
             --epsilon 0.02 --vec_nonz 100000 --mat_nonz 200000 \\
             --max_dets 524288 --trial_vecs trial --num_trial 2
@@ -42,8 +52,7 @@ import sys
 import numpy as np
 
 _OTHER_WORKLOADS = (
-    "frimulti_mol", "fciqmc_mol", "fciqmc_fp_mol", "frifull_hh",
-    "frisys_hh", "subsp_mol_lowmem", "subspfull_mol",
+    "frifull_hh", "frisys_hh", "subsp_mol_lowmem", "subspfull_mol",
     "observables_mol", "obs_repl_mol", "dice_dots",
 )
 
@@ -54,7 +63,9 @@ _STREAMS = {
 }
 
 
-def _add_common(p, mat_nonz=True):
+def _add_common(p, mat_nonz=True, walkers=False):
+    """The flags every molecular workload shares; ``walkers`` (FCIQMC):
+    ``--epsilon`` defaults to 1e-3 and there is no ``--vec_nonz``."""
     p.add_argument("--fcidump_path")
     p.add_argument("--hf_path")
     p.add_argument("--point_group", default="C1")
@@ -67,8 +78,11 @@ def _add_common(p, mat_nonz=True):
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--load_dir")
     p.add_argument("--n_chips", type=int, default=1)
-    p.add_argument("--epsilon", type=float, required=True)
-    p.add_argument("--vec_nonz", type=int, required=True)
+    if walkers:
+        p.add_argument("--epsilon", type=float, default=1e-3)
+    else:
+        p.add_argument("--epsilon", type=float, required=True)
+        p.add_argument("--vec_nonz", type=int, required=True)
     if mat_nonz:
         p.add_argument("--mat_nonz", type=int, required=True)
         p.add_argument("--ham_shift", type=float)
@@ -88,6 +102,17 @@ def _parser():
     p.add_argument("--det_space")
     p.add_argument("--trial_vec")
     p.add_argument("--ini_vec")
+    p = sub.add_parser("frimulti_mol", help="multinomial-compression FRI")
+    _add_common(p)
+    p.add_argument("--distribution", default="NU", choices=["NU", "HB"])
+    p.add_argument("--trial_vec")
+    p.add_argument("--ini_vec")
+    for name, dist, help_ in (("fciqmc_mol", "NU", "integer-walker initiator FCIQMC"),
+                              ("fciqmc_fp_mol", "HB", "floating-point FCIQMC")):
+        p = sub.add_parser(name, help=help_)
+        _add_common(p, mat_nonz=False, walkers=True)
+        p.add_argument("--distribution", default=dist, choices=["NU", "HB"])
+        p.add_argument("--attempt_cap", type=int, default=0)
     p = sub.add_parser("subsp_mol", help="multi-state subspace iteration")
     _add_common(p)
     p.add_argument("--trial_vecs", required=True)
@@ -145,23 +170,27 @@ def _overflow_exit(done, n):
 
 def _run_power_driver(args, run_steps, state, aux, protected=None):
     """The iteration loop of the single-vector drivers: run in blocks and
-    stream the metrics to the reference's output files."""
+    stream the metrics to the reference's output files (a stream the driver
+    does not report is left empty)."""
     from fries_tpu_torch.runtime import arena as ar
 
     _write_params(args)
     est = (aux["num_keys"], aux["num_vals"], aux["den_keys"], aux["den_vals"],
            aux["ref_key"])
     files = {k: open(os.path.join(args.result_dir, v), "a") for k, v in _STREAMS.items()}
+    kw = {} if protected is None else {"protected_keys": protected}
     try:
         block = min(args.save_interval, 100)
         done = 0
         while done < args.max_iter:
             n = min(block, args.max_iter - done)
-            state, traj = run_steps(state, *est, n, protected_keys=protected)
+            state, traj = run_steps(state, *est, n, **kw)
             traj = {k: v.cpu().numpy() for k, v in traj.items()}
             if traj["overflow"].any():
                 _overflow_exit(done, n)
             for name, f in files.items():
+                if name not in traj:   # a driver reports a subset of the streams
+                    continue
                 for x in traj[name]:
                     f.write(repr(x.item()) + "\n")
                 f.flush()
@@ -212,6 +241,38 @@ def run_frisys(args):
         ham, cfg, seed=args.seed, determ_keys=determ_keys, trial=trial,
         init_vec=init_vec, e_ref=e_ref)
     _run_power_driver(args, run_steps, state, aux, protected=aux["protected_keys"])
+
+
+def run_frimulti(args):
+    from fries_tpu_torch import io
+    from fries_tpu_torch.drivers import frimulti
+
+    _unported(args, _UNPORTED_INPUTS)
+    _, ham, e_ref = _load(args)
+    trial = io.load_vec_txt(args.trial_vec, ham.n_bits) if args.trial_vec else None
+    init_vec = io.load_vec_txt(args.ini_vec, ham.n_bits) if args.ini_vec else None
+    cfg = frimulti.FrimultiConfig(
+        eps=args.epsilon, vec_nonz=args.vec_nonz, matr_samp=args.mat_nonz,
+        capacity=args.max_dets, spawn_cap=int(args.mat_nonz * 1.4),
+        init_thresh=args.init_thresh, target_norm=args.target_norm,
+        distribution=args.distribution)
+    _, run_steps, state, aux = frimulti.build(ham, cfg, seed=args.seed, trial=trial,
+                                              init_vec=init_vec, e_ref=e_ref)
+    _run_power_driver(args, run_steps, state, aux)
+
+
+def run_fciqmc(args):
+    from fries_tpu_torch.drivers import fciqmc
+
+    _unported(args, _UNPORTED_INPUTS)
+    _, ham, _ = _load(args)
+    cfg = fciqmc.FciqmcConfig(
+        eps=args.epsilon, target_walkers=args.target_norm, capacity=args.max_dets,
+        attempt_cap=args.attempt_cap or 4 * int(args.target_norm or 100000),
+        init_thresh=args.init_thresh, distribution=args.distribution,
+        integer_walkers=args.cmd == "fciqmc_mol")
+    _, run_steps, state, aux = fciqmc.build(ham, cfg, seed=args.seed)
+    _run_power_driver(args, run_steps, state, aux)
 
 
 def _csv(row, fmt=lambda x: repr(float(x))):
@@ -300,10 +361,12 @@ def main(argv=None):
     argv = sys.argv[1:] if argv is None else list(argv)
     if argv and argv[0] in _OTHER_WORKLOADS:
         raise SystemExit(f"{argv[0]}: not ported yet (the port runs frifull_mol, "
-                         "frisys_mol and subsp_mol)")
+                         "frisys_mol, frimulti_mol, fciqmc_mol, fciqmc_fp_mol and "
+                         "subsp_mol)")
     args = _parser().parse_args(argv)
     return {"frifull_mol": run_frifull, "frisys_mol": run_frisys,
-            "subsp_mol": run_subspace}[args.cmd](args)
+            "frimulti_mol": run_frimulti, "fciqmc_mol": run_fciqmc,
+            "fciqmc_fp_mol": run_fciqmc, "subsp_mol": run_subspace}[args.cmd](args)
 
 
 if __name__ == "__main__":

@@ -14,6 +14,11 @@ Counterpart of the main-path part of ``fries_tpu/compress.py``:
   reading the two factor rows).
 * ``adjust_shift`` / ``adjust_shift2``: the norm-control energy shift and
   the subspace iteration's norm-factor controller.
+* walker rounding and row sampling: ``round_binomially``,
+  ``stochastic_round`` and ``sample_categorical_rows``, drawing from a key
+  node (:mod:`fries_tpu_torch.rng`).  The reference's alias tables
+  (``setup_alias`` / ``sample_alias``) have no caller on a ported path and
+  are not ported.
 * pivotal resampling: ``piv_select_tree`` / ``piv_select_tree_2d`` (the
   log-depth duel tournaments, in the reference's duel order), ``piv_comp``
   (vector compression) and ``comp_sub_piv`` (one pivotal hierarchical
@@ -42,6 +47,52 @@ _SEED_TILE = 8192
 
 def _f64(x, device):
     return torch.as_tensor(x, dtype=F64, device=device)
+
+
+# ---------------------------------------------------------------------------
+# stochastic rounding and row sampling
+# ---------------------------------------------------------------------------
+
+def round_binomially(key, p, n):
+    """Unbiased integer rounding floor(p) * n + Binomial(n, frac(p)) (int64)
+    of ``p`` >= 0 with ``n`` trials per element; the draws are the key
+    node's ``binomial``."""
+    flr = torch.floor(p)
+    draws = key.binomial(n, p - flr).to(p.device)
+    return flr.to(torch.int64) * n.to(torch.int64) + draws
+
+
+def stochastic_round(key, p):
+    """Each element of ``p`` >= 0 rounded to its floor or ceiling, unbiased."""
+    flr = torch.floor(p)
+    u = key.uniform(p.shape).to(device=p.device, dtype=p.dtype)
+    return flr + (u < p - flr).to(p.dtype)
+
+
+def sample_categorical_rows(key, probs, valid=None):
+    """One inverse-CDF index per row of (..., K) weights: the number of f32
+    prefix sums at or below u * the row's f64 total, capped at K - 1.
+
+    The reference's prefix is an f32 triangular matmul, whose order of adds
+    XLA picks per K; here both sums run left to right, one add per column
+    and the same rounding on every device (the f64 total is XLA's order at
+    these widths), so a prefix may differ from the reference's in its last
+    f32 bit, and an index flips only where u lands in that bit (a chance
+    near 1e-7 per row)."""
+    p = probs.to(F64)
+    if valid is not None:
+        p = torch.where(valid, p, 0.0)
+    cols = p.movedim(-1, 0).contiguous()
+    tot = cols[0].clone()
+    for col in cols[1:]:
+        tot += col
+    u = key.uniform(probs.shape[:-1] + (1,)).to(probs.device)[..., 0] * tot
+    acc = cols[0].to(torch.float32)
+    idx = (acc.to(F64) <= u).to(torch.int64)
+    for col in cols[1:]:
+        acc += col.to(torch.float32)
+        idx += acc.to(F64) <= u
+    return idx.clamp_max(probs.shape[-1] - 1)
 
 
 # ---------------------------------------------------------------------------

@@ -3,8 +3,8 @@
 Every function takes plain numpy arrays (what ``np.asarray`` gives for the
 reference package's arrays), so this module imports nothing of the reference
 package: a Hamiltonian's integrals, an arena's sorted keys and value rows,
-and the power and subspace states' scalars map one to one onto the port's
-containers.
+and the power, FCIQMC and subspace states' scalars map one to one onto the
+port's containers.
 """
 
 from __future__ import annotations
@@ -12,7 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from fries_tpu_torch.drivers import power, subspace
+from fries_tpu_torch.drivers import fciqmc, power, subspace
 from fries_tpu_torch.ops import molecule as mol
 from fries_tpu_torch.runtime import arena as ar
 
@@ -38,16 +38,27 @@ def arena(keys, vals, n_used, device=None) -> ar.Arena:
         n_used=torch.tensor(np.asarray(n_used, np.int64).reshape(1), device=device))
 
 
-def power_state(a: ar.Arena, en_shift, last_norm, iterat, seed: int = 0
+def power_state(a: ar.Arena, en_shift, last_norm, iterat, seed: int = 0, key=None
                 ) -> power.PowerState:
     """A ``PowerState`` from an arena and the scalars (en_shift, last_norm,
     iterat).  The generator is seeded with ``seed``; the reference's JAX key
-    does not carry over, so tests inject the reference's uniforms."""
-    state = power.fresh_state(a, seed)
+    does not carry over, so tests inject the reference's uniforms, or give a
+    keyed stepper's state the reference's key tree as ``key``."""
+    state = power.fresh_state(a, seed, key=key)
     state.en_shift = torch.tensor(float(np.asarray(en_shift)), dtype=F64, device=a.device)
     state.last_norm = torch.tensor(float(np.asarray(last_norm)), dtype=F64, device=a.device)
     state.iterat = int(np.asarray(iterat))
     return state
+
+
+def fciqmc_state(a: ar.Arena, en_shift, last_norm, iterat, key) -> fciqmc.FciqmcState:
+    """An ``FciqmcState`` from a one-row arena, the scalars (en_shift,
+    last_norm, iterat) and the key tree node the run draws from
+    (:class:`fries_tpu_torch.rng.KeyTree`, or in tests the reference's key
+    behind the same interface)."""
+    as_t = lambda x: torch.tensor(float(np.asarray(x)), dtype=F64, device=a.device)
+    return fciqmc.FciqmcState(arena=a, en_shift=as_t(en_shift), last_norm=as_t(last_norm),
+                              key=key, iterat=int(np.asarray(iterat)))
 
 
 def subspace_state(a: ar.Arena, norm_factors, last_norms, iterat, key

@@ -156,11 +156,21 @@ def double_parity(words, occ1, occ2, virt1, virt2):
 # occupied-orbital lists
 # ---------------------------------------------------------------------------
 
+def running_count(mask: torch.Tensor) -> torch.Tensor:
+    """Inclusive running count of True along the last axis (int64), as a
+    product with a triangular matrix of ones: f32 sums of at most a few
+    hundred ones are exact in any order, and on the card a scan along rows
+    of a few dozen columns is many times slower than the product."""
+    k = mask.shape[-1]
+    tri = torch.triu(torch.ones(k, k, dtype=torch.float32, device=mask.device))
+    return (mask.to(torch.float32) @ tri).to(torch.int64)
+
+
 def occ_list_from_bits(bits: torch.Tensor, n_elec: int) -> torch.Tensor:
     """Ascending set-bit positions ``(..., n_bits) -> (..., n_elec)``; missing
     slots hold ``n_bits``, extra set bits are dropped."""
     n_bits = bits.shape[-1]
-    rank = torch.cumsum(bits.to(torch.int64), dim=-1) - 1
+    rank = running_count(bits) - 1
     slot = torch.where(bits & (rank < n_elec), rank, n_elec)
     pos = torch.arange(n_bits, device=bits.device).expand(bits.shape)
     out = torch.full(bits.shape[:-1] + (n_elec + 1,), n_bits,

@@ -20,14 +20,18 @@ v <- (1 - eps (H - e_ref - S)) v:
     find_preserve + systematic compression, which skip the protected
     (semistochastic) determinants.
 
-A model is a ``spawn_fn(keys, vals, h_fac, rns) -> (words, amps, ini)`` and a
+A model is a ``spawn_fn(keys, vals, h_fac, rand) -> (words, amps, ini)`` and a
 ``diag_fn(keys) -> (C,)`` (already e_ref-relative).  The systematic path
-consumes only scalar uniforms: ``rns`` (6,) for the spawner and ``rn_vec``
-for the vector compression.  ``step`` takes them as arguments and draws
-them from the state's ``torch.Generator`` when they are not given.  A chunk
-spawner gets the same ``rns`` for every chunk (the exact-H spawners draw
-nothing).  Sharding over several devices (``axis_name``, ``exchange_cap``)
-is not ported.
+consumes only scalar uniforms: ``rand`` is ``rns`` (6,) for the spawner, and
+``rn_vec`` serves the vector compression.  ``step`` takes them as arguments
+and draws them from the state's ``torch.Generator`` when they are not given.
+A chunk spawner gets the same ``rns`` for every chunk (the exact-H spawners
+draw nothing).  A keyed stepper (``keyed=True``, the frimulti spawner) draws
+from the state's key node (:mod:`fries_tpu_torch.rng`) instead, as the
+reference's core does: ``split(2)`` of ``key.fold(iterat)`` gives the
+spawner's node and the node of ``rn_vec``.
+Sharding over several devices (``axis_name``, ``exchange_cap``) is not
+ported.
 """
 
 from __future__ import annotations
@@ -72,21 +76,22 @@ class PowerConfig:
 @dataclass
 class PowerState:
     """Arena + scalars.  ``generator`` draws the step's uniforms when the
-    caller injects none."""
+    caller injects none; ``key`` is a keyed stepper's key node."""
 
     arena: ar.Arena
     en_shift: torch.Tensor
     last_norm: torch.Tensor
     iterat: int
     generator: torch.Generator
+    key: object = None
 
 
-def fresh_state(a: ar.Arena, seed: int) -> PowerState:
+def fresh_state(a: ar.Arena, seed: int, key=None) -> PowerState:
     gen = torch.Generator(device="cpu")
     gen.manual_seed(seed)
     zero = torch.zeros((), dtype=F64, device=a.device)
     return PowerState(arena=a, en_shift=zero, last_norm=zero.clone(), iterat=0,
-                      generator=gen)
+                      generator=gen, key=key)
 
 
 def draw_uniforms(state: PowerState):
@@ -102,7 +107,8 @@ def _as_f64(x, device):
 
 
 def make_stepper(spawn_fn, diag_fn, cfg: PowerConfig,
-                 estimator: str = "before_after", spawn_chunk_fn=None):
+                 estimator: str = "before_after", spawn_chunk_fn=None,
+                 keyed: bool = False):
     """Build (step, run_steps) for one model.
 
     step(state, num_keys, num_vals, den_keys, den_vals, ref_key, rns=None,
@@ -121,6 +127,9 @@ def make_stepper(spawn_fn, diag_fn, cfg: PowerConfig,
     the running arena without a keep mask (row positions shift with every
     chunk), the initiator rule gates against the pass-through origin row,
     which no chunk modifies, and the arena is compacted once at the end.
+
+    ``keyed``: the spawner takes a key node; ``rns`` and ``rn_vec`` are not
+    taken, both come from ``state.key``.
     """
     if estimator not in ("before_after", "direct"):
         raise ValueError(f"unknown estimator {estimator!r}")
@@ -136,12 +145,18 @@ def make_stepper(spawn_fn, diag_fn, cfg: PowerConfig,
              ref_key, rns=None, rn_vec=None, protected_keys=None):
         a = state.arena
         dev = a.device
-        if rns is None or rn_vec is None:
-            drawn_rns, drawn_rn = draw_uniforms(state)
-            rns = drawn_rns if rns is None else rns
-            rn_vec = drawn_rn if rn_vec is None else rn_vec
-        rns = _as_f64(rns, dev)
-        rn_vec = _as_f64(rn_vec, dev)
+        if keyed:
+            if rns is not None or rn_vec is not None:
+                raise ValueError("a keyed stepper draws from state.key, not from rns")
+            rns, key_vec = state.key.fold(state.iterat).split(2)
+            rn_vec = key_vec.uniform(()).to(dev)
+        else:
+            if rns is None or rn_vec is None:
+                drawn_rns, drawn_rn = draw_uniforms(state)
+                rns = drawn_rns if rns is None else rns
+                rn_vec = drawn_rn if rn_vec is None else rn_vec
+            rns = _as_f64(rns, dev)
+            rn_vec = _as_f64(rn_vec, dev)
         vals0 = torch.where(a.valid, a.vals[0], 0.0)
         sentinel = dets.invalid_det(a.n_words, dev)
 
@@ -261,7 +276,7 @@ def make_stepper(spawn_fn, diag_fn, cfg: PowerConfig,
             "overflow": overflow,
         }
         return (PowerState(a3, en_shift, last_norm, state.iterat + 1,
-                           state.generator), metrics)
+                           state.generator, state.key), metrics)
 
     def run_steps(state, num_keys, num_vals, den_keys, den_vals, ref_key,
                   n_iter: int, protected_keys=None):

@@ -4,8 +4,10 @@ Builds one of the configurations of :mod:`fries_tpu_torch.rung` (the ones
 ``chip_smoke.py`` times: ``--workload frisys``, the 1e6 rung; ``--workload
 semistoch``, the rung with a deterministic space; ``--workload frifull``,
 bench.py's exact-H configuration, ``--dedup_cap N`` for its dedup variant;
-or ``--workload subsp``, bench.py's subspace configuration), runs warm-up
-steps (frifull: until the vector holds its budget of nonzeros), then
+``--workload subsp``, bench.py's subspace configuration; ``--workload
+fciqmc``, bench.py's 5M-walker FCIQMC configuration; or ``--workload
+frimulti``), runs warm-up steps (frifull: until the vector holds its budget
+of nonzeros; fciqmc: bench.py's 60), then
 
 * counts the host synchronizations of one step (``torch.cuda`` sync debug
   mode, one warning per synchronizing call),
@@ -14,7 +16,9 @@ steps (frifull: until the vector holds its budget of nonzeros), then
   C+D's histogram seed, the threshold fixpoints, norm_weight, the merges
   and their spawn sort, the exact spawn, the dedup and the compaction of
   the chunked exact-H step, the diagonal, the vector compressions, the
-  pivotal tournaments), the
+  pivotal tournaments; for FCIQMC and frimulti the attempt parents, the
+  excitation samplers and their categorical rows, the matrix elements, the
+  binomial rounding, the spawn compaction, death, the estimator), the
   device time inside each pair of nested phases (``"C+D & threshold
   fixpoint"``: the fixpoint rounds of the C+D stage), the top kernels, the
   device's busy time and its idle share of the traced span (from the chrome
@@ -61,8 +65,8 @@ def install_labels():
     """Wrap the phases in profiler ranges (module attributes are looked up at
     call time, so the step picks the wrappers up); returns the labels."""
     from fries_tpu_torch import compress
-    from fries_tpu_torch.drivers import frisys
-    from fries_tpu_torch.ops import heat_bath, molecule
+    from fries_tpu_torch.drivers import fciqmc, frimulti, frisys
+    from fries_tpu_torch.ops import heat_bath, molecule, near_uniform
     from fries_tpu_torch.runtime import arena, emit, merge, merge_multi
 
     phases = (
@@ -86,12 +90,27 @@ def install_labels():
         (molecule, "exact_offdiag_batch", "exact spawn"),
         (merge_multi, "accumulate", "merge_multi: kernel entry"),
         (molecule, "diag_matrel_chunked", "diagonal"),
-        (heat_bath, "norm_weight", "norm_weight"))
+        (heat_bath, "norm_weight", "norm_weight"),
+        (near_uniform, "sample_doubles", "sampler: NU doubles"),
+        (near_uniform, "sample_doubles_heat_bath", "sampler: HB doubles"),
+        (near_uniform, "sample_singles", "sampler: singles"),
+        (compress, "sample_categorical_rows", "categorical rows"),
+        (molecule, "doub_matr_el", "matrix elements"),
+        (molecule, "sing_matr_el", "matrix elements"),
+        (compress, "round_binomially", "binomial rounding"),
+        (fciqmc, "_attempt_parents", "attempt parents"),
+        (fciqmc, "_partition_spawns", "spawn compaction"),
+        (fciqmc, "_death", "death"),
+        (fciqmc, "_estimate", "estimator"))
     phases = [(mod, name, label) for mod, name, label in phases if hasattr(mod, name)]
     for mod, name, label in phases:
         setattr(mod, name, _labelled(label, getattr(mod, name)))
-    make = frisys.make_hbpp_spawner
-    frisys.make_hbpp_spawner = lambda *a, **k: _labelled("spawn (total)", make(*a, **k))
+    for mod, name in ((frisys, "make_hbpp_spawner"), (fciqmc, "make_spawner"),
+                      (frimulti, "make_spawner")):
+        if hasattr(mod, name):
+            make = getattr(mod, name)
+            setattr(mod, name, lambda *a, make=make, **k: _labelled("spawn (total)",
+                                                                   make(*a, **k)))
     return {label for *_, label in phases} | {"spawn (total)"}
 
 
@@ -147,8 +166,8 @@ def trace_device_activity(path, n_steps, labels):
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--workload", choices=["frisys", "semistoch", "frifull", "subsp"],
-                        default="frisys")
+    parser.add_argument("--workload", choices=["frisys", "semistoch", "frifull", "subsp",
+                                               "fciqmc", "frimulti"], default="frisys")
     parser.add_argument("--dedup_cap", type=int, default=0,
                         help="frifull: collapse each chunk's stream to this many rows")
     parser.add_argument("--steps", type=int, default=3)
@@ -173,13 +192,19 @@ def main(argv=None):
         kw = {"protected_keys": aux["protected_keys"]}
     elif args.workload == "frifull":
         step, state, est, _ = rung.build_frifull(dev, args.dedup_cap)
+    elif args.workload == "fciqmc":
+        step, state, est, _ = rung.build_fciqmc(dev)
+    elif args.workload == "frimulti":
+        step, state, est, _ = rung.build_frimulti(dev)
     else:
         step, state, _ = rung.build_subspace(dev)
         est = ()
     step_kw = step
     step = lambda state, *est: step_kw(state, *est, **kw)
-    for i in range(50):
+    for i in range(60):
         state, m = step(state, *est)
+        if args.workload == "fciqmc":
+            continue
         if i >= 2 and (args.workload != "frifull"
                        or int(m["nnonz"]) >= rung.frifull_config().target_nonz):
             break

@@ -1,15 +1,21 @@
-"""A tree of random keys for the pivotal path.
+"""A tree of random keys for the pivotal and the walker paths.
 
-The reference draws its pivotal uniforms from a ``jax.random`` key tree:
+The reference draws its random numbers from a ``jax.random`` key tree:
 ``fold_in`` per iteration, per trial row and per tournament level,
-``split`` for the five spawner stages, ``uniform`` for array-valued draws.
-The port's pivotal functions and its subspace step take a key node with the
-same three operations instead of a JAX key:
+``split`` for the spawner stages, ``uniform`` for array-valued draws and
+``binomial`` for the walker roundings.  The port's pivotal functions, its
+subspace step, its FCIQMC step and the frimulti spawner take a key node with
+the same four operations instead of a JAX key:
 
 * ``fold(i)``: the child node of integer ``i``;
 * ``split(n)``: ``n`` independent child nodes;
 * ``uniform(shape)``: f64 uniforms in [0, 1) of ``shape`` on the node's
-  device.
+  device;
+* ``binomial(n, p)``: int64 Binomial(n, p) draws of ``n``'s shape on the
+  node's device.
+
+A consumer moves a draw to its own tensors' device, so a node on the CPU can
+feed a step on the card.
 
 :class:`KeyTree` is the port's implementation: a counter-based generator
 (the splitmix64 mixer over a 64-bit node key and the element index),
@@ -18,7 +24,11 @@ host arithmetic on Python ints, and a draw is a few elementwise kernels with
 no host read.  It gives the same bits on the CPU and on the card, which a
 ``torch.Generator`` does not (the CPU's Mersenne Twister and the card's
 Philox give different streams for one seed), so a step on the card can be
-held to the same step on the CPU.  Tests wrap a ``jax.random`` key in the
+held to the same step on the CPU.  ``binomial`` is ``torch.binomial`` (an
+exact sampler: inversion for small means, BTRS rejection for large ones)
+under a ``torch.Generator`` on the node's device seeded with the node's key;
+its CPU and card streams differ, so a card step is held to a CPU step by
+giving both one node on the CPU.  Tests wrap a ``jax.random`` key in the
 same interface to hand the port the reference's draws.
 """
 
@@ -82,3 +92,10 @@ class KeyTree:
         idx = torch.arange(math.prod(shape), dtype=torch.int64, device=self.device)
         z = mix64_tensor(idx * _signed(_GOLDEN) + _signed(self.key))
         return (_lsr(z, 11).to(torch.float64) * 2.0 ** -53).reshape(shape)
+
+    def binomial(self, n: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(self.key)
+        count = n.to(device=self.device, dtype=torch.float64)
+        prob = p.to(device=self.device, dtype=torch.float64)
+        return torch.binomial(count, prob, generator=gen).to(torch.int64)

@@ -29,6 +29,26 @@
   1024, spawn_rows 49,152 (48 chunks per step), dedup_cap 0; seed 0.
   ``frifull_config(dedup_cap=1 << 19)`` is its real-molecule branch's
   setting of the dedup on the same system.
+* ``fciqmc``: bench.py's fciqmc_mol configuration (``bench_fciqmc``, its
+  synthetic branch): ``synth.n2_ccpvdz_like(seed=2)`` (28 orbitals, 14
+  electrons), eps 1e-3, target_walkers 5e6, attempt_cap 2^23, spawn_cap
+  2^22, the heat-bath distribution, integer walkers, init_thresh 3.0,
+  shift_damping 1.0, 4e6 walkers on HF at the start, seed 0, with two
+  changes, each forced by an overflow that the card measured with
+  bench.py's values.  shift_interval 1, not 10: the population grows 12% a
+  step from 4e6 walkers and passes the 2^23 attempts at the 8th iteration,
+  before bench.py's controller first moves the shift at the 20th; updated
+  every step, the deadbeat controller holds it near 5.5e6.  Capacity 2^22,
+  not 2^21: at that population the occupied determinants pass 2^21 between
+  the 40th and the 45th iteration and still grow at the 65th that bench.py
+  runs.
+  bench.py's ``attempt_chunk`` (2^20, a workaround for the TPU's memory)
+  is not ported: the 2^23 attempts run in one pass.
+* ``frimulti``: the 1e6 rung's system and budgets
+  (``synth.n2_ccpvdz_like(seed=1)``, eps 1e-3, vec_nonz = matr_samp = 1e6,
+  capacity 2^21, target_norm 2e6) with the heat-bath distribution and the
+  spawn buffer the command line gives (1.4 matr_samp).  bench.py has no
+  frimulti configuration.
 
 ``chip_smoke.py`` times them and :mod:`fries_tpu_torch.profile_step`
 profiles them.
@@ -41,7 +61,7 @@ import torch
 import numpy as np
 
 from fries_tpu_torch import dets, synth
-from fries_tpu_torch.drivers import frifull, frisys, power, subspace
+from fries_tpu_torch.drivers import fciqmc, frifull, frimulti, frisys, power, subspace
 from fries_tpu_torch.ops import molecule as mol
 
 N_SAMP = 1_000_000
@@ -140,3 +160,40 @@ def build_subspace(device, seed: int = 0):
     step, _, state, aux = subspace.build(ham, subspace_config(), trial_keys,
                                          [[1.0], [1.0]], seed=seed)
     return step, state, aux
+
+
+def fciqmc_system(device=None):
+    return synth.n2_ccpvdz_like(seed=2, device=device)
+
+
+def fciqmc_config() -> fciqmc.FciqmcConfig:
+    return fciqmc.FciqmcConfig(eps=1e-3, target_walkers=5_000_000.0, capacity=1 << 22,
+                               attempt_cap=1 << 23, spawn_cap=1 << 22, distribution="HB",
+                               integer_walkers=True, init_thresh=3.0, shift_damping=1.0,
+                               shift_interval=1)
+
+
+FCIQMC_INIT_WALKERS = 4_000_000.0
+
+
+def build_fciqmc(device, seed: int = 0):
+    """The ``fciqmc`` configuration on ``device``.  Returns (step, state, est,
+    aux): ``step(state, *est)`` advances one iteration, and ``aux`` is
+    :func:`fries_tpu_torch.drivers.fciqmc.build`'s."""
+    step, _, state, aux = fciqmc.build(fciqmc_system(device), fciqmc_config(), seed=seed,
+                                       init_walkers=FCIQMC_INIT_WALKERS)
+    return step, state, estimator_args(aux), aux
+
+
+def frimulti_config() -> frimulti.FrimultiConfig:
+    return frimulti.FrimultiConfig(eps=EPS, vec_nonz=N_SAMP, matr_samp=N_SAMP,
+                                   capacity=CAPACITY, spawn_cap=int(N_SAMP * 1.4),
+                                   target_norm=2.0 * N_SAMP, distribution="HB")
+
+
+def build_frimulti(device, seed: int = 0):
+    """The ``frimulti`` configuration on ``device``.  Returns (step, state,
+    est, aux) as :func:`build` does."""
+    ham = synth.n2_ccpvdz_like(seed=1, device=device)
+    step, _, state, aux = frimulti.build(ham, frimulti_config(), seed=seed)
+    return step, state, estimator_args(aux), aux

@@ -1,8 +1,9 @@
 """A ``jax.random`` key behind the port's key-tree interface
-(``fries_tpu_torch.rng``): ``fold``, ``split`` and ``uniform`` map to
-``jax.random.fold_in``, ``jax.random.split`` and ``jax.random.uniform``, and
-the draws come back as CPU torch tensors.  Fed this tree, the port's
-pivotal functions consume the reference's exact uniforms."""
+(``fries_tpu_torch.rng``): ``fold``, ``split``, ``uniform`` and ``binomial``
+map to ``jax.random.fold_in``, ``jax.random.split``, ``jax.random.uniform``
+and ``jax.random.binomial``, and the draws come back as CPU torch tensors.
+Fed this tree, the port's pivotal functions, its FCIQMC step and the
+frimulti spawner consume the reference's exact draws."""
 
 import jax
 import jax.numpy as jnp
@@ -23,3 +24,10 @@ class JaxKeys:
     def uniform(self, shape=()):
         return torch.as_tensor(np.array(
             jax.random.uniform(self.key, tuple(shape), dtype=jnp.float64)))
+
+    def binomial(self, n, p):
+        """Cast as ``fries_tpu.compress.round_binomially`` casts: the trial
+        counts and the probabilities to f32."""
+        draws = jax.random.binomial(self.key, jnp.asarray(n.cpu().numpy(), jnp.float32),
+                                    jnp.asarray(p.cpu().numpy(), jnp.float32))
+        return torch.as_tensor(np.array(draws).astype(np.int64))

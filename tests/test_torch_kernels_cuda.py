@@ -13,8 +13,8 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
-from fries_tpu_torch import _build, compress, dets, probe_reshape, rng as trng, synth  # noqa: E402
-from fries_tpu_torch.drivers import frifull, frisys, power, subspace  # noqa: E402
+from fries_tpu_torch import _build, compress, dets, probe_reshape, rng as trng, rung, synth  # noqa: E402
+from fries_tpu_torch.drivers import fciqmc, frifull, frimulti, frisys, power, subspace  # noqa: E402
 from fries_tpu_torch.runtime import arena as ar  # noqa: E402
 from fries_tpu_torch.runtime import emit, merge, merge_multi  # noqa: E402
 
@@ -222,6 +222,40 @@ def test_merge_chunked_regime(cuda, capacity, s_ratio, sentinel_frac):
         assert_merge_equal(got, gstats, ref, rstats)
         if mask is None:
             assert int(got.n_used[0]) >= n   # every valid row survives
+
+
+@pytest.mark.parametrize("sentinel_frac", [0.0, 0.5, 0.9])
+def test_merge_fciqmc_regime_exact(cuda, sentinel_frac):
+    """Kernel A as the FCIQMC step drives it: layout (1, 0, 0), the origin
+    row also the destination, holding integer post-death populations (a
+    quarter of the rows died to 0 and stay), integer spawns with a run of
+    5,000 on one key (longer than a tile), no keep mask.  The sums are
+    integers, so the kernel equals its plain version exactly, values
+    included."""
+    rng = np.random.default_rng(int(100 * sentinel_frac) + 61)
+    capacity, s = 1 << 16, 1 << 17
+    a, _, _, _ = merge_case(rng, 1, capacity, 20000, 8, 80000)
+    n = int(a.n_used[0])
+    pops = rng.integers(-50, 51, n).astype(np.float64)
+    pops[rng.random(n) < 0.25] = 0.0
+    a.vals[0, :n] = torch.as_tensor(pops)
+    fresh = torch.as_tensor(rng.integers(0, 2**20, size=(n // 2, 1)))
+    targets = torch.cat([a.keys[torch.as_tensor(rng.integers(0, n, n // 2))], fresh])
+    sk = targets[torch.as_tensor(rng.integers(0, targets.shape[0], s))].clone()
+    sk[:5000] = a.keys[int(np.argmax(np.abs(pops)))]
+    sk[torch.as_tensor(rng.random(s) < sentinel_frac)] = dets.WORD_MASK
+    sv = torch.as_tensor(rng.integers(-3, 4, s).astype(np.float64))
+    sv[sk[:, 0] == dets.WORD_MASK] = 0.0
+    si = torch.as_tensor(rng.random(s) < 0.3)
+    ref, rstats = merge.accumulate(a, sk, sv, si, 0, 0)
+    before = merge.LAUNCHES
+    got, gstats = merge.accumulate(to_dev(a, cuda), sk.to(cuda), sv.to(cuda), si.to(cuda),
+                                   0, 0)
+    torch.cuda.synchronize()
+    assert merge.LAUNCHES == before + 1
+    assert_merge_equal(got, gstats, ref, rstats)
+    assert torch.equal(got.vals.cpu(), ref.vals)
+    assert int(got.n_used[0]) >= n
 
 
 def test_merge_shapes_keep_mask_checked(cuda):
@@ -597,8 +631,6 @@ SYMM8 = np.array([0, 1, 0, 1, 0, 1, 2, 3])
 def test_frisys_options_step_cuda_matches_cpu(cuda, path):
     """The semistochastic step (a deterministic space of 8, protected) and
     the even-sector step on the card against the CPU."""
-    from fries_tpu_torch import rung
-
     cfg = frisys.FrisysConfig(eps=0.02, vec_nonz=60, matr_samp=700, capacity=256,
                               spawn_cap=400, target_norm=110.0, shift_interval=2,
                               spin_parity=int(path == "spin_parity"))
@@ -628,3 +660,72 @@ def test_frifull_step_cuda_matches_cpu(cuda, spin_parity, dedup_cap):
     mc = card_steps_match_cpu(cuda, built, 12, 4)
     assert merge.LAUNCHES - m0 == 4 * 8
     assert not bool(mc["overflow"]) and int(mc["nnonz"]) > 30
+
+
+@pytest.mark.parametrize("dist,integer", [("NU", True), ("NU", False), ("HB", True),
+                                          ("HB", False)])
+def test_fciqmc_step_cuda_matches_cpu(cuda, dist, integer):
+    """FCIQMC on the card against the CPU from one state, both drawing from
+    one key tree on the CPU: keys, counts and integer values exact, fp
+    values within rtol 1e-12; one kernel A launch per step."""
+    cfg = fciqmc.FciqmcConfig(eps=0.02, target_walkers=600.0, capacity=256, attempt_cap=4096,
+                              init_thresh=2.0, distribution=dist, integer_walkers=integer,
+                              shift_damping=0.25, shift_interval=4,
+                              spawn_cap=1024 if integer else 0)
+    built = {dev: fciqmc.build(synth.make_system(8, 4, symm=SYMM8, seed=3, device=dev), cfg,
+                               seed=4, init_walkers=300)
+             for dev in ("cpu", cuda)}
+    step_c, run_c, state, aux_c = built["cpu"]
+    step_g, _, _, aux_g = built[cuda]
+    state, _ = run_c(state, *rung.estimator_args(aux_c), 20)
+    m0 = merge.LAUNCHES
+    for _ in range(4):
+        g_state = fciqmc.FciqmcState(to_dev(state.arena, cuda), state.en_shift.to(cuda),
+                                     state.last_norm.to(cuda), state.key, state.iterat)
+        state, mc = step_c(state, *rung.estimator_args(aux_c))
+        g_state, mg = step_g(g_state, *rung.estimator_args(aux_g))
+        assert torch.equal(g_state.arena.keys.cpu(), state.arena.keys)
+        assert int(g_state.arena.n_used[0]) == int(state.arena.n_used[0])
+        if integer:
+            assert torch.equal(g_state.arena.vals.cpu(), state.arena.vals)
+        else:
+            np.testing.assert_allclose(g_state.arena.vals.cpu().numpy(),
+                                       state.arena.vals.numpy(), rtol=1e-12, atol=0)
+        for key in ("n_dets", "nnonz", "sgn_coh", "overflow"):
+            assert int(mg[key]) == int(mc[key]), key
+        for key in ("proj_num", "proj_den", "norm", "shift"):
+            np.testing.assert_allclose(float(mg[key]), float(mc[key]), rtol=1e-12, atol=0,
+                                       err_msg=key)
+    assert merge.LAUNCHES - m0 == 4
+
+
+@pytest.mark.parametrize("dist", ["NU", "HB"])
+def test_frimulti_step_cuda_matches_cpu(cuda, dist):
+    """frimulti on the card against the CPU from one state with one key tree
+    on the CPU; one kernel A launch per step."""
+    cfg = frimulti.FrimultiConfig(eps=0.02, vec_nonz=40, matr_samp=120, capacity=256,
+                                  spawn_cap=200, init_thresh=0.5, target_norm=50.0,
+                                  shift_interval=3, distribution=dist)
+    built = {dev: frimulti.build(synth.make_system(8, 4, symm=SYMM8, seed=3, device=dev), cfg,
+                                 seed=4, init_val=30.0)
+             for dev in ("cpu", cuda)}
+    step_c, run_c, state, aux_c = built["cpu"]
+    step_g, _, _, aux_g = built[cuda]
+    args = lambda aux: (aux["num_keys"], aux["num_vals"], aux["den_keys"], aux["den_vals"],
+                        aux["ref_key"])
+    state, _ = run_c(state, *args(aux_c), 10)
+    m0 = merge.LAUNCHES
+    for _ in range(4):
+        g_state = power.PowerState(to_dev(state.arena, cuda), state.en_shift.to(cuda),
+                                   state.last_norm.to(cuda), state.iterat, state.generator,
+                                   state.key)
+        state, mc = step_c(state, *args(aux_c))
+        g_state, mg = step_g(g_state, *args(aux_g))
+        np.testing.assert_array_equal(g_state.arena.keys.cpu().numpy(),
+                                      state.arena.keys.numpy())
+        np.testing.assert_allclose(g_state.arena.vals.cpu().numpy(),
+                                   state.arena.vals.numpy(), rtol=1e-10, atol=1e-12)
+        for key in mc:
+            np.testing.assert_allclose(float(mg[key]), float(mc[key]), rtol=1e-10,
+                                       atol=1e-12, err_msg=key)
+    assert merge.LAUNCHES - m0 == 4
