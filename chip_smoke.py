@@ -72,7 +72,26 @@ Phases, in order; any failure exits non-zero:
    second;
 12. the frimulti path: small systems card against CPU (NU, HB), then the
    ``frimulti`` configuration (2 warm-up + 3 timed steps);
-13. the timings: each kernel's wrapper and its plain version on the inputs of
+13. the Hubbard-Holstein paths: frifull_hh and frisys_hh on the small
+   3-site system and on pure Hubbard (ph_bits 0), card against CPU from one
+   state; then bench.py's frifull_hh configuration (``rung.frifull_hh_config``:
+   30 warm-up + 10 timed steps, 1 kernel A launch per step asserted,
+   candidates/s) and the ``frisys_hh`` configuration (12 sites, two-word
+   keys; warm-up until the vector holds its 1e6 nonzeros, at most 40 steps,
+   then 5 timed, 2 emissions and 1 kernel A launch per step asserted,
+   sampled nonzeros/s); each path's real merge input through kernel A and
+   its plain version, and frisys_hh's two real emission plans (level 1: K =
+   2 weighted rows; level 2: K = 1 all-uniform rows) through kernel B and
+   its plain version;
+14. the subspace modes: ``lowmem`` (also in the even sector), ``exact_h`` in
+   chunks and ``compress_mode="multi"`` on a small system, card against CPU;
+   then the subsp configuration's ``lowmem`` (one step of the stored and the
+   lowmem path from one state, h_mat within rtol 1e-10; 2 + 5 steps) and
+   ``multi`` (2 + 3 steps), and the ``subspfull`` configuration (exact H on
+   the frifull system, warm-up until both vectors hold their budget, 3 timed
+   steps, one kernel C launch per chunk asserted; a real chunk through kernel
+   C and its plain version);
+15. the timings: each kernel's wrapper and its plain version on the inputs of
    its check at the main path's shapes (the same seeds), last, since the
    profiler that reads device times slows every later launch of the process.
    For the two merges also the spawn sort alone (``sort_ms``,
@@ -81,8 +100,9 @@ Phases, in order; any failure exits non-zero:
    ``stress_device_ms``); ``device_ops`` counts the device operations of one
    call (the kernel entry's are ``device_ops - sort_device_ops``).
 
-Prints one JSON line of per-kernel results before the last line, and as the
-last line ``{"ok": true, "device": {...}}``.  Each kernel's ``bound_ms`` is
+Before it touches the card it checks that neither JAX nor the JAX package is
+loaded.  Prints one JSON line of per-kernel results before the last line,
+and as the last line ``{"ok": true, "device": {...}}``.  Each kernel's ``bound_ms`` is
 the larger of its bytes (each input read once, each output written once, as
 this run's data needs them) over 3.35 TB/s and its f32 operations over 67
 TFLOP/s (the H100 SXM's published peaks).  ``ms``, ``plain_ms`` and
@@ -92,9 +112,13 @@ of one call, from a profiler trace.  Kernel B's entry sums its three
 launches of one frisys step (A+B, C+D, E); its ``shapes`` break that down.
 Kernel A's entry is the rung's case; its ``shapes`` add the exact-H chunk
 (``frifull_chunk``: phase 10's real stream and arena, with the bound of
-those tensors), the semistochastic merge and FCIQMC's merge (``fciqmc``:
-phase 11's real input).  ``launches`` sums a kernel's launches over
-the timed steps of every path (``launches_by_path`` breaks them down).
+those tensors), the semistochastic merge, FCIQMC's merge (``fciqmc``:
+phase 11's real input) and the Hubbard-Holstein paths' real merges
+(``frifull_hh``, ``frisys_hh``).  Kernel B's ``shapes`` add frisys_hh's two
+levels (``hh level 1``, ``hh level 2``; not in its entry's sums), kernel C's
+the subspfull chunk (``subspfull_chunk``).  ``launches`` sums a kernel's
+launches over the timed steps of every path (``launches_by_path`` breaks
+them down).
 Usage: ``python3 chip_smoke.py``.
 """
 
@@ -152,6 +176,20 @@ def device_profile(fn, reps=5):
     busy, _, n_ops, top, _, _ = profile_step.trace_device_activity(path, reps, set())
     return busy, n_ops, top
 
+
+
+def check_no_reference_imports():
+    """Import the port's modules that the phases use, then raise if JAX or
+    the JAX package is among the loaded modules."""
+    import importlib
+
+    for name in ("fries_tpu_torch.rung", "fries_tpu_torch.cli", "fries_tpu_torch.profile_step",
+                 "fries_tpu_torch.probe_reshape", "fries_tpu_torch.convert"):
+        importlib.import_module(name)
+    loaded = sorted(n for n, mod in sys.modules.items() if mod is not None and (
+        n in ("jax", "fries_tpu") or n.startswith(("jax.", "fries_tpu."))))
+    if loaded:
+        raise AssertionError(f"chip_smoke: the reference is loaded: {loaded[:5]}")
 
 
 def bound(n_bytes, n_ops=0):
@@ -547,7 +585,7 @@ def emit_pair(plan):
             else (emit.emit, emit.emit_plain))
 
 
-def check_emit(label, plan):
+def check_emit(label, plan, need_kept=True):
     import torch
 
     kernel, plain = emit_pair(plan)
@@ -559,7 +597,7 @@ def check_emit(label, plan):
     live = rp >= 0
     r = torch.arange(rp.shape[0], device=rp.device) - plan["offsets"][rp.clamp_min(0)]
     kept = live & (r < plan["kept_counts"][rp.clamp_min(0)])
-    if not bool(kept.any()):
+    if need_kept and not bool(kept.any()):
         raise AssertionError(f"emit {label}: no kept emission to compare")
     if not (torch.equal(gs[kept], rs[kept]) and torch.equal(gv[kept], rv[kept])):
         raise AssertionError(f"emit {label}: kept emissions differ")
@@ -658,21 +696,28 @@ def phase_probe(dev):
 SMALL_SYMM = (0, 1, 0, 1, 0, 1, 2, 3)
 
 
+def small_system(device=None):
+    """The small molecular system of the card-against-CPU checks (8
+    orbitals, 4 electrons)."""
+    import numpy as np
+    from fries_tpu_torch import synth
+
+    return synth.make_system(8, 4, symm=np.array(SMALL_SYMM), seed=3, device=device)
+
+
 def small_steps_match(label, dev, build, n_warm, n_steps, kernel_counts, protected=False):
-    """A small system (8 orbitals, 4 electrons) stepped on the card and on
-    the CPU (plain versions) from the same state with the same uniforms:
-    keys exact, values and metrics within rtol 1e-10.  ``build(ham)`` gives
-    a power iteration's (step, run_steps, state, aux); ``kernel_counts`` maps a
+    """A small system stepped on the card and on the CPU (plain versions)
+    from the same state with the same uniforms: keys exact, values and
+    metrics within rtol 1e-10.  ``build(device)`` gives a power iteration's
+    (step, run_steps, state, aux) on ``device``; ``kernel_counts`` maps a
     wrapper module to the launches it must count per step."""
     import numpy as np
     import torch
-    from fries_tpu_torch import synth
     from fries_tpu_torch.drivers import power
     from fries_tpu_torch.runtime import arena as ar
 
-    symm = np.array(SMALL_SYMM)
-    step_c, run_c, state, aux_c = build(synth.make_system(8, 4, symm=symm, seed=3))
-    step_g, _, _, aux_g = build(synth.make_system(8, 4, symm=symm, seed=3, device=dev))
+    step_c, run_c, state, aux_c = build(torch.device("cpu"))
+    step_g, _, _, aux_g = build(dev)
     args = lambda aux: (aux["num_keys"], aux["num_vals"], aux["den_keys"],
                         aux["den_vals"], aux["ref_key"])
     kw = lambda aux: {"protected_keys": aux["protected_keys"]} if protected else {}
@@ -713,8 +758,8 @@ def phase_small_step(dev):
 
     cfg = frisys.FrisysConfig(eps=0.02, vec_nonz=60, matr_samp=150, capacity=256,
                               spawn_cap=200, target_norm=200.0, shift_interval=2)
-    small_steps_match("small system", dev, lambda ham: frisys.build(ham, cfg, seed=4), 20, 3,
-                      {merge: 1, emit: 3})
+    small_steps_match("small system", dev, lambda d: frisys.build(small_system(d), cfg, seed=4),
+                      20, 3, {merge: 1, emit: 3})
 
 
 def phase_small_options(dev):
@@ -722,20 +767,20 @@ def phase_small_options(dev):
     even-sector step at a small size, card against CPU."""
     import dataclasses
 
-    import numpy as np
-    from fries_tpu_torch import rung, synth
+    from fries_tpu_torch import rung
     from fries_tpu_torch.drivers import frisys
     from fries_tpu_torch.runtime import emit, merge
 
     cfg = frisys.FrisysConfig(eps=0.02, vec_nonz=60, matr_samp=700, capacity=256,
                               spawn_cap=400, target_norm=110.0, shift_interval=2)
-    space = rung.determ_space(synth.make_system(8, 4, symm=np.array(SMALL_SYMM), seed=3), 8)
+    space = rung.determ_space(small_system(), 8)
     small_steps_match("small semistochastic system", dev,
-                      lambda ham: frisys.build(ham, cfg, seed=4, determ_keys=space), 20, 4,
-                      {merge: 1, emit: 3}, protected=True)
+                      lambda d: frisys.build(small_system(d), cfg, seed=4, determ_keys=space),
+                      20, 4, {merge: 1, emit: 3}, protected=True)
     tr_cfg = dataclasses.replace(cfg, spin_parity=1)
     small_steps_match("small system, even time-reversal sector", dev,
-                      lambda ham: frisys.build(ham, tr_cfg, seed=4), 20, 4, {merge: 1, emit: 3})
+                      lambda d: frisys.build(small_system(d), tr_cfg, seed=4), 20, 4,
+                      {merge: 1, emit: 3})
 
 
 def phase_small_frifull(dev):
@@ -750,7 +795,8 @@ def phase_small_frifull(dev):
                                 shift_interval=2, init_thresh=1.0, batch=32, spawn_rows=256,
                                 dedup_cap=dedup_cap)
         small_steps_match(f"small exact-H system ({label})", dev,
-                          lambda ham: frifull.build(ham, cfg, seed=4, spin_parity=parity),
+                          lambda d: frifull.build(small_system(d), cfg, seed=4,
+                                                  spin_parity=parity),
                           12, 4, {merge: 8})
 
 
@@ -817,68 +863,96 @@ def phase_main_path(dev):
     return res
 
 
-def phase_subspace_small(dev):
-    """A small subspace system stepped on the card and on the CPU from the
-    same state with the same key tree, across a restart and a norm-factor
-    update, in the whole space and in the even time-reversal sector
-    (``spin_parity = +1``: folded trial vectors, H * trial, diagonal and
-    spawner): keys and counts exact, values and h / d within rtol 1e-10,
-    one kernel C launch per iteration."""
+def subspace_steps_match(label, dev, cfg, n_warm=4, n_steps=4):
+    """A small subspace system (8 orbitals, 4 electrons; HF and its single
+    1 -> 5 as trial vectors) stepped on the card and on the CPU from the same
+    state with the same key tree: keys and counts exact, values and h / d
+    within rtol 1e-10; one kernel C launch per iteration, or one per chunk
+    (``n_merges``) with ``exact_h``."""
     import numpy as np
     import torch
-    from fries_tpu_torch import dets, rng, synth
+    from fries_tpu_torch import dets, rng
     from fries_tpu_torch.drivers import subspace
     from fries_tpu_torch.runtime import arena as ar
     from fries_tpu_torch.runtime import merge_multi
 
-    u_card = rng.KeyTree(11, dev).fold(3).uniform((1000,)).cpu()
-    if not torch.equal(u_card, rng.KeyTree(11).fold(3).uniform((1000,))):
-        raise AssertionError("key tree: card and CPU uniforms differ")
-    symm = np.array([0, 1, 0, 1, 0, 1, 2, 3])
     hf = dets.hf_det(8, 4)
     d1, _ = dets.single_parity(hf[None], torch.tensor([1]), torch.tensor([5]))
     tk, tv = torch.stack([hf[None], d1]).numpy(), np.ones((2, 1))
+    step_c, run_c, state, _ = subspace.build(small_system(), cfg, tk, tv, seed=4)
+    step_g, _, _, _ = subspace.build(small_system(dev), cfg, tk, tv, seed=4)
+    state, _ = run_c(state, n_warm)
+    c0, merges = merge_multi.LAUNCHES, 0
+    for it in range(n_steps):
+        a = state.arena
+        g_state = subspace.SubspaceState(
+            ar.Arena(a.keys.to(dev), a.vals.to(dev), a.n_used.to(dev)),
+            state.norm_factors.to(dev), state.last_norms.to(dev), rng.KeyTree(4, dev),
+            state.iterat)
+        state, mc = step_c(state)
+        g_state, mg = step_g(g_state)
+        if not torch.equal(g_state.arena.keys.cpu(), state.arena.keys):
+            raise AssertionError(f"{label} step {it}: card and CPU keys differ")
+        if not torch.allclose(g_state.arena.vals.cpu(), state.arena.vals,
+                              rtol=1e-10, atol=1e-12):
+            raise AssertionError(f"{label} step {it}: card and CPU values differ")
+        for k in mc:
+            x, y = mg[k].cpu(), mc[k]
+            same = (torch.allclose(x, y, rtol=1e-10, atol=1e-12) if y.is_floating_point()
+                    else torch.equal(x, y))
+            if not same:
+                raise AssertionError(f"{label} step {it}: metric {k} differs")
+        if bool(mc["overflow"]):
+            raise AssertionError(f"{label} step {it}: overflow")
+        merges += int(mc.get("n_merges", 1))
+    if merge_multi.LAUNCHES - c0 != merges:
+        raise AssertionError(f"{label}: {merge_multi.LAUNCHES - c0} kernel C launches, "
+                             f"{merges} merges in {n_steps} iterations")
+    log(f"{label}: {n_steps} steps on the card match the CPU plain path (n_dets "
+        f"{int(mc['n_dets'][0])}), {merges} kernel C launches")
+    return merges
+
+
+def phase_subspace_small(dev):
+    """The subspace step at a small size, card against CPU, across a restart
+    and a norm-factor update (both at iterat 5), in the whole space and in
+    the even time-reversal sector (``spin_parity = +1``: folded trial
+    vectors, H * trial, diagonal and spawner)."""
+    import torch
+    from fries_tpu_torch import rng
+    from fries_tpu_torch.drivers import subspace
+
+    u_card = rng.KeyTree(11, dev).fold(3).uniform((1000,)).cpu()
+    if not torch.equal(u_card, rng.KeyTree(11).fold(3).uniform((1000,))):
+        raise AssertionError("key tree: card and CPU uniforms differ")
     for spin_parity in (0, 1):
-        label = f"subspace small (spin_parity {spin_parity})"
         cfg = subspace.SubspaceConfig(eps=0.02, n_trial=2, vec_nonz=60, matr_samp=150,
                                       capacity=256, spawn_cap=200, restart_int=3,
                                       shift_interval=3, spin_parity=spin_parity)
-        step_c, run_c, state, _ = subspace.build(
-            synth.make_system(8, 4, symm=symm, seed=3), cfg, tk, tv, seed=4)
-        step_g, _, _, _ = subspace.build(
-            synth.make_system(8, 4, symm=symm, seed=3, device=dev), cfg, tk, tv, seed=4)
-        state, _ = run_c(state, 4)
-        c0 = merge_multi.LAUNCHES
-        for it in range(4):   # the restart and the update come at iterat 5
-            a = state.arena
-            g_state = subspace.SubspaceState(
-                ar.Arena(a.keys.to(dev), a.vals.to(dev), a.n_used.to(dev)),
-                state.norm_factors.to(dev), state.last_norms.to(dev), rng.KeyTree(4, dev),
-                state.iterat)
-            state, mc = step_c(state)
-            g_state, mg = step_g(g_state)
-            if not torch.equal(g_state.arena.keys.cpu(), state.arena.keys):
-                raise AssertionError(f"{label} step {it}: card and CPU keys differ")
-            if not torch.allclose(g_state.arena.vals.cpu(), state.arena.vals,
-                                  rtol=1e-10, atol=1e-12):
-                raise AssertionError(f"{label} step {it}: card and CPU values differ")
-            for k in mc:
-                x, y = mg[k].cpu(), mc[k]
-                same = (torch.allclose(x, y, rtol=1e-10, atol=1e-12) if y.is_floating_point()
-                        else torch.equal(x, y))
-                if not same:
-                    raise AssertionError(f"{label} step {it}: metric {k} differs")
-        if merge_multi.LAUNCHES - c0 != 4:
-            raise AssertionError(f"{label}: {merge_multi.LAUNCHES - c0} kernel C launches "
-                                 "in 4 iterations")
-        log(f"{label}: 4 steps on the card match the CPU plain path (a restart and a "
-            "norm-factor update among them), 1 kernel C launch per iteration")
+        subspace_steps_match(f"subspace small (spin_parity {spin_parity})", dev, cfg)
+
+
+def phase_subspace_modes_small(dev):
+    """The subspace modes at a small size, card against CPU: ``lowmem``
+    (also in the even sector), ``exact_h`` in chunks of 16 rows (at least 3
+    kernel C launches per iteration) and ``compress_mode="multi"``."""
+    from fries_tpu_torch.drivers import subspace
+
+    base = dict(eps=0.02, n_trial=2, vec_nonz=60, matr_samp=150, capacity=512,
+                spawn_cap=200, restart_int=3, shift_interval=3)
+    for label, modes in (("lowmem", dict(lowmem=True)),
+                         ("lowmem, even sector", dict(lowmem=True, spin_parity=1)),
+                         ("exact_h, 16-row chunks", dict(exact_h=True, batch=16)),
+                         ("multi", dict(compress_mode="multi"))):
+        merges = subspace_steps_match(f"subspace small ({label})", dev,
+                                      subspace.SubspaceConfig(**base, **modes))
+        if modes.get("exact_h") and merges < 3 * 4:
+            raise AssertionError(f"subspace small ({label}): {merges} merges in 4 steps")
 
 
 def phase_subspace(dev):
     import torch
     from fries_tpu_torch import linalg, rung
-    from fries_tpu_torch.runtime import merge_multi
 
     cfg = rung.subspace_config()
     t0 = time.perf_counter()
@@ -887,40 +961,13 @@ def phase_subspace(dev):
     log(f"subspace: built in {time.perf_counter() - t0:.1f} s (23 orbitals, 10 "
         f"electrons, {cfg.n_trial} states, capacity {cfg.capacity}, spawn_cap "
         f"{cfg.spawn_cap} per state)")
-    for i in range(N_WARM):
-        state, m = step(state)
-        if bool(m["overflow"]):
-            raise AssertionError(f"subspace: overflow at warm-up step {i}")
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    merge_multi.LAUNCHES = 0
-    t0 = time.perf_counter()
-    metrics = []
-    for _ in range(N_TIMED):
-        state, m = step(state)
-        metrics.append(m)
-    torch.cuda.synchronize()
-    s_per_step = (time.perf_counter() - t0) / N_TIMED
-    launches = {"merge_multi": merge_multi.LAUNCHES}
-    for i, m in enumerate(metrics):
-        if bool(m["overflow"]):
-            raise AssertionError(f"subspace: overflow at timed step {i}")
-        if not (torch.isfinite(m["h_mat"]).all() and torch.isfinite(m["d_mat"]).all()):
-            raise AssertionError(f"subspace: non-finite h_mat / d_mat at timed step {i}")
-    if launches["merge_multi"] < N_TIMED:
-        raise AssertionError(f"subspace did not run through kernel C: {launches}")
-    last = metrics[-1]
+    _, r = subspace_run("subspace", step, state, N_WARM, N_TIMED)
+    last = r.pop("metrics")[-1]
     evals, _ = linalg.gen_eig(last["h_mat"].cpu().numpy(), last["d_mat"].cpu().numpy())
-    res = {
-        "config": "bench.py subsp", "ms_per_step": 1e3 * s_per_step,
-        "sampled_nonzeros_per_s": cfg.n_trial * cfg.matr_samp / s_per_step,
-        "peak_mem_bytes": torch.cuda.max_memory_allocated(), "launches": launches,
-        "n_dets_timed_steps": [int(m["n_dets"][0]) for m in metrics],
-        "n_dets_per_row": (state.arena.vals != 0).sum(1).tolist(),
-        "norms": last["norms"].tolist(),
-        "eigenvalues_last_step": sorted(float(x) for x in evals.real),
-        "e_ref": aux["e_ref"],
-    }
+    res = {"config": "bench.py subsp",
+           "sampled_nonzeros_per_s": cfg.n_trial * cfg.matr_samp / r.pop("s_per_step"), **r,
+           "norms": last["norms"].tolist(),
+           "eigenvalues_last_step": sorted(float(x) for x in evals.real), "e_ref": aux["e_ref"]}
     log(f"subspace: {json.dumps(res)}")
     return res
 
@@ -1011,27 +1058,16 @@ def phase_frifull(dev):
         f"capacity {cfg.capacity}, {n_chunks} chunks of {cfg.batch} rows, "
         f"{aux['n_excitations']} template excitations, S = {s_chunk} per chunk)")
 
-    def block(state, step, n, label):
-        metrics = []
-        for _ in range(n):
-            state, m = step(state, *args)
-            metrics.append(m)
-        torch.cuda.synchronize()
-        check_power_metrics(label, metrics)
-        return state, metrics
-
     n_warm = nnonz = 0
     while n_warm < 6 or (nnonz < cfg.target_nonz and n_warm < 50):
-        state, ms = block(state, step, 3, "frifull warm-up")
+        state, ms, _ = timed_block(step, state, args, 3, "frifull warm-up")
         n_warm += 3
         nnonz = int(ms[-1]["nnonz"])
         log("frifull warm-up: n_dets / nnonz per step "
             + ", ".join(f"{int(m['n_dets'])} / {int(m['nnonz'])}" for m in ms))
     torch.cuda.reset_peak_memory_stats()
     merge.LAUNCHES = 0
-    t0 = time.perf_counter()
-    state, metrics = block(state, step, 3, "frifull")
-    s_per_step = (time.perf_counter() - t0) / 3
+    state, metrics, s_per_step = timed_block(step, state, args, 3, "frifull")
     launches = merge.LAUNCHES
     if launches != 3 * n_chunks:
         raise AssertionError(f"frifull: {launches} kernel A launches in 3 steps, "
@@ -1072,12 +1108,11 @@ def phase_frifull(dev):
 
     dedup_cap = 1 << 19
     step_d, _, _, _ = rung.build_frifull(dev, dedup_cap)
-    state_d, _ = block(state, step_d, 1, "frifull dedup warm-up")
+    state_d, _, _ = timed_block(step_d, state, args, 1, "frifull dedup warm-up")
     torch.cuda.reset_peak_memory_stats()
     merge.LAUNCHES = 0
-    t0 = time.perf_counter()
-    state_d, metrics_d = block(state_d, step_d, 2, "frifull dedup")
-    res["dedup"] = {"dedup_cap": dedup_cap, "ms_per_step": 1e3 * (time.perf_counter() - t0) / 2,
+    state_d, metrics_d, s_dedup = timed_block(step_d, state_d, args, 2, "frifull dedup")
+    res["dedup"] = {"dedup_cap": dedup_cap, "ms_per_step": 1e3 * s_dedup,
                     "merge_launches_per_step": merge.LAUNCHES // 2,
                     "peak_mem_bytes": torch.cuda.max_memory_allocated(),
                     "n_dets": int(metrics_d[-1]["n_dets"])}
@@ -1327,21 +1362,336 @@ def phase_frimulti(dev):
 
 
 # ---------------------------------------------------------------------------
+# the Hubbard-Holstein paths
+# ---------------------------------------------------------------------------
+
+def small_hh(g=0.4, ph_bits=2):
+    """tests/test_hubbard.py's small system (3 sites, 2 electrons), or pure
+    Hubbard with g = 0 and no phonon bits."""
+    from fries_tpu_torch.ops import hubbard
+
+    return hubbard.HubbardHolstein(n_sites=3, n_elec=2, ph_bits=ph_bits, u=1.5, omega=0.7,
+                                   g=g, t=1.0)
+
+
+def phase_small_hh(dev):
+    """frifull_hh and frisys_hh on the small systems, card against CPU from
+    one state with the same uniforms: one kernel A launch per step, and two
+    emissions per frisys_hh step."""
+    from fries_tpu_torch.drivers import frifull_hh, frisys_hh, power
+    from fries_tpu_torch.runtime import emit, merge
+
+    for label, ham in (("Hubbard-Holstein", small_hh()),
+                       ("pure Hubbard, ph_bits 0", small_hh(0.0, 0))):
+        fcfg = power.PowerConfig(eps=0.02, target_nonz=20, capacity=256, target_norm=150.0,
+                                 shift_interval=2)
+        small_steps_match(f"small frifull_hh ({label})", dev,
+                          lambda d: frifull_hh.build(ham, 0.1, fcfg, seed=3, device=d),
+                          12, 4, {merge: 1})
+        scfg = frisys_hh.FrisysHHConfig(eps=0.02, vec_nonz=20, matr_samp=40, capacity=128,
+                                        spawn_cap=64, target_norm=150.0, shift_interval=2)
+        small_steps_match(f"small frisys_hh ({label})", dev,
+                          lambda d: frisys_hh.build(ham, 0.1, scfg, seed=3, device=d),
+                          12, 4, {merge: 1, emit: 2})
+
+
+def power_merge_input(state, aux, eps, rns):
+    """The merge input of the next power step from ``state``: (arena, spawn
+    keys, values, initiator flags, keep mask), as the step builds it."""
+    import torch
+    from fries_tpu_torch import dets
+
+    a = state.arena
+    w, amp, ini = aux["spawn"](a.keys, torch.where(a.valid, a.vals[0], 0.0), -eps, rns)
+    w = torch.where((amp != 0)[:, None], w, dets.invalid_det(a.n_words, a.device))
+    return a, w, amp, ini, dets.det_eq(a.keys, aux["ref_key"][None, :])
+
+
+def timed_block(step, state, args, n, label):
+    """``n`` steps; returns (state, metrics, seconds per step)."""
+    import torch
+
+    t0 = time.perf_counter()
+    metrics = []
+    for _ in range(n):
+        state, m = step(state, *args)
+        metrics.append(m)
+    torch.cuda.synchronize()
+    check_power_metrics(label, metrics)
+    return state, metrics, (time.perf_counter() - t0) / n
+
+
+def phase_frifull_hh(dev):
+    """bench.py's frifull_hh configuration as bench.py times it (its
+    ``_time_steady``: 3 warm-up blocks of 10 steps, then 10 timed steps),
+    one kernel A launch per step asserted, then a real step's merge input
+    through kernel A and its plain version; returns the results and that
+    input."""
+    import torch
+    from fries_tpu_torch import rung
+    from fries_tpu_torch.ops import hubbard
+    from fries_tpu_torch.runtime import merge
+
+    cfg, ham = rung.frifull_hh_config(), rung.frifull_hh_system()
+    n_cand = cfg.capacity * hubbard.n_candidates(ham)
+    t0 = time.perf_counter()
+    step, state, args, aux = rung.build_frifull_hh(dev)
+    torch.cuda.synchronize()
+    log(f"frifull_hh: built in {time.perf_counter() - t0:.1f} s (4 sites, ph_bits 3, "
+        f"{ham.n_bits} bits, capacity {cfg.capacity}, {n_cand} candidates per step)")
+    state, warm, _ = timed_block(step, state, args, 30, "frifull_hh warm-up")
+    torch.cuda.reset_peak_memory_stats()
+    merge.LAUNCHES = 0
+    state, metrics, s_per_step = timed_block(step, state, args, 10, "frifull_hh")
+    launches = merge.LAUNCHES
+    if launches != 10:
+        raise AssertionError(f"frifull_hh: {launches} kernel A launches in 10 steps")
+    last = metrics[-1]
+    res = {"config": "bench.py frifull_hh", "ms_per_step": 1e3 * s_per_step,
+           "candidates_per_s": n_cand / s_per_step,
+           "peak_mem_bytes": torch.cuda.max_memory_allocated(), "launches": {"merge": launches},
+           "n_dets_nnonz_per_step": [[int(m["n_dets"]), int(m["nnonz"])] for m in warm + metrics],
+           "norm": float(last["norm"]), "shift": float(last["shift"]),
+           "e_est": float(last["proj_num"]) / float(last["proj_den"])}
+    log(f"frifull_hh: {json.dumps(res)}")
+    case = power_merge_input(state, aux, cfg.eps, None)
+    res["real_step"] = {
+        **merge_stream_stats(case[0], case[1]),
+        **check_merge("frifull_hh, a real step's stream (one word, phonon bits), (2,0,1) "
+                      "+ keep mask", *case[:4], None, case[4])}
+    log(f"frifull_hh real step: {json.dumps(res['real_step'])}")
+    return res, case
+
+
+def capture_emissions(spawn, *args):
+    """Run ``spawn(*args)`` and return its result and the plans of the
+    emissions it launched (the keyword arguments of each ``emit.emit``)."""
+    from fries_tpu_torch.runtime import emit
+
+    plans, orig = [], emit.emit
+
+    def recording(**plan):
+        plans.append(plan)
+        return orig(**plan)
+
+    emit.emit = recording
+    try:
+        out = spawn(*args)
+    finally:
+        emit.emit = orig
+    return out, plans
+
+
+def phase_frisys_hh(dev):
+    """The ``frisys_hh`` configuration: warm-up until the vector holds its
+    budget (at most 40 steps, each logged), 5 timed steps with 2 emissions
+    and 1 kernel A launch per step asserted, then a real step's two
+    emission plans through kernel B and its merge input through kernel A,
+    each against its plain version; returns the results, the merge input
+    and the plans."""
+    import torch
+    from fries_tpu_torch import rung
+    from fries_tpu_torch.runtime import emit, merge
+
+    cfg, ham = rung.frisys_hh_config(), rung.frisys_hh_system()
+    t0 = time.perf_counter()
+    step, state, args, aux = rung.build_frisys_hh(dev)
+    torch.cuda.synchronize()
+    log(f"frisys_hh: built in {time.perf_counter() - t0:.1f} s ({ham.n_sites} sites, "
+        f"ph_bits {ham.ph_bits}, {ham.n_bits} bits in {ham.n_words} words, capacity "
+        f"{cfg.capacity}, matr_samp {cfg.matr_samp}, spawn_cap {cfg.spawn_cap})")
+    n_warm, nnonz, warm = 0, 0, []
+    while nnonz < cfg.vec_nonz and n_warm < 40:
+        state, ms, _ = timed_block(step, state, args, 1, "frisys_hh warm-up")
+        n_warm += 1
+        nnonz = int(ms[0]["nnonz"])
+        warm.append([int(ms[0]["n_dets"]), nnonz])
+    log(f"frisys_hh warm-up: {n_warm} steps, n_dets / nnonz per step {warm}")
+    torch.cuda.reset_peak_memory_stats()
+    merge.LAUNCHES = 0
+    emit.LAUNCHES = 0
+    state, metrics, s_per_step = timed_block(step, state, args, N_TIMED, "frisys_hh")
+    launches = {"merge": merge.LAUNCHES, "emit": emit.LAUNCHES}
+    if launches != {"merge": N_TIMED, "emit": 2 * N_TIMED}:
+        raise AssertionError(f"frisys_hh: launches {launches} in {N_TIMED} steps")
+    last = metrics[-1]
+    res = {"config": f"frisys_hh ({ham.n_sites} sites, ph_bits {ham.ph_bits})",
+           "ms_per_step": 1e3 * s_per_step,
+           "sampled_nonzeros_per_s": cfg.matr_samp / s_per_step,
+           "peak_mem_bytes": torch.cuda.max_memory_allocated(), "launches": launches,
+           "warm_up_steps": n_warm, "n_dets_nnonz_warm_up": warm,
+           "n_dets_nnonz_timed_steps": [[int(m["n_dets"]), int(m["nnonz"])] for m in metrics],
+           "norm": float(last["norm"]),
+           "e_est": float(last["proj_num"]) / float(last["proj_den"])}
+    log(f"frisys_hh: {json.dumps(res)}")
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(12)
+    rns = torch.rand(2, dtype=torch.float64, generator=gen).to(dev)
+    case, plans = capture_emissions(power_merge_input, state, aux, cfg.eps, rns)
+    if len(plans) != 2:
+        raise AssertionError(f"frisys_hh: {len(plans)} emissions in one spawn")
+    res["emit_checks"] = {
+        name: check_emit(f"frisys_hh {name} (N={plan['offsets'].shape[0]}, "
+                         f"K={plan['w_sub'].shape[1]}), a real step's plan", plan,
+                         need_kept=False)
+        for name, plan in zip(("hh level 1", "hh level 2"), plans)}
+    res["real_step"] = {
+        **merge_stream_stats(case[0], case[1]),
+        **check_merge("frisys_hh, a real step's stream (two words, phonon bits), (2,0,1) "
+                      "+ keep mask", *case[:4], None, case[4])}
+    log(f"frisys_hh real step: {json.dumps(res['real_step'])}")
+    return res, case, dict(zip(("hh level 1", "hh level 2"), plans))
+
+
+def subspace_run(label, step, state, n_warm, n_timed):
+    """``n_warm`` + ``n_timed`` subspace iterations with kernel C's count
+    reset before the timed ones; returns (state, results)."""
+    import torch
+    from fries_tpu_torch.runtime import merge_multi
+
+    for i in range(n_warm):
+        state, m = step(state)
+        if bool(m["overflow"]):
+            raise AssertionError(f"{label}: overflow at warm-up step {i}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    merge_multi.LAUNCHES = 0
+    t0 = time.perf_counter()
+    metrics = []
+    for _ in range(n_timed):
+        state, m = step(state)
+        metrics.append(m)
+    torch.cuda.synchronize()
+    s_per_step = (time.perf_counter() - t0) / n_timed
+    merges = sum(int(m.get("n_merges", 1)) for m in metrics)
+    for i, m in enumerate(metrics):
+        if bool(m["overflow"]):
+            raise AssertionError(f"{label}: overflow at timed step {i}")
+        if not (torch.isfinite(m["h_mat"]).all() and torch.isfinite(m["d_mat"]).all()):
+            raise AssertionError(f"{label}: non-finite h_mat / d_mat at timed step {i}")
+    if merge_multi.LAUNCHES != merges:
+        raise AssertionError(f"{label}: {merge_multi.LAUNCHES} kernel C launches, {merges} "
+                             f"merges in {n_timed} steps")
+    return state, {"ms_per_step": 1e3 * s_per_step, "s_per_step": s_per_step,
+                   "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+                   "launches": {"merge_multi": merge_multi.LAUNCHES}, "metrics": metrics,
+                   "n_dets_timed_steps": [int(m["n_dets"][0]) for m in metrics],
+                   "n_nonzero_per_row": (state.arena.vals != 0).sum(1).tolist()}
+
+
+def phase_subspace_modes(dev):
+    """The subsp configuration's ``lowmem`` mode: first one step of the
+    stored and the lowmem path from one state (their h_mat equal within
+    rtol 1e-10), then 2 warm-up and 5 timed steps; then
+    ``compress_mode="multi"``, 2 + 3 steps."""
+    import torch
+    from fries_tpu_torch import rung
+
+    cfg = rung.subspace_config()
+    res = {}
+    step_s, state, _ = rung.build_subspace(dev)
+    step_l, state_l, _ = rung.build_subspace(dev, lowmem=True)
+    for _ in range(N_WARM):
+        state, _ = step_s(state)
+    _, ms = step_s(state)
+    _, ml = step_l(state)
+    if not torch.allclose(ml["h_mat"], ms["h_mat"], rtol=1e-10, atol=0):
+        raise AssertionError(f"subsp_lowmem: h_mat {ml['h_mat'].tolist()} != stored "
+                             f"{ms['h_mat'].tolist()}")
+    rel = float((ml["h_mat"] - ms["h_mat"]).abs().max() / ms["h_mat"].abs().max())
+    log(f"subsp_lowmem: one step from one state, h_mat agrees with the stored path "
+        f"(largest difference {rel:.3e} of the largest element)")
+    for name, step, state, n_timed in (("subsp_lowmem", step_l, state_l, N_TIMED),
+                                       ("subsp_multi", None, None, 3)):
+        if step is None:
+            step, state, _ = rung.build_subspace(dev, compress_mode="multi")
+        _, r = subspace_run(name, step, state, N_WARM, n_timed)
+        r["sampled_nonzeros_per_s"] = cfg.n_trial * cfg.matr_samp / r.pop("s_per_step")
+        r.pop("metrics")
+        res[name] = r
+        log(f"{name}: {json.dumps(r)}")
+    res["subsp_lowmem"]["h_mat_rel_diff_vs_stored"] = rel
+    return res
+
+
+def phase_subspfull(dev):
+    """The ``subspfull`` configuration: warm-up until both vectors hold
+    their budget (at most 40 steps), 3 timed steps with one kernel C launch
+    per chunk asserted; then a real chunk (the second of the step after the
+    timed ones, merged into the arena that holds the first chunk's sums)
+    through kernel C and its plain version; returns the results and that
+    chunk."""
+    import torch
+    from fries_tpu_torch import rung
+    from fries_tpu_torch.runtime import arena as ar
+
+    cfg = rung.subspfull_config()
+    t0 = time.perf_counter()
+    step, state, aux = rung.build_subspfull(dev)
+    torch.cuda.synchronize()
+    nc = aux["n_excitations"]
+    log(f"subspfull: built in {time.perf_counter() - t0:.1f} s (the frifull system, "
+        f"T = {cfg.n_trial}, capacity {cfg.capacity}, {cfg.batch} rows per chunk, "
+        f"{nc} template excitations, S = {cfg.n_trial * cfg.batch * nc} per chunk)")
+    n_warm, warm = 0, []
+    while n_warm < 40:
+        state, m = step(state)
+        n_warm += 1
+        if bool(m["overflow"]):
+            raise AssertionError(f"subspfull: overflow at warm-up step {n_warm}")
+        per_row = (state.arena.vals != 0).sum(1)
+        warm.append([int(m["n_dets"][0]), *per_row.tolist()])
+        if bool((per_row >= cfg.vec_nonz).all()):
+            break
+    log(f"subspfull warm-up: {n_warm} steps, n_dets / nonzeros per row {warm}")
+    state, r = subspace_run("subspfull", step, state, 0, 3)
+    metrics = r.pop("metrics")
+    rows = sum(int(m["spawn_rows"]) for m in metrics)
+    r.update(config="subspfull (exact H, frifull system, T = 2)", warm_up_steps=n_warm,
+             candidates_per_s=cfg.n_trial * nc * rows / 3 / r.pop("s_per_step"),
+             merges_per_step=[int(m["n_merges"]) for m in metrics],
+             spawn_rows_per_step=[int(m["spawn_rows"]) for m in metrics])
+    log(f"subspfull: {json.dumps(r)}")
+    captured, orig = [], ar.accumulate_multi_best
+
+    def recording(*args):
+        if len(captured) == 1:
+            captured.append(args)
+        elif not captured:
+            captured.append(None)
+        return orig(*args)
+
+    ar.accumulate_multi_best = recording
+    try:
+        step(state)
+    finally:
+        ar.accumulate_multi_best = orig
+    case = captured[1]
+    r["real_chunk"] = {**merge_stream_stats(case[0], case[1]),
+                       **check_merge_multi("subspfull, a real chunk's T streams into the arena "
+                                           "after chunk 0", *case)}
+    log(f"subspfull real chunk: {json.dumps(r['real_chunk'])}")
+    return r, case
+
+
+# ---------------------------------------------------------------------------
 # timings
 # ---------------------------------------------------------------------------
 
-def phase_timings(dev, n_elements, chunk_case, fciqmc_case):
+def phase_timings(dev, n_elements, chunk_case, fciqmc_case, hh_cases, hh_plans, sub_chunk):
     """Each kernel's wrapper and its plain version on the inputs of its
     check at the main path's shapes (the same seeds; ``chunk_case`` is the
-    exact-H path's own chunk, ``fciqmc_case`` FCIQMC's own merge input),
-    with its bound:
+    exact-H path's own chunk, ``fciqmc_case`` FCIQMC's own merge input,
+    ``hh_cases`` the Hubbard-Holstein paths' own merge inputs by name,
+    ``hh_plans`` frisys_hh's own emission plans by name, ``sub_chunk`` the
+    subspfull path's own kernel C chunk), with its bound:
     call times first for every kernel, then device times, since the
     profiler slows every later launch of the process."""
     import torch
     from fries_tpu_torch import _build
     from fries_tpu_torch import probe_reshape as probe_mod
     from fries_tpu_torch.runtime import arena as ar
-    from fries_tpu_torch.runtime import merge, merge_multi
+    from fries_tpu_torch.runtime import emit, merge, merge_multi
 
     cases = {}   # name: (kernel call, plain call, bound, library call or None)
     gen = torch.Generator(device=dev)
@@ -1365,6 +1715,24 @@ def phase_timings(dev, n_elements, chunk_case, fciqmc_case):
                              lambda: merge.accumulate_plain(qa, qsk, qsv, qsi, 0, 0),
                              merge_bound(qa, (qsk, qsv, qsi)), None)
     extras["merge fciqmc"] = {"sort": lambda: merge.sort_spawns(qsk)}
+    for name, (ha, hsk, hsv, hsi, hkeep) in hh_cases.items():
+        cases[f"merge {name}"] = (
+            lambda a=ha, k=hsk, v=hsv, i=hsi, m=hkeep: merge.accumulate(a, k, v, i, 0, 1,
+                                                                        keep_mask=m),
+            lambda a=ha, k=hsk, v=hsv, i=hsi, m=hkeep: merge.accumulate_plain(a, k, v, i, 0, 1,
+                                                                              m),
+            merge_bound(ha, (hsk, hsv, hsi), hkeep), None)
+        extras[f"merge {name}"] = {"sort": lambda k=hsk: merge.sort_spawns(k)}
+    for name, plan in hh_plans.items():
+        _, rp, rs = emit.emit_plain(**plan)
+        cases[f"emit {name}"] = (lambda p=plan: emit.emit(**p), lambda p=plan: emit.emit_plain(**p),
+                                 emit_bound(plan, rp, rs), None)
+    ca, csk, csv, csr, csi = sub_chunk
+    cases["merge_multi subspfull_chunk"] = (
+        lambda: merge_multi.accumulate(ca, csk, csv, csr, csi),
+        lambda: ar.accumulate_multi(ca, csk, csv, csr, csi),
+        merge_bound(ca, (csk, csv, csr, csi)), None)
+    extras["merge_multi subspfull_chunk"] = {"sort": lambda: merge.sort_spawns(csk)}
     gen.manual_seed(8)
     sa, ssk, ssv, ssi, skeep = semistoch_merge_case(gen, dev, n_elements)
     cases["merge semistoch"] = (
@@ -1425,6 +1793,7 @@ def main():
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here ({e})", file=sys.stderr)
         return 1
+    check_no_reference_imports()
     t_start = time.perf_counter()
     dev = torch.device("cuda")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1456,8 +1825,15 @@ def main():
     fq_res, fciqmc_case = phase_fciqmc(dev)
     phase_small_frimulti(dev)
     fm_res = phase_frimulti(dev)
+    phase_small_hh(dev)
+    ffhh_res, ffhh_case = phase_frifull_hh(dev)
+    fshh_res, fshh_case, hh_plans = phase_frisys_hh(dev)
+    phase_subspace_modes_small(dev)
+    modes_res = phase_subspace_modes(dev)
+    sfull_res, sub_chunk = phase_subspfull(dev)
     # last: its profiler slows what follows
-    t = phase_timings(dev, semi_res["n_elements"], chunk_case, fciqmc_case)
+    t = phase_timings(dev, semi_res["n_elements"], chunk_case, fciqmc_case,
+                      {"frifull_hh": ffhh_case, "frisys_hh": fshh_case}, hh_plans, sub_chunk)
 
     keys = ("ms", "plain_ms", "device_ms", "plain_device_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -1468,13 +1844,24 @@ def main():
     shapes = {name: {**timing(f"emit {name}"), "max_abs_err": r["max_abs_err"]}
               for name, r in e.items()}
     step_sum = lambda key: sum(s[key] for s in shapes.values())
+    frisys_bound_by = max((s["bound_ms"], s["bound_by"]) for s in shapes.values())[1]
+    emit_step = {key: step_sum(key) for key in ("ms", "plain_ms", "device_ms",
+                                                "plain_device_ms", "bound_ms")}
+    for name, r in fshh_res["emit_checks"].items():
+        shapes[name] = {**timing(f"emit {name}"), "max_abs_err": r["max_abs_err"],
+                        "n_out": r["n_out"], "kept": r["kept"]}
     sort_keys = ("device_ops", "sort_ms", "sort_device_ms", "sort_device_ops")
     merge_shapes = {
         name: {**timing(f"merge {name}"), **{key: t[f"merge {name}"][key] for key in sort_keys},
                "max_abs_err": err}
         for name, err in (("frifull_chunk", full_res["real_chunk"]["max_abs_err"]),
                           ("semistoch", semi_res["merge_check"]["max_abs_err"]),
-                          ("fciqmc", fq_res["real_step"]["max_abs_err"]))}
+                          ("fciqmc", fq_res["real_step"]["max_abs_err"]),
+                          ("frifull_hh", ffhh_res["real_step"]["max_abs_err"]),
+                          ("frisys_hh", fshh_res["real_step"]["max_abs_err"]))}
+    for name, r in (("frifull_hh", ffhh_res), ("frisys_hh", fshh_res)):
+        merge_shapes[name].update({key: r["real_step"][key] for key in (
+            "arena_rows", "spawns", "live_spawns", "unique_targets", "longest_run")})
     merge_shapes["frifull_chunk"].update(
         {key: full_res["real_chunk"][key] for key in ("arena_rows", "sentinel_share",
                                                       "unique_targets", "longest_run")},
@@ -1484,9 +1871,17 @@ def main():
                                                    "unique_targets", "longest_run")},
         first_step_longest_run=fq_res["first_step"]["longest_run"])
     by_path = lambda kernel: {path: r["launches"][kernel] for path, r in (
-        ("frisys rung", main_res), ("semistoch", semi_res), ("frifull", full_res),
-        ("fciqmc", fq_res), ("frimulti", fm_res))
+        ("frisys rung", main_res), ("subsp", sub_res), ("semistoch", semi_res),
+        ("frifull", full_res), ("fciqmc", fq_res), ("frimulti", fm_res),
+        ("frifull_hh", ffhh_res), ("frisys_hh", fshh_res),
+        ("subsp_lowmem", modes_res["subsp_lowmem"]), ("subsp_multi", modes_res["subsp_multi"]),
+        ("subspfull", sfull_res))
         if kernel in r["launches"]}
+    multi_shape = {**timing("merge_multi subspfull_chunk"),
+                   **{key: t["merge_multi subspfull_chunk"][key] for key in sort_keys},
+                   "max_abs_err": sfull_res["real_chunk"]["max_abs_err"],
+                   **{key: sfull_res["real_chunk"][key] for key in (
+                       "arena_rows", "spawns", "live_spawns", "unique_targets", "longest_run")}}
     kernels = [
         {"name": "merge", "route": "cuda", "source": "fries_tpu_torch/csrc/merge.cu",
          "replaces": "fries_tpu/runtime/pallas_merge.py:617",
@@ -1501,15 +1896,15 @@ def main():
          "replaces": "fries_tpu/runtime/pallas_emit.py:147",
          "launches": sum(by_path("emit").values()), "launches_by_path": by_path("emit"),
          "max_abs_err": max(s["max_abs_err"] for s in shapes.values()),
-         **{key: step_sum(key) for key in ("ms", "plain_ms", "device_ms", "plain_device_ms",
-                                          "bound_ms")},
-         "bound_by": max((s["bound_ms"], s["bound_by"]) for s in shapes.values())[1],
-         "library_ms": None, "shapes": shapes},
+         **emit_step, "bound_by": frisys_bound_by, "library_ms": None, "shapes": shapes},
         {"name": "merge_multi", "route": "cuda",
          "source": "fries_tpu_torch/csrc/merge_multi.cu",
          "replaces": "fries_tpu/runtime/pallas_merge.py:894",
-         "launches": sub_res["launches"]["merge_multi"], "max_abs_err": c["max_abs_err"],
-         **merge_timing("merge_multi")},
+         "launches": sum(by_path("merge_multi").values()),
+         "launches_by_path": by_path("merge_multi"),
+         "launches_per_subspfull_step": sfull_res["merges_per_step"],
+         "max_abs_err": max(c["max_abs_err"], sfull_res["real_chunk"]["max_abs_err"]),
+         **merge_timing("merge_multi"), "shapes": {"subspfull_chunk": multi_shape}},
         {"name": "probe_reshape", "route": "cuda",
          "source": "fries_tpu_torch/csrc/probe_reshape.cu",
          "replaces": "tools/probe_reshape.py:33", "launches": p["launches"],

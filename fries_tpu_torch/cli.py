@@ -1,5 +1,6 @@
 """Command line of the port: the ``frifull_mol``, ``frisys_mol``,
-``frimulti_mol``, ``fciqmc_mol``, ``fciqmc_fp_mol`` and ``subsp_mol``
+``frimulti_mol``, ``fciqmc_mol``, ``fciqmc_fp_mol``, ``subsp_mol``,
+``subsp_mol_lowmem``, ``subspfull_mol``, ``frifull_hh`` and ``frisys_hh``
 workloads.
 
 Same flags and per-iteration output streams as ``python -m fries_tpu.cli``:
@@ -18,18 +19,25 @@ Same flags and per-iteration output streams as ``python -m fries_tpu.cli``:
   step (default 4 x ``--target``, or 400,000), ``--epsilon`` defaults to
   1e-3 and there is no ``--vec_nonz``; the same streams but nini.txt and
   nkept.txt, which FCIQMC does not report;
-* ``subsp_mol`` (``--time_reversal`` +1 / -1 for a spin-flip sector): h_mat /
-  d_mat (``--out_format`` txt, bin, npy or none), shifts.txt (the norm
-  factors every shift interval), norms.txt, n_ini.txt and params.txt; the
-  trial vectors are ``<prefix>XXdets`` / ``<prefix>XXvals`` text files or one
+* ``frifull_hh`` (exact H * v) and ``frisys_hh`` (``--mat_nonz``) on the
+  Hubbard-Holstein model of ``--params_path`` (the keyed parameter file:
+  n_elec, lat_len, n_dim, eps, U, omega, g, gs_energy), ``--ph_bits``
+  phonon bits per site (default 3; 0 when g is 0); no ``--fcidump_path``
+  and no ``--epsilon`` (eps comes from the file): the frisys streams;
+* ``subsp_mol`` (``--time_reversal`` +1 / -1 for a spin-flip sector),
+  ``subsp_mol_lowmem`` (<trial|H|v> enumerated every step, no stored H *
+  trial) and ``subspfull_mol`` (exact H application): h_mat / d_mat
+  (``--out_format`` txt, bin, npy or none), shifts.txt (the norm factors
+  every shift interval), norms.txt, n_ini.txt and params.txt; the trial
+  vectors are ``<prefix>XXdets`` / ``<prefix>XXvals`` text files or one
   ``.dice`` file.
 
 All run on ``--device`` (default ``cuda``; a run asking for CUDA where there
 is no CUDA device stops with an error, ``--device cpu`` runs the plain
 versions on the CPU).  None writes ``checkpoint.npz`` (checkpoints are not
 ported), and ``--load_dir``, ``--hf_path`` and ``--n_chips > 1`` raise.  The
-other workloads of the reference (``frifull_hh``, ``subsp_mol_lowmem`` and
-``subspfull_mol`` among them) exit with "not ported yet".
+other workloads of the reference (``observables_mol``, ``obs_repl_mol``
+and ``dice_dots``) exit with "not ported yet".
 
 Usage:  python -m fries_tpu_torch.cli frisys_mol --fcidump_path FCIDUMP \\
             --epsilon 1e-3 --vec_nonz 100000 --mat_nonz 100000 \\
@@ -41,6 +49,8 @@ Usage:  python -m fries_tpu_torch.cli frisys_mol --fcidump_path FCIDUMP \\
         python -m fries_tpu_torch.cli subsp_mol --fcidump_path FCIDUMP \\
             --epsilon 0.02 --vec_nonz 100000 --mat_nonz 200000 \\
             --max_dets 524288 --trial_vecs trial --num_trial 2
+        python -m fries_tpu_torch.cli frisys_hh --params_path hubbard_params.txt \\
+            --vec_nonz 100000 --mat_nonz 100000 --max_dets 1000000
 """
 
 from __future__ import annotations
@@ -51,10 +61,7 @@ import sys
 
 import numpy as np
 
-_OTHER_WORKLOADS = (
-    "frifull_hh", "frisys_hh", "subsp_mol_lowmem", "subspfull_mol",
-    "observables_mol", "obs_repl_mol", "dice_dots",
-)
+_OTHER_WORKLOADS = ("observables_mol", "obs_repl_mol", "dice_dots")
 
 _STREAMS = {
     "proj_num": "projnum.txt", "proj_den": "projden.txt", "shift": "S.txt",
@@ -63,12 +70,8 @@ _STREAMS = {
 }
 
 
-def _add_common(p, mat_nonz=True, walkers=False):
-    """The flags every molecular workload shares; ``walkers`` (FCIQMC):
-    ``--epsilon`` defaults to 1e-3 and there is no ``--vec_nonz``."""
-    p.add_argument("--fcidump_path")
-    p.add_argument("--hf_path")
-    p.add_argument("--point_group", default="C1")
+def _add_run(p):
+    """The flags of every workload."""
     p.add_argument("--result_dir", default="./")
     p.add_argument("--max_iter", type=int, default=1000000)
     p.add_argument("--max_dets", type=int, required=True)
@@ -78,6 +81,18 @@ def _add_common(p, mat_nonz=True, walkers=False):
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--load_dir")
     p.add_argument("--n_chips", type=int, default=1)
+    p.add_argument("--device", default="cuda",
+                   help="torch device to run on (default cuda; cpu runs the "
+                        "plain versions of the kernels)")
+
+
+def _add_common(p, mat_nonz=True, walkers=False):
+    """The flags every molecular workload shares; ``walkers`` (FCIQMC):
+    ``--epsilon`` defaults to 1e-3 and there is no ``--vec_nonz``."""
+    p.add_argument("--fcidump_path")
+    p.add_argument("--hf_path")
+    p.add_argument("--point_group", default="C1")
+    _add_run(p)
     if walkers:
         p.add_argument("--epsilon", type=float, default=1e-3)
     else:
@@ -86,9 +101,6 @@ def _add_common(p, mat_nonz=True, walkers=False):
     if mat_nonz:
         p.add_argument("--mat_nonz", type=int, required=True)
         p.add_argument("--ham_shift", type=float)
-    p.add_argument("--device", default="cuda",
-                   help="torch device to run on (default cuda; cpu runs the "
-                        "plain versions of the kernels)")
 
 
 def _parser():
@@ -113,23 +125,36 @@ def _parser():
         _add_common(p, mat_nonz=False, walkers=True)
         p.add_argument("--distribution", default=dist, choices=["NU", "HB"])
         p.add_argument("--attempt_cap", type=int, default=0)
-    p = sub.add_parser("subsp_mol", help="multi-state subspace iteration")
-    _add_common(p)
-    p.add_argument("--trial_vecs", required=True)
-    p.add_argument("--num_trial", "--n_trial", type=int, required=True, dest="n_trial")
-    p.add_argument("--restart_int", type=int, default=10)
-    p.add_argument("--time_reversal", type=int, default=0, choices=[-1, 0, 1])
-    p.add_argument("--out_format", default="txt", choices=["none", "txt", "npy", "bin"])
+    for name, help_ in (("frifull_hh", "exact H*v FRI, Hubbard-Holstein"),
+                        ("frisys_hh", "factorized FRI, Hubbard-Holstein")):
+        p = sub.add_parser(name, help=help_)
+        _add_run(p)
+        p.add_argument("--params_path", required=True)
+        p.add_argument("--vec_nonz", type=int, required=True)
+        if name == "frisys_hh":
+            p.add_argument("--mat_nonz", type=int, required=True)
+        p.add_argument("--ph_bits", type=int, default=3)
+    for name, help_ in (("subsp_mol", "multi-state subspace iteration"),
+                        ("subsp_mol_lowmem", "subspace iteration with <trial|H|v> "
+                                             "enumerated every step"),
+                        ("subspfull_mol", "subspace iteration with exact H application")):
+        p = sub.add_parser(name, help=help_)
+        _add_common(p)
+        p.add_argument("--trial_vecs", required=True)
+        p.add_argument("--num_trial", "--n_trial", type=int, required=True, dest="n_trial")
+        p.add_argument("--restart_int", type=int, default=10)
+        p.add_argument("--time_reversal", type=int, default=0, choices=[-1, 0, 1])
+        p.add_argument("--out_format", default="txt", choices=["none", "txt", "npy", "bin"])
     return parser
 
 
-def _unported(args, flags):
+def _unported(args, flags, need_fcidump=True):
     for flag, why in flags:
         if getattr(args, flag, None):
             raise NotImplementedError(f"--{flag} ({why}) is not ported yet")
     if args.n_chips > 1:
         raise NotImplementedError("--n_chips > 1 is not ported yet")
-    if not args.fcidump_path:
+    if need_fcidump and not args.fcidump_path:
         raise SystemExit(f"{args.cmd} needs --fcidump_path")
 
 
@@ -275,6 +300,34 @@ def run_fciqmc(args):
     _run_power_driver(args, run_steps, state, aux)
 
 
+def run_hh(args):
+    from fries_tpu_torch import io
+    from fries_tpu_torch.drivers import frifull_hh, frisys_hh, power
+    from fries_tpu_torch.ops import hubbard
+
+    _unported(args, _UNPORTED_INPUTS, need_fcidump=False)
+    device = _device(args)
+    params = io.parse_hh_input(args.params_path)
+    ham = hubbard.HubbardHolstein(
+        n_sites=params["lat_len"], n_elec=params["n_elec"],
+        ph_bits=args.ph_bits if params["g"] else 0,
+        u=params["u"], omega=params["omega"], g=params["g"])
+    e_ref, eps = params["gs_energy"], params["eps"]
+    if args.cmd == "frifull_hh":
+        cfg = power.PowerConfig(eps=eps, target_nonz=args.vec_nonz, capacity=args.max_dets,
+                                init_thresh=args.init_thresh, target_norm=args.target_norm)
+        _, run_steps, state, aux = frifull_hh.build(ham, e_ref, cfg, seed=args.seed,
+                                                    device=device)
+    else:
+        cfg = frisys_hh.FrisysHHConfig(
+            eps=eps, vec_nonz=args.vec_nonz, matr_samp=args.mat_nonz,
+            capacity=args.max_dets, spawn_cap=int(args.mat_nonz * 1.4),
+            init_thresh=args.init_thresh, target_norm=args.target_norm)
+        _, run_steps, state, aux = frisys_hh.build(ham, e_ref, cfg, seed=args.seed,
+                                                   device=device)
+    _run_power_driver(args, run_steps, state, aux)
+
+
 def _csv(row, fmt=lambda x: repr(float(x))):
     """One comma-separated line, as the reference's streams write it."""
     return ",".join(map(fmt, row)) + "\n"
@@ -309,7 +362,8 @@ def run_subspace(args):
         eps=args.epsilon, n_trial=args.n_trial, vec_nonz=args.vec_nonz,
         matr_samp=args.mat_nonz, capacity=args.max_dets,
         spawn_cap=int(args.mat_nonz * 1.4), restart_int=args.restart_int,
-        init_thresh=args.init_thresh, spin_parity=args.time_reversal)
+        init_thresh=args.init_thresh, spin_parity=args.time_reversal,
+        lowmem=args.cmd == "subsp_mol_lowmem", exact_h=args.cmd == "subspfull_mol")
     _, run_steps, state, _ = subspace.build(ham, cfg, trial_keys, trial_vals,
                                             seed=args.seed, e_ref=e_ref)
 
@@ -361,12 +415,14 @@ def main(argv=None):
     argv = sys.argv[1:] if argv is None else list(argv)
     if argv and argv[0] in _OTHER_WORKLOADS:
         raise SystemExit(f"{argv[0]}: not ported yet (the port runs frifull_mol, "
-                         "frisys_mol, frimulti_mol, fciqmc_mol, fciqmc_fp_mol and "
-                         "subsp_mol)")
+                         "frisys_mol, frimulti_mol, fciqmc_mol, fciqmc_fp_mol, subsp_mol, "
+                         "subsp_mol_lowmem, subspfull_mol, frifull_hh and frisys_hh)")
     args = _parser().parse_args(argv)
     return {"frifull_mol": run_frifull, "frisys_mol": run_frisys,
             "frimulti_mol": run_frimulti, "fciqmc_mol": run_fciqmc,
-            "fciqmc_fp_mol": run_fciqmc, "subsp_mol": run_subspace}[args.cmd](args)
+            "fciqmc_fp_mol": run_fciqmc, "subsp_mol": run_subspace,
+            "subsp_mol_lowmem": run_subspace, "subspfull_mol": run_subspace,
+            "frifull_hh": run_hh, "frisys_hh": run_hh}[args.cmd](args)
 
 
 if __name__ == "__main__":

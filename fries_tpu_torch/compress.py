@@ -23,8 +23,10 @@ Counterpart of the main-path part of ``fries_tpu/compress.py``:
   log-depth duel tournaments, in the reference's duel order), ``piv_comp``
   (vector compression) and ``comp_sub_piv`` (one pivotal hierarchical
   level).  They draw from a key node (:mod:`fries_tpu_torch.rng`).  The
-  sharded pieces (``piv_budget``, ``piv_comp_serial``) and ``multi_comp``
-  raise ``NotImplementedError``.
+  sharded pieces (``piv_budget``, ``piv_comp_serial``) raise
+  ``NotImplementedError``.
+* ``multi_comp``: multinomial vector compression (the subspace's
+  ``compress_mode="multi"``), drawing from a key node.
 
 The reference's ``lax.while_loop`` fixpoints are host loops here: each round
 reads one count back from the device.  Every array keeps the static,
@@ -337,8 +339,32 @@ def piv_comp_serial(*args, **kwargs):
     raise NotImplementedError("piv_comp_serial (the sharded pivotal path) is not ported")
 
 
-def multi_comp(*args, **kwargs):
-    raise NotImplementedError("multi_comp (compress_mode='multi') is not ported")
+def multi_comp(key, vals, keep, n_samp, loc_norm):
+    """Multinomial compression of the non-preserved elements: counts ~
+    Multinomial(n_samp, |v| / loc_norm), each value sign * unit * count with
+    unit = loc_norm / n_samp; the preserved elements pass through.
+
+    The draws are ``key.uniform((N,))``, N = len(vals); those past the
+    budget are masked before the sort (masking after it would keep the
+    smallest), the rest are placed by ``searchsorted`` against the running
+    |v| sum and counted by index."""
+    n = vals.shape[0]
+    dev = vals.device
+    vals64 = vals.to(F64)
+    absw = torch.where(~keep, vals64.abs(), 0.0)
+    n_samp = torch.as_tensor(n_samp, device=dev)
+    inf = torch.tensor(float("inf"), dtype=F64, device=dev)
+    unit = torch.where(n_samp > 0, loc_norm / n_samp.clamp_min(1), inf)
+    cum = torch.cumsum(absw, 0)
+    u = key.uniform((n,)).to(dev)
+    live_draw = torch.arange(n, device=dev) < n_samp
+    draws = torch.sort(torch.where(live_draw, u, inf)).values * loc_norm
+    pos = torch.searchsorted(cum, draws, side="left")
+    counts = torch.zeros(n + 1, dtype=torch.int64, device=dev).index_add_(
+        0, pos.clamp_max(n), torch.ones_like(pos))[:n]
+    sampled = torch.sign(vals64) * unit * counts.to(F64)
+    out = torch.where(keep, vals64, torch.where(n_samp > 0, sampled, 0.0))
+    return out.to(vals.dtype)
 
 
 # ---------------------------------------------------------------------------

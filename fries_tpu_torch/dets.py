@@ -202,6 +202,22 @@ def hf_det(n_orb: int, n_elec: int, n_bits: int | None = None,
     return pack_bits(hf_bits(n_orb, n_elec, n_bits, device))
 
 
+def neel_bits_1d(n_sites: int, n_elec: int, n_bits: int | None = None,
+                 device=None) -> torch.Tensor:
+    """1-D Neel state: alternating up / down spins from up at site 0, the
+    phonon bits zero."""
+    n_bits = 2 * n_sites if n_bits is None else n_bits
+    sites = np.arange(n_sites)
+    up = (sites % 2 == 0) & (sites < n_elec + (n_elec % 2 == 1))
+    up &= np.cumsum(sites % 2 == 0) <= (n_elec + 1) // 2
+    down = (sites % 2 == 1)
+    down &= np.cumsum(sites % 2 == 1) <= n_elec // 2
+    occ = np.zeros(n_bits, dtype=bool)
+    occ[:n_sites] = up
+    occ[n_sites:2 * n_sites] = down
+    return torch.as_tensor(occ, device=device)
+
+
 # ---------------------------------------------------------------------------
 # spin flip (time reversal)
 # ---------------------------------------------------------------------------

@@ -87,7 +87,7 @@ class FrisysConfig:
 def _rank_to_index(mask, rank):
     """Column of the rank-th True entry per row (K if out of range)."""
     k = mask.shape[-1]
-    cum = torch.cumsum(mask, -1) - 1
+    cum = dets.running_count(mask) - 1
     hit = mask & (cum == rank[..., None])
     idx = torch.where(hit, torch.arange(k, device=mask.device), 0).sum(-1)
     found = hit.any(-1)

@@ -27,8 +27,28 @@ target's contributions in.
 ``spin_parity`` (+1 / -1, the CLI's ``--time_reversal``): the trial vectors
 fold onto spin-flip canonical representatives at build time, H * trial and
 the step's diagonal are the folded ones, and the spawner folds its sampled
-excitations.  ``lowmem``, ``exact_h``, ``compress_mode="multi"`` and sharding
-are not ported and raise.
+excitations.
+
+Modes:
+
+* ``lowmem`` (``subsp_mol_lowmem``): no stored H * trial rows; every step
+  enumerates H|trial_i> (``molecule.exact_offdiag_batch``, folded with
+  ``time_reversal.adjust_exact`` in a sector) and dots it, with the trial's
+  diagonal, against the arena rows;
+* ``exact_h`` (``subspfull_mol``): every row's exact off-diagonal spawn,
+  all initiators, in place of the sampled one.  The reference enumerates
+  all capacity rows at once, which at the card's sizes is capacity x
+  template candidates per vector; the port spawns from a snapshot of the
+  compressed arena's rows (each nonzero in some vector) ``batch`` rows at a
+  time and merges each chunk's T streams into the running arena (kernel C
+  on the card), so the sums differ from the reference's only in the order
+  of addition.  In a sector the exact spawns are folded as ``frifull``
+  folds them (the reference leaves them unfolded).  Its steps also report
+  ``spawn_rows`` and ``n_merges`` (the chunks merged);
+* ``compress_mode="multi"``: multinomial vector compression
+  (:func:`fries_tpu_torch.compress.multi_comp`) after ``find_preserve``.
+
+Sharding is not ported and raises.
 """
 
 from __future__ import annotations
@@ -66,18 +86,17 @@ class SubspaceConfig:
     pivotal_h: bool = True
     lowmem: bool = False
     spin_parity: int = 0
+    batch: int = 1024       # exact_h: arena rows per spawn-and-merge chunk
     axis_name: str | None = None
     n_shards: int = 1
 
     def check_ported(self):
-        for name, bad in (("lowmem", self.lowmem), ("exact_h", self.exact_h),
-                          ("compress_mode='multi'", self.compress_mode == "multi"),
-                          ("axis_name / n_shards > 1",
-                           self.axis_name or self.n_shards > 1)):
-            if bad:
-                raise NotImplementedError(f"subspace option {name} is not ported")
-        if self.compress_mode not in ("piv", "sys"):
+        if self.axis_name or self.n_shards > 1:
+            raise NotImplementedError("subspace option axis_name / n_shards > 1 is not ported")
+        if self.compress_mode not in ("piv", "sys", "multi"):
             raise ValueError(f"unknown compress_mode {self.compress_mode!r}")
+        if self.exact_h and self.batch < 1:
+            raise ValueError("exact_h needs batch >= 1")
 
 
 @dataclass
@@ -104,6 +123,40 @@ def pad_rows(rows, n_words):
     return keys, vals
 
 
+def exact_spawn(ham: mol.MolecularHamiltonian, tmpl: mol.ExcitationTemplate, keys, vals,
+                h_fac, spin_parity: int = 0):
+    """Flat (words, amps) of H's exact off-diagonal action on the rows
+    ``keys`` with values ``vals``, times ``h_fac``; folded onto the
+    spin-flip sector ``spin_parity`` when it is not 0."""
+    occ = dets.occ_list(keys, ham.n_bits, ham.n_elec)
+    w, amp = mol.exact_offdiag_batch(ham, tmpl, keys, occ, vals, h_fac)
+    nc = amp.shape[1]
+    w, amp = w.reshape(-1, ham.n_words), amp.reshape(-1)
+    if spin_parity:
+        w, amp = tr_mod.adjust_exact(
+            ham, keys.repeat_interleave(nc, 0), occ.repeat_interleave(nc, 0), w, amp,
+            spin_parity, scale=(vals * h_fac).repeat_interleave(nc))
+    return w, amp
+
+
+def lowmem_h_mat(ham: mol.MolecularHamiltonian, tmpl: mol.ExcitationTemplate, trial_keys,
+                 trial_vals, trial_diag, spin_parity: int, keys, vals):
+    """(T_query, T_vec) <trial_i| (H - e_ref) |v_j> with H|trial_i>
+    enumerated now: trial i's (Nt, W) keys, values and relative diagonal
+    (zero on padding rows) against the arena's sorted ``keys`` and value
+    rows ``vals``."""
+    rows = []
+    for tk, tv, td in zip(trial_keys, trial_vals, trial_diag):
+        w, amp = exact_spawn(ham, tmpl, tk, torch.where(dets.is_invalid(tk), 0.0, tv), 1.0,
+                             spin_parity)
+        pos_o, found_o = dets.lookup_dets(keys, w)
+        pos_t, found_t = dets.lookup_dets(keys, tk)
+        off = (torch.where(found_o[None], vals[:, pos_o], 0.0) * amp[None]).sum(1)
+        dia = (torch.where(found_t[None], vals[:, pos_t], 0.0) * (tv * td)[None]).sum(1)
+        rows.append(off + dia)
+    return torch.stack(rows)
+
+
 def build(ham: mol.MolecularHamiltonian, cfg: SubspaceConfig, trial_keys,
           trial_vals, seed: int, e_ref=None):
     """trial_keys (T, Nt, W) sentinel-padded determinant words and
@@ -120,21 +173,35 @@ def build(ham: mol.MolecularHamiltonian, cfg: SubspaceConfig, trial_keys,
         trial_keys, trial_vals = pad_rows(
             [tr_mod.fold_vector_host(ham, trial_keys[j], trial_vals[j], cfg.spin_parity)
              for j in range(t)], n_words)
-    syminfo = mol.SymmInfo.build(ham.symm.cpu().numpy())
-    p_doub = frisys.hf_p_doub(ham, syminfo)
     hf_en = float(mol.hf_reference(ham)[2]) if e_ref is None else float(e_ref)
-    fcfg = frisys.FrisysConfig(
-        eps=cfg.eps, vec_nonz=cfg.vec_nonz, matr_samp=cfg.matr_samp,
-        capacity=cfg.capacity, spawn_cap=cfg.spawn_cap, unnorm=cfg.unnorm,
-        pivotal=cfg.pivotal_h, spin_parity=cfg.spin_parity)
-    spawn = frisys.make_hbpp_spawner(ham, hb.setup(ham), syminfo, p_doub, fcfg, hf_en)
+    tmpl = mol.ExcitationTemplate.build(ham.n_orb, ham.n_elec)
+    if cfg.exact_h:
+        spawn = None
+    else:
+        syminfo = mol.SymmInfo.build(ham.symm.cpu().numpy())
+        fcfg = frisys.FrisysConfig(
+            eps=cfg.eps, vec_nonz=cfg.vec_nonz, matr_samp=cfg.matr_samp,
+            capacity=cfg.capacity, spawn_cap=cfg.spawn_cap, unnorm=cfg.unnorm,
+            pivotal=cfg.pivotal_h, spin_parity=cfg.spin_parity)
+        spawn = frisys.make_hbpp_spawner(ham, hb.setup(ham), syminfo,
+                                         frisys.hf_p_doub(ham, syminfo), fcfg, hf_en)
 
-    h_keys, h_vals = pad_rows(
-        [frisys.compute_htrial(ham, trial_keys[j], trial_vals[j], e_ref=hf_en,
-                               spin_parity=cfg.spin_parity) for j in range(t)], n_words)
     est = {name: torch.as_tensor(x, device=dev) for name, x in (
-        ("trial_keys", trial_keys), ("trial_vals", trial_vals),
-        ("htrial_keys", h_keys), ("htrial_vals", h_vals))}
+        ("trial_keys", trial_keys), ("trial_vals", trial_vals))}
+    if cfg.lowmem:
+        est["htrial_keys"] = est["htrial_vals"] = None
+    else:
+        h_keys, h_vals = pad_rows(
+            [frisys.compute_htrial(ham, trial_keys[j], trial_vals[j], e_ref=hf_en,
+                                   spin_parity=cfg.spin_parity) for j in range(t)], n_words)
+        est["htrial_keys"] = torch.as_tensor(h_keys, device=dev)
+        est["htrial_vals"] = torch.as_tensor(h_vals, device=dev)
+    t_valid = ~dets.is_invalid(est["trial_keys"])
+    t_occ = dets.occ_list(est["trial_keys"], ham.n_bits, ham.n_elec)
+    t_diag = torch.where(t_valid, mol.diag_matrel(ham, t_occ) - hf_en, 0.0)
+    if cfg.spin_parity:
+        delta, forbid = tr_mod.tr_diag(ham, est["trial_keys"], t_occ, cfg.spin_parity)
+        t_diag = torch.where(forbid | ~t_valid, 0.0, t_diag + delta)
 
     # initial arena: the union of the trial determinants, row j = trial j
     uniq = {}
@@ -172,7 +239,27 @@ def build(ham: mol.MolecularHamiltonian, cfg: SubspaceConfig, trial_keys,
         if cfg.compress_mode == "piv":
             return compress.piv_comp(key, v, cfg.vec_nonz)
         keep, n_left, loc_norm = compress.find_preserve(v.abs(), cfg.vec_nonz)
+        if cfg.compress_mode == "multi":
+            return compress.multi_comp(key, v, keep, n_left, loc_norm)
         return compress.sys_comp(v, keep, n_left, key.uniform(()).to(dev), loc_norm)
+
+    def merge_exact(a, dvals, vrows):
+        """The exact spawn of ``a``'s rows (values ``vrows``) merged chunk by
+        chunk into the arena ``a`` with the values ``dvals`` after death.
+        Returns (merged arena, overflow, rows spawned from, merges)."""
+        a2 = ar.Arena(a.keys, dvals, a.n_used)
+        overflow = torch.zeros((), dtype=torch.bool, device=dev)
+        n_rows = int(a.n_used[0])
+        for s in range(0, n_rows, cfg.batch):
+            rows = slice(s, s + cfg.batch)
+            words, amps = zip(*(exact_spawn(ham, tmpl, a.keys[rows], vrows[j, rows],
+                                            -cfg.eps, cfg.spin_parity) for j in range(t)))
+            dest = torch.arange(t, device=dev).repeat_interleave(amps[0].shape[0])
+            a2, st = ar.accumulate_multi_best(
+                a2, torch.cat(words), torch.cat(amps), dest,
+                torch.ones(dest.shape[0], dtype=torch.bool, device=dev))
+            overflow = overflow | st["overflow"]
+        return a2, overflow, n_rows, -(-n_rows // cfg.batch)
 
     def step(state: SubspaceState):
         a = state.arena
@@ -188,7 +275,9 @@ def build(ham: mol.MolecularHamiltonian, cfg: SubspaceConfig, trial_keys,
 
         # 2. h / d projections; 3. restart
         d_mat = dots(a.keys, vals, est["trial_keys"], est["trial_vals"])
-        h_mat = dots(a.keys, vals, est["htrial_keys"], est["htrial_vals"])
+        h_mat = (lowmem_h_mat(ham, tmpl, est["trial_keys"], est["trial_vals"], t_diag,
+                              cfg.spin_parity, a.keys, vals) if cfg.lowmem
+                 else dots(a.keys, vals, est["htrial_keys"], est["htrial_vals"]))
         if (state.iterat + 1) % cfg.restart_int == 0:
             vals = restart(vals, d_mat, h_mat)
 
@@ -203,24 +292,30 @@ def build(ham: mol.MolecularHamiltonian, cfg: SubspaceConfig, trial_keys,
         vrows = torch.where(valid[None], a.vals, 0.0)
         thr_rows = cfg.init_thresh * vrows.abs().sum(1) / cfg.matr_samp
         n_ini = ((vrows.abs() >= thr_rows[:, None]) & (vrows != 0)).sum(1)
-        spawned = []
-        for j in range(t):
-            kj = key_iter.fold(200 + j)
-            spawned.append(spawn(a.keys, vrows[j], -cfg.eps,
-                                 kj if cfg.pivotal_h else kj.uniform((6,)).to(dev),
-                                 thresh=thr_rows[j]))
-        words, amps, ini = zip(*spawned)
-        rows = torch.arange(t, device=dev).repeat_interleave(amps[0].shape[0])
         death = 1 - cfg.eps * diag_fn(a.keys)
         dvals = torch.where(valid[None], a.vals * death[None], 0.0)
-        a2, stats = ar.accumulate_multi_best(
-            ar.Arena(a.keys, dvals, a.n_used), torch.cat(words), torch.cat(amps),
-            rows, torch.cat(ini))
+        exact = {}
+        if cfg.exact_h:
+            a2, overflow, n_rows, n_merges = merge_exact(a, dvals, vrows)
+            exact = {"spawn_rows": torch.tensor(n_rows), "n_merges": torch.tensor(n_merges)}
+        else:
+            spawned = []
+            for j in range(t):
+                kj = key_iter.fold(200 + j)
+                spawned.append(spawn(a.keys, vrows[j], -cfg.eps,
+                                     kj if cfg.pivotal_h else kj.uniform((6,)).to(dev),
+                                     thresh=thr_rows[j]))
+            words, amps, ini = zip(*spawned)
+            rows = torch.arange(t, device=dev).repeat_interleave(amps[0].shape[0])
+            a2, stats = ar.accumulate_multi_best(
+                ar.Arena(a.keys, dvals, a.n_used), torch.cat(words), torch.cat(amps),
+                rows, torch.cat(ini))
+            overflow = stats["overflow"]
 
         metrics = {
             "h_mat": h_mat, "d_mat": d_mat, "norms": norms,
             "norm_factors": norm_factors, "n_ini": n_ini, "n_dets": a2.n_used,
-            "overflow": stats["overflow"],
+            "overflow": overflow, **exact,
         }
         return (SubspaceState(a2, norm_factors, last_norms, state.key,
                               state.iterat + 1), metrics)

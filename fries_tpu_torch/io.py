@@ -4,8 +4,8 @@ Counterpart of the FCIDUMP, vector-reader and npy parts of
 ``fries_tpu/io.py``: NORB/NELEC/MS2/ORBSYM header, chemist-notation integral
 records filled over all 8 symmetry images, MOLPRO -> XOR-group irrep
 conversion (``convert_symm``); determinant / value text files and Dice
-output (the subspace trial vectors); and ``npy_append`` for the h/d matrix
-trajectories.  Everything is parsed with numpy alone.  Determinants come
+output (the subspace trial vectors); the Hubbard-Holstein parameter file
+(``parse_hh_input``); and ``npy_append`` for the h/d matrix trajectories.  Everything is parsed with numpy alone.  Determinants come
 back as (N, W) uint32 words, as the reference returns them.
 """
 
@@ -150,6 +150,34 @@ def write_fcidump(ham: mol.MolecularHamiltonian, path, point_group: str = "C1",
 # ---------------------------------------------------------------------------
 # vector files
 # ---------------------------------------------------------------------------
+
+def _read_keyed_params(path, keys):
+    """A file of alternating key and value lines -> {key: value string};
+    raises when one of ``keys`` is missing."""
+    lines = [l.strip() for l in Path(path).read_text().splitlines() if l.strip()]
+    out = {lines[i]: lines[i + 1] for i in range(0, len(lines) - 1, 2)}
+    missing = [k for k in keys if k not in out]
+    if missing:
+        raise ValueError(f"missing parameters {missing} in {path}")
+    return out
+
+
+def parse_hh_input(path):
+    """A Hubbard-Holstein parameter file -> {n_elec, lat_len, n_dim, eps, u,
+    omega, g, gs_energy}.  The energy origin is ``gs_energy``, or
+    ``hf_energy`` as some files spell it (0 when neither is given)."""
+    p = _read_keyed_params(path, ["n_elec", "lat_len", "n_dim", "eps", "U", "omega", "g"])
+    return {
+        "n_elec": int(p["n_elec"]),
+        "lat_len": int(p["lat_len"]),
+        "n_dim": int(p["n_dim"]),
+        "eps": float(p["eps"]),
+        "u": float(p["U"]),
+        "omega": float(p["omega"]),
+        "g": float(p["g"]),
+        "gs_energy": float(p.get("gs_energy", p.get("hf_energy", 0.0))),
+    }
+
 
 def read_dets(path, n_bits):
     """Determinants stored as decimal bit masks, one per line -> (N, W)

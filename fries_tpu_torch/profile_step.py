@@ -4,10 +4,12 @@ Builds one of the configurations of :mod:`fries_tpu_torch.rung` (the ones
 ``chip_smoke.py`` times: ``--workload frisys``, the 1e6 rung; ``--workload
 semistoch``, the rung with a deterministic space; ``--workload frifull``,
 bench.py's exact-H configuration, ``--dedup_cap N`` for its dedup variant;
-``--workload subsp``, bench.py's subspace configuration; ``--workload
-fciqmc``, bench.py's 5M-walker FCIQMC configuration; or ``--workload
-frimulti``), runs warm-up steps (frifull: until the vector holds its budget
-of nonzeros; fciqmc: bench.py's 60), then
+``--workload subsp``, bench.py's subspace configuration, and its modes
+``subsp_lowmem``, ``subsp_multi`` and ``subspfull`` (exact H); ``--workload
+fciqmc``, bench.py's 5M-walker FCIQMC configuration; ``--workload
+frimulti``; or the Hubbard-Holstein ``frifull_hh`` and ``frisys_hh``), runs
+warm-up steps (frifull, subspfull and frisys_hh: until the vectors hold
+their budgets of nonzeros; fciqmc: bench.py's 60), then
 
 * counts the host synchronizations of one step (``torch.cuda`` sync debug
   mode, one warning per synchronizing call),
@@ -18,7 +20,10 @@ of nonzeros; fciqmc: bench.py's 60), then
   the chunked exact-H step, the diagonal, the vector compressions, the
   pivotal tournaments; for FCIQMC and frimulti the attempt parents, the
   excitation samplers and their categorical rows, the matrix elements, the
-  binomial rounding, the spawn compaction, death, the estimator), the
+  binomial rounding, the spawn compaction, death, the estimator; for the
+  Hubbard-Holstein paths ``offdiag_batch`` and frisys_hh's level 1, level
+  2 and finalize; for the subspace modes the lowmem h rows and
+  ``multi_comp``), the
   device time inside each pair of nested phases (``"C+D & threshold
   fixpoint"``: the fixpoint rounds of the C+D stage), the top kernels, the
   device's busy time and its idle share of the traced span (from the chrome
@@ -65,8 +70,8 @@ def install_labels():
     """Wrap the phases in profiler ranges (module attributes are looked up at
     call time, so the step picks the wrappers up); returns the labels."""
     from fries_tpu_torch import compress
-    from fries_tpu_torch.drivers import fciqmc, frimulti, frisys
-    from fries_tpu_torch.ops import heat_bath, molecule, near_uniform
+    from fries_tpu_torch.drivers import fciqmc, frimulti, frisys, frisys_hh, subspace
+    from fries_tpu_torch.ops import heat_bath, hubbard, molecule, near_uniform
     from fries_tpu_torch.runtime import arena, emit, merge, merge_multi
 
     phases = (
@@ -101,12 +106,19 @@ def install_labels():
         (fciqmc, "_attempt_parents", "attempt parents"),
         (fciqmc, "_partition_spawns", "spawn compaction"),
         (fciqmc, "_death", "death"),
-        (fciqmc, "_estimate", "estimator"))
+        (fciqmc, "_estimate", "estimator"),
+        (hubbard, "offdiag_batch", "offdiag_batch"),
+        (hubbard, "diag_matrel", "diagonal"),
+        (frisys_hh, "level_one", "frisys_hh level 1"),
+        (frisys_hh, "level_two", "frisys_hh level 2"),
+        (frisys_hh, "finalize", "frisys_hh finalize"),
+        (subspace, "lowmem_h_mat", "lowmem h_row"),
+        (compress, "multi_comp", "multi_comp"))
     phases = [(mod, name, label) for mod, name, label in phases if hasattr(mod, name)]
     for mod, name, label in phases:
         setattr(mod, name, _labelled(label, getattr(mod, name)))
     for mod, name in ((frisys, "make_hbpp_spawner"), (fciqmc, "make_spawner"),
-                      (frimulti, "make_spawner")):
+                      (frimulti, "make_spawner"), (frisys_hh, "make_spawner")):
         if hasattr(mod, name):
             make = getattr(mod, name)
             setattr(mod, name, lambda *a, make=make, **k: _labelled("spawn (total)",
@@ -166,8 +178,9 @@ def trace_device_activity(path, n_steps, labels):
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--workload", choices=["frisys", "semistoch", "frifull", "subsp",
-                                               "fciqmc", "frimulti"], default="frisys")
+    parser.add_argument("--workload", choices=[
+        "frisys", "semistoch", "frifull", "subsp", "subsp_lowmem", "subsp_multi", "subspfull",
+        "fciqmc", "frimulti", "frifull_hh", "frisys_hh"], default="frisys")
     parser.add_argument("--dedup_cap", type=int, default=0,
                         help="frifull: collapse each chunk's stream to this many rows")
     parser.add_argument("--steps", type=int, default=3)
@@ -196,17 +209,32 @@ def main(argv=None):
         step, state, est, _ = rung.build_fciqmc(dev)
     elif args.workload == "frimulti":
         step, state, est, _ = rung.build_frimulti(dev)
-    else:
-        step, state, _ = rung.build_subspace(dev)
+    elif args.workload == "frifull_hh":
+        step, state, est, _ = rung.build_frifull_hh(dev)
+    elif args.workload == "frisys_hh":
+        step, state, est, _ = rung.build_frisys_hh(dev)
+    elif args.workload == "subspfull":
+        step, state, _ = rung.build_subspfull(dev)
         est = ()
+    else:
+        modes = {"subsp": {}, "subsp_lowmem": {"lowmem": True},
+                 "subsp_multi": {"compress_mode": "multi"}}[args.workload]
+        step, state, _ = rung.build_subspace(dev, **modes)
+        est = ()
+    budget = {"frifull": rung.frifull_config().target_nonz,
+              "frisys_hh": rung.frisys_hh_config().vec_nonz}.get(args.workload)
     step_kw = step
     step = lambda state, *est: step_kw(state, *est, **kw)
     for i in range(60):
         state, m = step(state, *est)
         if args.workload == "fciqmc":
             continue
-        if i >= 2 and (args.workload != "frifull"
-                       or int(m["nnonz"]) >= rung.frifull_config().target_nonz):
+        if args.workload == "subspfull":
+            full = bool(((state.arena.vals != 0).sum(1)
+                         >= rung.subspfull_config().vec_nonz).all())
+        else:
+            full = budget is None or int(m["nnonz"]) >= budget
+        if i >= 2 and (full or i >= 39):
             break
     torch.cuda.synchronize()
 

@@ -50,18 +50,42 @@
   spawn buffer the command line gives (1.4 matr_samp).  bench.py has no
   frimulti configuration.
 
+* ``frifull_hh``: bench.py's frifull_hh configuration (``bench_frifull_hh``,
+  BASELINE.md's required Hubbard-Holstein run): 4 sites, 4 electrons,
+  ph_bits 3 (20 bits, one word), U 2, omega 1, g 0.5, t 1; eps 0.01,
+  target_nonz 30,000, capacity 2^17, target_norm 60,000, e_ref 0, seed 0;
+  20 candidates per determinant, so one merge of 2,621,440 spawns per step.
+  The reachable space (147,456 determinants) is larger than the arena, but
+  the merged arena holds about 43,000 rows over the 40 steps bench.py runs
+  (measured on the card), so bench.py's capacity stands.
+* ``frisys_hh``: bench.py has none.  A 12-site open chain at half filling
+  with ph_bits 3 (60 bits in two words: the widest lattice one int64 key
+  holds at the command line's default ph_bits) and BASELINE's couplings
+  (U 2, omega 1, g 0.5, t 1), at the frisys rung's budgets: eps 0.01,
+  vec_nonz = matr_samp = 1e6, spawn_cap 1.4e6 (the command line's), capacity
+  2^21, target_norm 2e6, init_thresh 0, e_ref 0, seed 0, from one Neel
+  determinant.
+* ``subsp_lowmem`` and ``multi``: the subsp configuration with
+  ``lowmem=True`` or ``compress_mode="multi"``
+  (``subspace_config(lowmem=True)``), on its system and trial vectors.
+* ``subspfull``: ``exact_h=True`` on the frifull system (14 orbitals, 6
+  electrons), T = 2 (HF and its single 2 -> 3), eps 0.005, vec_nonz
+  30,000 per vector, capacity 2^18, 1024 rows per spawn-and-merge chunk,
+  restart_int 10, pivotal vector compression.
+
 ``chip_smoke.py`` times them and :mod:`fries_tpu_torch.profile_step`
 profiles them.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-import numpy as np
-
 from fries_tpu_torch import dets, synth
-from fries_tpu_torch.drivers import fciqmc, frifull, frimulti, frisys, power, subspace
+from fries_tpu_torch.drivers import (fciqmc, frifull, frifull_hh, frimulti, frisys,
+                                     frisys_hh, power, subspace)
+from fries_tpu_torch.ops import hubbard
 from fries_tpu_torch.ops import molecule as mol
 
 N_SAMP = 1_000_000
@@ -143,23 +167,83 @@ def build_frifull(device, dedup_cap: int = 0, seed: int = 0):
     return step, state, estimator_args(aux), aux
 
 
-def subspace_config() -> subspace.SubspaceConfig:
+def subspace_config(**modes) -> subspace.SubspaceConfig:
+    """bench.py's subsp configuration; ``modes`` sets the subspace's modes
+    (``lowmem``, ``compress_mode``)."""
     return subspace.SubspaceConfig(eps=0.02, n_trial=2, vec_nonz=100_000,
                                    matr_samp=200_000, capacity=1 << 20,
-                                   spawn_cap=300_000, restart_int=10)
+                                   spawn_cap=300_000, restart_int=10, **modes)
 
 
-def build_subspace(device, seed: int = 0):
-    """The subsp configuration on ``device``.  Returns (step, state, aux):
-    ``step(state)`` advances one iteration, and ``aux`` is
-    :func:`fries_tpu_torch.drivers.subspace.build`'s."""
-    ham = synth.ne_augccpvdz_like(seed=1, device=device)
+def hf_and_single(ham, occ: int, virt: int):
+    """(2, 1, W) trial keys: HF and its single occ -> virt."""
     hf = dets.hf_det(ham.n_orb, ham.n_elec)
-    single, _ = dets.single_parity(hf[None], torch.tensor([4]), torch.tensor([10]))
-    trial_keys = torch.stack([hf[None], single]).numpy()
-    step, _, state, aux = subspace.build(ham, subspace_config(), trial_keys,
-                                         [[1.0], [1.0]], seed=seed)
+    single, _ = dets.single_parity(hf[None], torch.tensor([occ]), torch.tensor([virt]))
+    return torch.stack([hf[None], single]).numpy()
+
+
+def build_subspace(device, seed: int = 0, **modes):
+    """The subsp configuration (with ``modes``, :func:`subspace_config`) on
+    ``device``.  Returns (step, state, aux): ``step(state)`` advances one
+    iteration, and ``aux`` is :func:`fries_tpu_torch.drivers.subspace.build`'s."""
+    ham = synth.ne_augccpvdz_like(seed=1, device=device)
+    step, _, state, aux = subspace.build(ham, subspace_config(**modes),
+                                         hf_and_single(ham, 4, 10), [[1.0], [1.0]], seed=seed)
     return step, state, aux
+
+
+def subspfull_config() -> subspace.SubspaceConfig:
+    return subspace.SubspaceConfig(eps=0.005, n_trial=2, vec_nonz=30_000, matr_samp=30_000,
+                                   capacity=1 << 18, spawn_cap=42_000, restart_int=10,
+                                   exact_h=True, batch=1024)
+
+
+def build_subspfull(device, seed: int = 0):
+    """The ``subspfull`` configuration on ``device``.  Returns (step, state,
+    aux) as :func:`build_subspace` does; ``aux["n_excitations"]`` is the
+    template's candidates per determinant (a chunk's merge sees T * batch *
+    n_excitations spawns)."""
+    ham = frifull_system(device)
+    step, _, state, aux = subspace.build(ham, subspfull_config(), hf_and_single(ham, 2, 3),
+                                         [[1.0], [1.0]], seed=seed)
+    tmpl = mol.ExcitationTemplate.build(ham.n_orb, ham.n_elec)
+    aux["n_excitations"] = tmpl.n_doub + tmpl.n_sing
+    return step, state, aux
+
+
+def frifull_hh_system() -> hubbard.HubbardHolstein:
+    return hubbard.HubbardHolstein(n_sites=4, n_elec=4, ph_bits=3, u=2.0, omega=1.0, g=0.5)
+
+
+def frifull_hh_config() -> power.PowerConfig:
+    return power.PowerConfig(eps=0.01, target_nonz=30_000, capacity=1 << 17,
+                             target_norm=60_000.0)
+
+
+def build_frifull_hh(device, seed: int = 0):
+    """The ``frifull_hh`` configuration on ``device``.  Returns (step, state,
+    est, aux) as :func:`build` does."""
+    step, _, state, aux = frifull_hh.build(frifull_hh_system(), 0.0, frifull_hh_config(),
+                                           seed=seed, device=device)
+    return step, state, estimator_args(aux), aux
+
+
+def frisys_hh_system() -> hubbard.HubbardHolstein:
+    return hubbard.HubbardHolstein(n_sites=12, n_elec=12, ph_bits=3, u=2.0, omega=1.0, g=0.5)
+
+
+def frisys_hh_config() -> frisys_hh.FrisysHHConfig:
+    return frisys_hh.FrisysHHConfig(eps=0.01, vec_nonz=N_SAMP, matr_samp=N_SAMP,
+                                    capacity=CAPACITY, spawn_cap=int(N_SAMP * 1.4),
+                                    target_norm=2.0 * N_SAMP)
+
+
+def build_frisys_hh(device, seed: int = 0):
+    """The ``frisys_hh`` configuration on ``device``.  Returns (step, state,
+    est, aux) as :func:`build` does."""
+    step, _, state, aux = frisys_hh.build(frisys_hh_system(), 0.0, frisys_hh_config(),
+                                          seed=seed, device=device)
+    return step, state, estimator_args(aux), aux
 
 
 def fciqmc_system(device=None):

@@ -281,7 +281,7 @@ def test_cli_frisys_mol(tmp_path):
     assert (out / "params.txt").exists()
     assert len((out / "arena_occ.txt").read_text().splitlines()) == 3
     with pytest.raises(SystemExit, match="not ported yet"):
-        cli.main(["frifull_hh", "--max_dets", "10"])
+        cli.main(["observables_mol", "--max_dets", "10"])
     with pytest.raises(NotImplementedError):
         cli.main(["frisys_mol", "--fcidump_path", str(fcidump), "--epsilon", "0.02",
                   "--vec_nonz", "40", "--mat_nonz", "100", "--max_dets", "256",

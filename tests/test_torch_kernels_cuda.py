@@ -14,7 +14,9 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 from fries_tpu_torch import _build, compress, dets, probe_reshape, rng as trng, rung, synth  # noqa: E402
-from fries_tpu_torch.drivers import fciqmc, frifull, frimulti, frisys, power, subspace  # noqa: E402
+from fries_tpu_torch.drivers import (fciqmc, frifull, frifull_hh, frimulti, frisys,  # noqa: E402
+                                     frisys_hh, power, subspace)
+from fries_tpu_torch.ops import hubbard, molecule as mol  # noqa: E402
 from fries_tpu_torch.runtime import arena as ar  # noqa: E402
 from fries_tpu_torch.runtime import emit, merge, merge_multi  # noqa: E402
 
@@ -729,3 +731,204 @@ def test_frimulti_step_cuda_matches_cpu(cuda, dist):
             np.testing.assert_allclose(float(mg[key]), float(mc[key]), rtol=1e-10,
                                        atol=1e-12, err_msg=key)
     assert merge.LAUNCHES - m0 == 4
+
+
+# ---------------------------------------------------------------------------
+# the Hubbard-Holstein regimes and the subspace modes
+# ---------------------------------------------------------------------------
+
+def hh_dets(rng, ham, n):
+    """``n`` distinct random determinants of ``ham``: n_elec / 2 electrons
+    of each spin on random sites, random phonon counters."""
+    half = ham.n_elec // 2
+    bits = np.zeros((n, ham.n_bits), bool)
+    for row in bits:
+        row[rng.choice(ham.n_sites, half, replace=False)] = True
+        row[ham.n_sites + rng.choice(ham.n_sites, ham.n_elec - half, replace=False)] = True
+        ph = rng.integers(0, ham.max_ph + 1, ham.n_sites) if ham.ph_bits else []
+        for site, num in enumerate(ph):
+            for b in range(ham.ph_bits):
+                row[2 * ham.n_sites + site * ham.ph_bits + b] = (num >> b) & 1
+    words = dets.pack_bits(torch.as_tensor(bits), ham.n_words)
+    return torch.unique(words, dim=0)
+
+
+def hh_merge_case(rng, ham, capacity, sentinel_frac=0.6):
+    """A two-row arena of random HH determinants (half the capacity) and a
+    stream of S = 20 C spawns drawn from their exact connections (phonon
+    bits in the keys, every target repeated), ``sentinel_frac`` of it the
+    sentinel key; a keep mask on a twentieth of the rows."""
+    keys = hh_dets(rng, ham, capacity // 2)
+    keys = keys[torch.sort(dets.pack_key(keys)).indices]
+    n = keys.shape[0]
+    a = ar.make(capacity, ham.n_words, 2)
+    a.keys[:n] = keys
+    a.vals[0, :n] = torch.as_tensor(np.where(rng.random(n) < 0.2, 0.0, rng.standard_normal(n)))
+    a = ar.Arena(keys=a.keys, vals=a.vals, n_used=torch.tensor([n]))
+    w, amp = hubbard.offdiag_batch(ham, keys, torch.ones(n, dtype=torch.float64), 1.0)
+    w = w.reshape(-1, ham.n_words)[amp.reshape(-1) != 0]
+    s = 20 * capacity
+    sk = w[torch.as_tensor(rng.integers(0, w.shape[0], s))]
+    sk[torch.as_tensor(rng.random(s) < sentinel_frac)] = dets.WORD_MASK
+    return (a, sk, torch.as_tensor(rng.standard_normal(s) * 0.3),
+            torch.as_tensor(rng.random(s) < 0.6), torch.as_tensor(rng.random(capacity) < 0.05))
+
+
+@pytest.mark.parametrize("keep", [False, True])
+@pytest.mark.parametrize("n_sites", [4, 12])
+def test_merge_hh_regime(cuda, n_sites, keep):
+    """Kernel A on Hubbard-Holstein streams: one-word keys (4 sites) and
+    two-word keys whose phonon counters cross the word boundary (12 sites),
+    S = 20 C, 60% sentinel keys, layout (2, 0, 1) with and without a keep
+    mask."""
+    ham = hubbard.HubbardHolstein(n_sites=n_sites, n_elec=n_sites, ph_bits=3, u=2.0,
+                                  omega=1.0, g=0.5)
+    rng = np.random.default_rng(n_sites + 2 * keep)
+    a, sk, sv, si, keep_mask = hh_merge_case(rng, ham, 4096)
+    assert a.n_words == (2 if n_sites == 12 else 1)
+    run_merge(cuda, a, sk, sv, si, (2, 0, 1), keep_mask if keep else None)
+
+
+@pytest.mark.parametrize("g", [0.0, 0.5])
+def test_emit_hh_level_one(cuda, g):
+    """Kernel B at frisys_hh's level 1: K = 2 weighted rows (t, g), the
+    phonon column of zero weight when g = 0."""
+    rng = np.random.default_rng(int(10 * g) + 1)
+    n = 20000
+    values = torch.as_tensor(np.where(rng.random(n) < 0.7, rng.gamma(1.0, 1.0, n), 0.0))
+    plan, _ = compress.comp_sub_plan(
+        values, torch.zeros(n, dtype=torch.int64),
+        torch.tensor([[1.0, g]], dtype=torch.float64).expand(n, 2),
+        torch.ones((n, 2), dtype=torch.bool), 15000, float(rng.random()), 21000)
+    run_emit(cuda, plan)
+
+
+def test_emit_hh_level_two(cuda):
+    """Kernel B at frisys_hh's level 2: K = 1 rows whose live parents are
+    all uniform (ndiv 1-24), dead parents with ndiv >= 1 and value 0."""
+    rng = np.random.default_rng(3)
+    n = 21000
+    ndiv = torch.as_tensor(rng.integers(1, 25, n))
+    values = torch.as_tensor(np.where(rng.random(n) < 0.3, 0.0, rng.gamma(1.0, 1.0, n)))
+    plan, _ = compress.comp_sub_plan(values * ndiv, ndiv, torch.zeros((n, 1), dtype=torch.float64),
+                                     torch.zeros((n, 1), dtype=torch.bool), 15000,
+                                     float(rng.random()), n)
+    run_emit(cuda, plan)
+
+
+def run_emit(cuda, plan):
+    ref = emit.emit(**plan)
+    before = emit.LAUNCHES
+    got = emit.emit(**{key: v.to(cuda) if isinstance(v, torch.Tensor) else v
+                       for key, v in plan.items()})
+    torch.cuda.synchronize()
+    assert emit.LAUNCHES == before + 1
+    assert_emission_close(plan, got, ref)
+
+
+@pytest.mark.parametrize("order", ["blocked", "interleaved"])
+def test_merge_multi_exact_chunks(cuda, order):
+    """Kernel C on an exact-H stream merged chunk by chunk: two chunks of a
+    two-vector arena's exact spawns (all initiators), the second merged
+    into the arena that holds the first's sums; destination rows 0 and 1 in
+    the subspace step's blocked order or interleaved."""
+    ham = synth.make_system(8, 4, symm=SYMM8, seed=3)
+    tmpl = mol.ExcitationTemplate.build(8, 4)
+    hf = dets.hf_det(8, 4)
+    w, amp = subspace.exact_spawn(ham, tmpl, hf[None], torch.ones(1, dtype=torch.float64), 1.0)
+    keys = torch.unique(torch.cat([hf[None], w[amp != 0]]), dim=0)
+    keys = keys[torch.sort(dets.pack_key(keys)).indices]
+    n = keys.shape[0]
+    rng = np.random.default_rng(8)
+    vals = torch.as_tensor(np.where(rng.random((2, n)) < 0.3, 0.0,
+                                    rng.standard_normal((2, n))))
+    a = ar.make(1024, 1, 2)
+    a.keys[:n], a.vals[:, :n] = keys, vals
+    a = ar.Arena(keys=a.keys, vals=a.vals, n_used=torch.tensor([n]))
+    ref, got = a, to_dev(a, cuda)
+    for rows in (slice(0, n // 2), slice(n // 2, n)):
+        parts = [subspace.exact_spawn(ham, tmpl, keys[rows], vals[j, rows], -0.02)
+                 for j in range(2)]
+        sk, sv = (torch.cat(x) for x in zip(*parts))
+        sr = torch.arange(2).repeat_interleave(parts[0][1].shape[0])
+        if order == "interleaved":
+            perm = torch.arange(sk.shape[0]).reshape(2, -1).T.reshape(-1)
+            sk, sv, sr = sk[perm], sv[perm], sr[perm]
+        si = torch.ones(sk.shape[0], dtype=torch.bool)
+        ref, rstats = merge_multi.accumulate(ref, sk, sv, sr, si)
+        before = merge_multi.LAUNCHES
+        got, gstats = merge_multi.accumulate(got, sk.to(cuda), sv.to(cuda), sr.to(cuda),
+                                             si.to(cuda))
+        torch.cuda.synchronize()
+        assert merge_multi.LAUNCHES == before + 1
+        assert_merge_equal(got, gstats, ref, rstats)
+    assert int(ref.n_used[0]) > n
+
+
+def small_hh(g=0.4, ph_bits=2):
+    return hubbard.HubbardHolstein(n_sites=3, n_elec=2, ph_bits=ph_bits, u=1.5, omega=0.7,
+                                   g=g, t=1.0)
+
+
+@pytest.mark.parametrize("driver", ["frifull_hh", "frisys_hh"])
+@pytest.mark.parametrize("g,ph_bits", [(0.4, 2), (0.0, 0)])
+def test_hh_step_cuda_matches_cpu(cuda, driver, g, ph_bits):
+    """frifull_hh and frisys_hh on the card against the CPU from one state
+    with the same uniforms; one kernel A launch per step, and frisys_hh's
+    two emissions."""
+    ham = small_hh(g, ph_bits)
+    if driver == "frifull_hh":
+        cfg = power.PowerConfig(eps=0.02, target_nonz=20, capacity=256, target_norm=150.0,
+                                shift_interval=2)
+        built = {dev: frifull_hh.build(ham, 0.1, cfg, seed=3, device=dev)
+                 for dev in ("cpu", cuda)}
+    else:
+        cfg = frisys_hh.FrisysHHConfig(eps=0.02, vec_nonz=20, matr_samp=40, capacity=128,
+                                       spawn_cap=64, target_norm=150.0, shift_interval=2)
+        built = {dev: frisys_hh.build(ham, 0.1, cfg, seed=3, device=dev)
+                 for dev in ("cpu", cuda)}
+    m0, e0 = merge.LAUNCHES, emit.LAUNCHES
+    mc = card_steps_match_cpu(cuda, built, 12, 4)
+    assert merge.LAUNCHES - m0 == 4
+    assert emit.LAUNCHES - e0 == (8 if driver == "frisys_hh" else 0)
+    assert int(mc["n_dets"]) > 5
+
+
+@pytest.mark.parametrize("mode", ["lowmem", "lowmem_tr", "exact_h", "multi"])
+def test_subspace_mode_step_cuda_matches_cpu(cuda, mode):
+    """The subspace modes on the card against the CPU from one state with
+    one key tree: lowmem (also in the even sector), exact_h in 16-row
+    chunks (one kernel C launch per chunk), multi."""
+    modes = {"lowmem": dict(lowmem=True), "lowmem_tr": dict(lowmem=True, spin_parity=1),
+             "exact_h": dict(exact_h=True, batch=16),
+             "multi": dict(compress_mode="multi")}[mode]
+    hf = dets.hf_det(8, 4)
+    d1, _ = dets.single_parity(hf[None], torch.tensor([1]), torch.tensor([5]))
+    tk, tv = torch.stack([hf[None], d1]).numpy(), np.ones((2, 1))
+    cfg = subspace.SubspaceConfig(eps=0.02, n_trial=2, vec_nonz=60, matr_samp=150,
+                                  capacity=512, spawn_cap=200, restart_int=3,
+                                  shift_interval=3, **modes)
+    built = {dev: subspace.build(synth.make_system(8, 4, symm=SYMM8, seed=3, device=dev),
+                                 cfg, tk, tv, seed=4)
+             for dev in ("cpu", cuda)}
+    step_c, run_c, state, _ = built["cpu"]
+    step_g = built[cuda][0]
+    state, _ = run_c(state, 4)
+    c0, merges = merge_multi.LAUNCHES, 0
+    for _ in range(4):
+        g_state = subspace.SubspaceState(to_dev(state.arena, cuda),
+                                         state.norm_factors.to(cuda),
+                                         state.last_norms.to(cuda),
+                                         trng.KeyTree(4, cuda), state.iterat)
+        state, mc = step_c(state)
+        g_state, mg = step_g(g_state)
+        np.testing.assert_array_equal(g_state.arena.keys.cpu().numpy(),
+                                      state.arena.keys.numpy())
+        np.testing.assert_allclose(g_state.arena.vals.cpu().numpy(),
+                                   state.arena.vals.numpy(), rtol=1e-10, atol=1e-12)
+        for key in mc:
+            np.testing.assert_allclose(mg[key].cpu().numpy(), mc[key].numpy(),
+                                       rtol=1e-10, atol=1e-12, err_msg=key)
+        merges += int(mc.get("n_merges", 1))
+    assert merge_multi.LAUNCHES - c0 == merges
+    assert merges >= (12 if mode == "exact_h" else 4)

@@ -256,8 +256,10 @@ def test_unported_options_raise(tmp_path):
     tk, tv = hf[None, None].numpy(), np.ones((1, 1))
     base = dict(eps=0.02, n_trial=1, vec_nonz=40, matr_samp=100, capacity=64,
                 spawn_cap=128)
-    for opt in (dict(lowmem=True), dict(exact_h=True), dict(compress_mode="multi"), dict(axis_name="x", n_shards=2)):
-        with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError):
+        tsub.build(t, tsub.SubspaceConfig(**base, axis_name="x", n_shards=2), tk, tv, seed=0)
+    for opt in (dict(compress_mode="pivot"), dict(exact_h=True, batch=0)):
+        with pytest.raises(ValueError):
             tsub.build(t, tsub.SubspaceConfig(**base, **opt), tk, tv, seed=0)
     fcidump = tmp_path / "FCIDUMP"
     tio.write_fcidump(t, fcidump)
@@ -265,7 +267,7 @@ def test_unported_options_raise(tmp_path):
     args = ["--fcidump_path", str(fcidump), "--epsilon", "0.02", "--vec_nonz", "40",
             "--mat_nonz", "100", "--max_dets", "64", "--num_trial", "1",
             "--trial_vecs", str(tmp_path / "trial"), "--device", "cpu"]
-    for cmd in ("subsp_mol_lowmem", "subspfull_mol"):
+    for cmd in ("observables_mol", "obs_repl_mol", "dice_dots"):
         with pytest.raises(SystemExit, match="not ported yet"):
             cli.main([cmd] + args)
     for extra in (["--load_dir", str(tmp_path)], ["--hf_path", str(tmp_path)],
