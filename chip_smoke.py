@@ -91,7 +91,23 @@ Phases, in order; any failure exits non-zero:
    the frifull system, warm-up until both vectors hold their budget, 3 timed
    steps, one kernel C launch per chunk asserted; a real chunk through kernel
    C and its plain version);
-15. the timings: each kernel's wrapper and its plain version on the inputs of
+15. the observable estimators: the Rayleigh and the replica estimator on a
+   small system, card against CPU (10 steps each); then the ``observables``
+   and ``obs_repl`` configurations (``rung.observables_config``: frifull's
+   system at its widths, 6 warm-up and 6 timed steps; ms/step, exact-H
+   candidates/s, peak memory, kernel A launches per step and per layout,
+   asserted to be (4, 0, 0) and (4, 0, 3), or (4, 0, 0), (4, 1, 1) and
+   (4, 1, 3), with the plain merge barred from the card), and one more
+   step's merge inputs of each layout through kernel A and its plain
+   version;
+16. frisys's unfused stages: a small system card against CPU, then the 1e6
+   rung with ``fuse_ab=False, fuse_cd=False`` (2 + 3 steps, 5 kernel B and 1
+   kernel A launches per step asserted) and a real step's five emission
+   plans (levels A to E) through kernel B and its plain version;
+17. checkpoint and resume through the command line's entry point on the
+   card: frisys_mol, fciqmc_mol and subsp_mol, 6 iterations then 6 more
+   with ``--load_dir`` against a straight 12, stream for stream exactly;
+18. the timings: each kernel's wrapper and its plain version on the inputs of
    its check at the main path's shapes (the same seeds), last, since the
    profiler that reads device times slows every later launch of the process.
    For the two merges also the spawn sort alone (``sort_ms``,
@@ -114,9 +130,12 @@ Kernel A's entry is the rung's case; its ``shapes`` add the exact-H chunk
 (``frifull_chunk``: phase 10's real stream and arena, with the bound of
 those tensors), the semistochastic merge, FCIQMC's merge (``fciqmc``:
 phase 11's real input) and the Hubbard-Holstein paths' real merges
-(``frifull_hh``, ``frisys_hh``).  Kernel B's ``shapes`` add frisys_hh's two
-levels (``hh level 1``, ``hh level 2``; not in its entry's sums), kernel C's
-the subspfull chunk (``subspfull_chunk``).  ``launches`` sums a kernel's
+(``frifull_hh``, ``frisys_hh``) and the observables' real merges
+(``observables (4, 0, 0)``, ``observables (4, 0, 3)``, ``obs_repl (4, 1,
+1)``, ``obs_repl (4, 1, 3)``).  Kernel B's ``shapes`` add frisys_hh's two
+levels (``hh level 1``, ``hh level 2``) and the unfused rung's five
+(``unfused A`` to ``unfused E``), none in its entry's sums; kernel C's the
+subspfull chunk (``subspfull_chunk``).  ``launches`` sums a kernel's
 launches over the timed steps of every path (``launches_by_path`` breaks
 them down).
 Usage: ``python3 chip_smoke.py``.
@@ -184,7 +203,8 @@ def check_no_reference_imports():
     import importlib
 
     for name in ("fries_tpu_torch.rung", "fries_tpu_torch.cli", "fries_tpu_torch.profile_step",
-                 "fries_tpu_torch.probe_reshape", "fries_tpu_torch.convert"):
+                 "fries_tpu_torch.probe_reshape", "fries_tpu_torch.convert",
+                 "fries_tpu_torch.stats", "fries_tpu_torch.runtime.checkpoint"):
         importlib.import_module(name)
     loaded = sorted(n for n, mod in sys.modules.items() if mod is not None and (
         n in ("jax", "fries_tpu") or n.startswith(("jax.", "fries_tpu."))))
@@ -1678,13 +1698,307 @@ def phase_subspfull(dev):
 # timings
 # ---------------------------------------------------------------------------
 
-def phase_timings(dev, n_elements, chunk_case, fciqmc_case, hh_cases, hh_plans, sub_chunk):
+# ---------------------------------------------------------------------------
+# the observable estimators, frisys's unfused stages, checkpoints and resume
+# ---------------------------------------------------------------------------
+
+OBS_LAYOUTS = {False: {(4, 0, 0), (4, 0, 3)}, True: {(4, 0, 0), (4, 1, 1), (4, 1, 3)}}
+
+
+def phase_small_observables(dev):
+    """The Rayleigh and the replica estimator at a small size (10 steps each,
+    16-row chunks, O = the symmetry-allowed excitation 1 -> 3), card against
+    CPU from one state and one key tree (the same bits on both devices):
+    keys exact, values and estimators within rtol 1e-10, one kernel A launch
+    per merge."""
+    import numpy as np
+    import torch
+    from fries_tpu_torch.drivers import observables
+    from fries_tpu_torch.runtime import merge
+
+    for replica in (False, True):
+        label = f"small observables ({'replica' if replica else 'Rayleigh'})"
+        cfg = observables.ObservablesConfig(eps=0.05, target_nonz=30, capacity=1024,
+                                            obs_des=1, obs_cre=3, burn_in=2, n_obs=2,
+                                            btw_obs=2, replica=replica, batch=16)
+        step_c, _, state_c, _ = observables.build(small_system(), cfg, seed=4)
+        step_g, _, state_g, _ = observables.build(small_system(dev), cfg, seed=4)
+        m0, merges = merge.LAUNCHES, 0
+        for it in range(10):
+            state_c, mc = step_c(state_c)
+            state_g, mg = step_g(state_g)
+            if not torch.equal(state_g.arena.keys.cpu(), state_c.arena.keys):
+                raise AssertionError(f"{label} step {it}: card and CPU keys differ")
+            if not torch.allclose(state_g.arena.vals.cpu(), state_c.arena.vals,
+                                  rtol=1e-10, atol=1e-13):
+                raise AssertionError(f"{label} step {it}: card and CPU values differ")
+            for k in mc:
+                if not np.isclose(float(mg[k]), float(mc[k]), rtol=1e-10, atol=1e-13):
+                    raise AssertionError(f"{label} step {it}: metric {k} differs")
+            if bool(mc["overflow"]):
+                raise AssertionError(f"{label} step {it}: overflow")
+            merges += int(mc["n_merges"])
+        if merge.LAUNCHES - m0 != merges or float(mc["obs_num"]) == 0.0:
+            raise AssertionError(f"{label}: {merge.LAUNCHES - m0} kernel A launches for "
+                                 f"{merges} merges, obs_num {float(mc['obs_num'])}")
+        log(f"{label}: 10 steps on the card match the CPU plain path ({merges} kernel A "
+            f"launches, obs_num / obs_den {float(mc['obs_num']) / float(mc['obs_den']):.6f})")
+
+
+def recording_merges(capture):
+    """Install a recorder around ``arena.accumulate_best`` that counts each
+    (n_vecs, origin, dest) layout of the merges on the card (and with
+    ``capture`` keeps a copy of the first input of each), and a guard that
+    raises if the plain merge runs on card tensors.  Returns (counts,
+    captured, restore)."""
+    from fries_tpu_torch.runtime import arena as ar
+    from fries_tpu_torch.runtime import merge
+
+    counts, captured = {}, {}
+    orig_best, orig_plain = ar.accumulate_best, merge.accumulate_plain
+
+    def best(a, sk, sv, si, origin_row=0, dest_row=0, keep_mask=None):
+        layout = (a.n_vecs, origin_row, dest_row)
+        counts[layout] = counts.get(layout, 0) + 1
+        if capture and layout not in captured:
+            captured[layout] = (ar.Arena(a.keys.clone(), a.vals.clone(), a.n_used.clone()),
+                                sk.clone(), sv.clone(), si.clone())
+        return orig_best(a, sk, sv, si, origin_row, dest_row, keep_mask=keep_mask)
+
+    def plain(a, *args, **kwargs):
+        if a.keys.is_cuda:
+            raise AssertionError("the plain merge ran on card tensors")
+        return orig_plain(a, *args, **kwargs)
+
+    def restore():
+        ar.accumulate_best, merge.accumulate_plain = orig_best, orig_plain
+
+    ar.accumulate_best, merge.accumulate_plain = best, plain
+    return counts, captured, restore
+
+
+def phase_observables(dev, replica):
+    """The ``observables`` (Rayleigh) or ``obs_repl`` configuration: 6
+    warm-up steps (the burn-in), 6 timed steps (a period start, two more
+    weighted steps, three free ones) with kernel A's launches per layout
+    counted and the plain merge barred from the card, then one more step
+    whose first merge input of each layout goes through kernel A and its
+    plain version; returns the results and those inputs by layout."""
+    import torch
+    from fries_tpu_torch import rung
+    from fries_tpu_torch.runtime import merge
+
+    name = "obs_repl" if replica else "observables"
+    cfg = rung.observables_config(replica)
+    t0 = time.perf_counter()
+    step, state, aux = rung.build_observables(dev, replica)
+    torch.cuda.synchronize()
+    log(f"{name}: built in {time.perf_counter() - t0:.1f} s (14 orbitals, 6 electrons, "
+        f"capacity {cfg.capacity}, {cfg.batch}-row chunks of {aux['n_excitations']} "
+        f"candidates each, O = {cfg.obs_des} -> {cfg.obs_cre})")
+
+    def check(label, ms):
+        """No overflow, finite estimators, a nonzero denominator wherever
+        the estimator is read (every replica step, the Rayleigh periods)."""
+        for i, m in enumerate(ms):
+            if bool(m["overflow"]):
+                raise AssertionError(f"{label}: overflow at step {i}")
+            num, den = float(m["obs_num"]), float(m["obs_den"])
+            if not (torch.isfinite(torch.tensor([num, den, float(m["norm"])])).all()
+                    and (den != 0 or not (replica or bool(m["in_obs"])))):
+                raise AssertionError(f"{label}: non-finite estimator at step {i}")
+
+    warm = []
+    for _ in range(cfg.burn_in):
+        state, m = step(state)
+        warm.append(m)
+    check(f"{name} warm-up", warm)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counts, _, restore = recording_merges(False)
+    merge.LAUNCHES = 0
+    try:
+        t0 = time.perf_counter()
+        metrics = []
+        for _ in range(6):
+            state, m = step(state)
+            metrics.append(m)
+        torch.cuda.synchronize()
+        s_per_step = (time.perf_counter() - t0) / 6
+    finally:
+        restore()
+    check(name, metrics)
+    launches = merge.LAUNCHES
+    n_merges = sum(int(m["n_merges"]) for m in metrics)
+    if launches != n_merges or launches != sum(counts.values()):
+        raise AssertionError(f"{name}: {launches} kernel A launches, {n_merges} merges, "
+                             f"recorded {counts}")
+    if set(counts) != OBS_LAYOUTS[replica]:
+        raise AssertionError(f"{name}: merges at layouts {sorted(counts)}")
+    in_obs = [bool(m["in_obs"]) for m in metrics]
+    if in_obs != [True] * 3 + [False] * 3:
+        raise AssertionError(f"{name}: observable periods {in_obs}")
+    rows = [int(m["spawn_rows"]) for m in metrics]
+    last = metrics[-1]
+    res = {"config": name, "ms_per_step": 1e3 * s_per_step,
+           "candidates_per_s": sum(rows) * aux["n_excitations"] / (6 * s_per_step),
+           "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+           "merge_launches_per_step": launches / 6,
+           "launches_by_layout": {str(k): v for k, v in sorted(counts.items())},
+           "launches": {"merge": launches},
+           "n_merges_per_step": [int(m["n_merges"]) for m in metrics],
+           "spawn_rows_per_step": rows,
+           "n_dets_per_step": [int(m["n_dets"]) for m in warm + metrics],
+           "in_obs": in_obs, "obs_num": float(last["obs_num"]),
+           "obs_den": float(last["obs_den"]),
+           "obs_estimate": float(last["obs_num"]) / float(last["obs_den"])}
+    log(f"{name}: {json.dumps(res)}")
+
+    _, captured, restore = recording_merges(True)
+    try:
+        state, m = step(state)
+    finally:
+        restore()
+    check(f"{name} capture step", [m])
+    res["real_merges"] = {}
+    for layout, (a, sk, sv, si) in sorted(captured.items()):
+        _, origin, dest = layout
+        out = compare_merges(f"merge {name} {layout}",
+                             merge.accumulate(a, sk, sv, si, origin, dest),
+                             merge.accumulate_plain(a, sk, sv, si, origin, dest))
+        res["real_merges"][str(layout)] = {**merge_stream_stats(a, sk), **out}
+        log(f"merge {name}, a real step's merge at {layout}: agrees "
+            f"({json.dumps(res['real_merges'][str(layout)])})")
+    return res, captured
+
+
+def phase_small_unfused(dev):
+    """frisys with both stages unfused at a small size, card against CPU:
+    five kernel B launches and one kernel A launch per step."""
+    from fries_tpu_torch.drivers import frisys
+    from fries_tpu_torch.runtime import emit, merge
+
+    cfg = frisys.FrisysConfig(eps=0.02, vec_nonz=60, matr_samp=150, capacity=256,
+                              spawn_cap=200, target_norm=200.0, shift_interval=2,
+                              fuse_ab=False, fuse_cd=False)
+    small_steps_match("small system, unfused stages", dev,
+                      lambda d: frisys.build(small_system(d), cfg, seed=4), 20, 3,
+                      {merge: 1, emit: 5})
+
+
+UNFUSED_LEVELS = ("unfused A", "unfused B", "unfused C", "unfused D", "unfused E")
+
+
+def phase_unfused(dev):
+    """The 1e6 rung with ``fuse_ab=False, fuse_cd=False``: 2 warm-up and 3
+    timed steps with 5 kernel B and 1 kernel A launches per step asserted,
+    then a real step's five emission plans through kernel B and its plain
+    version; returns the results and the plans by level."""
+    import torch
+    from fries_tpu_torch import rung
+    from fries_tpu_torch.runtime import emit, merge
+
+    t0 = time.perf_counter()
+    step, state, args, aux = rung.build(dev, fuse_ab=False, fuse_cd=False)
+    torch.cuda.synchronize()
+    log(f"unfused rung: built in {time.perf_counter() - t0:.1f} s")
+    state, _, _ = timed_block(step, state, args, N_WARM, "unfused rung warm-up")
+    torch.cuda.reset_peak_memory_stats()
+    merge.LAUNCHES = 0
+    emit.LAUNCHES = 0
+    state, metrics, s_per_step = timed_block(step, state, args, 3, "unfused rung")
+    launches = {"merge": merge.LAUNCHES, "emit": emit.LAUNCHES}
+    if launches != {"merge": 3, "emit": 15}:
+        raise AssertionError(f"unfused rung: launches {launches} in 3 steps")
+    last = metrics[-1]
+    res = {"config": "1e6 rung, fuse_ab=False, fuse_cd=False",
+           "ms_per_step": 1e3 * s_per_step,
+           "sampled_nonzeros_per_s": rung.N_SAMP / s_per_step,
+           "peak_mem_bytes": torch.cuda.max_memory_allocated(), "launches": launches,
+           "n_dets": int(last["n_dets"]), "norm": float(last["norm"]),
+           "e_corr_est": float(last["proj_num"]) / float(last["proj_den"])}
+    log(f"unfused rung: {json.dumps(res)}")
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(13)
+    rns = torch.rand(6, dtype=torch.float64, generator=gen).to(dev)
+    _, plans = capture_emissions(power_merge_input, state, aux, rung.EPS, rns)
+    if len(plans) != 5:
+        raise AssertionError(f"unfused rung: {len(plans)} emissions in one spawn")
+    res["emit_checks"] = {
+        name: check_emit(f"{name} (N={plan['offsets'].shape[0]}, K={plan['w_sub'].shape[1]}), "
+                         "a real step's plan", plan, need_kept=False)
+        for name, plan in zip(UNFUSED_LEVELS, plans)}
+    return res, dict(zip(UNFUSED_LEVELS, plans))
+
+
+CLI_RESUME = {
+    "frisys_mol": ["--epsilon", "0.02", "--vec_nonz", "60", "--mat_nonz", "150",
+                   "--max_dets", "512", "--target", "200"],
+    "fciqmc_mol": ["--max_dets", "512", "--target", "600", "--attempt_cap", "4096",
+                   "--initiator", "2", "--epsilon", "0.02", "--distribution", "HB"],
+    "subsp_mol": ["--epsilon", "0.02", "--vec_nonz", "60", "--mat_nonz", "150",
+                  "--max_dets", "512", "--num_trial", "2", "--restart_int", "4"],
+}
+
+
+def phase_cli_resume(dev):
+    """Checkpoint and resume through the command line's entry point
+    (``fries_tpu_torch.cli.main``, what ``python -m fries_tpu_torch.cli``
+    runs) on the card, its default device: for frisys_mol, fciqmc_mol (its
+    key tree) and subsp_mol on the small system's FCIDUMP, 6 iterations with
+    ``--save_interval 3`` and then 6 more with ``--load_dir`` must write
+    exactly the streams of a straight run of 12."""
+    import contextlib
+    import io as pyio
+    import os
+    import tempfile
+
+    import torch
+    from fries_tpu_torch import cli, dets
+    from fries_tpu_torch import io as tio
+
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tio.write_fcidump(small_system(), os.path.join(tmp, "FCIDUMP"), point_group="D2h")
+        hf = dets.hf_det(8, 4)
+        single, _ = dets.single_parity(hf[None], torch.tensor([1]), torch.tensor([5]))
+        tio.save_vec_txt(os.path.join(tmp, "trial00"), hf[None].numpy(), [1.0], 16)
+        tio.save_vec_txt(os.path.join(tmp, "trial01"), single.numpy(), [1.0], 16)
+        for cmd, extra in CLI_RESUME.items():
+            base = [cmd, "--fcidump_path", os.path.join(tmp, "FCIDUMP"), "--point_group",
+                    "D2h", "--save_interval", "3", "--seed", "3"] + extra
+            if cmd == "subsp_mol":
+                base += ["--trial_vecs", os.path.join(tmp, "trial")]
+            straight, resumed = os.path.join(tmp, cmd, "straight"), os.path.join(tmp, cmd, "resumed")
+            with contextlib.redirect_stdout(pyio.StringIO()):
+                cli.main(base + ["--max_iter", "12", "--result_dir", straight])
+                cli.main(base + ["--max_iter", "6", "--result_dir", resumed])
+                cli.main(base + ["--max_iter", "6", "--result_dir", resumed,
+                                 "--load_dir", resumed])
+            names = sorted(n for n in os.listdir(straight) if n.endswith(".txt")
+                           and n not in ("params.txt", "arena_occ.txt"))
+            for n in names:
+                with open(os.path.join(straight, n)) as f1, open(os.path.join(resumed, n)) as f2:
+                    a, b = f1.read(), f2.read()
+                if a != b:
+                    raise AssertionError(f"cli resume {cmd}: {n} differs from the straight run")
+            lines = sum(1 for line in open(os.path.join(straight, names[0])) if line.strip())
+            res[cmd] = {"streams": names, "lines": lines}
+            log(f"cli resume {cmd}: 6 + 6 iterations on the card equal 12 straight ones "
+                f"exactly ({len(names)} streams)")
+    return res
+
+
+def phase_timings(dev, n_elements, chunk_case, fciqmc_case, hh_cases, path_plans, sub_chunk,
+                  obs_cases):
     """Each kernel's wrapper and its plain version on the inputs of its
     check at the main path's shapes (the same seeds; ``chunk_case`` is the
     exact-H path's own chunk, ``fciqmc_case`` FCIQMC's own merge input,
     ``hh_cases`` the Hubbard-Holstein paths' own merge inputs by name,
-    ``hh_plans`` frisys_hh's own emission plans by name, ``sub_chunk`` the
-    subspfull path's own kernel C chunk), with its bound:
+    ``path_plans`` frisys_hh's and the unfused rung's own emission plans by
+    name, ``sub_chunk`` the subspfull path's own kernel C chunk,
+    ``obs_cases`` the observables' own merge inputs (arena, spawn keys,
+    values, flags, origin, dest) by name), with its bound:
     call times first for every kernel, then device times, since the
     profiler slows every later launch of the process."""
     import torch
@@ -1723,7 +2037,14 @@ def phase_timings(dev, n_elements, chunk_case, fciqmc_case, hh_cases, hh_plans, 
                                                                               m),
             merge_bound(ha, (hsk, hsv, hsi), hkeep), None)
         extras[f"merge {name}"] = {"sort": lambda k=hsk: merge.sort_spawns(k)}
-    for name, plan in hh_plans.items():
+    for name, (oa, osk, osv, osi, origin, dest) in obs_cases.items():
+        cases[f"merge {name}"] = (
+            lambda a=oa, k=osk, v=osv, i=osi, o=origin, d=dest: merge.accumulate(a, k, v, i, o, d),
+            lambda a=oa, k=osk, v=osv, i=osi, o=origin, d=dest: merge.accumulate_plain(
+                a, k, v, i, o, d),
+            merge_bound(oa, (osk, osv, osi)), None)
+        extras[f"merge {name}"] = {"sort": lambda k=osk: merge.sort_spawns(k)}
+    for name, plan in path_plans.items():
         _, rp, rs = emit.emit_plain(**plan)
         cases[f"emit {name}"] = (lambda p=plan: emit.emit(**p), lambda p=plan: emit.emit_plain(**p),
                                  emit_bound(plan, rp, rs), None)
@@ -1831,9 +2152,21 @@ def main():
     phase_subspace_modes_small(dev)
     modes_res = phase_subspace_modes(dev)
     sfull_res, sub_chunk = phase_subspfull(dev)
+    phase_small_observables(dev)
+    obs_res, obs_captured = phase_observables(dev, False)
+    repl_res, repl_captured = phase_observables(dev, True)
+    phase_small_unfused(dev)
+    unf_res, unf_plans = phase_unfused(dev)
+    cli_res = phase_cli_resume(dev)
+    obs_cases = {f"{name} {layout}": (*captured[layout], layout[1], layout[2])
+                 for name, captured, layouts in (
+                     ("observables", obs_captured, ((4, 0, 0), (4, 0, 3))),
+                     ("obs_repl", repl_captured, ((4, 1, 1), (4, 1, 3))))
+                 for layout in layouts}
     # last: its profiler slows what follows
     t = phase_timings(dev, semi_res["n_elements"], chunk_case, fciqmc_case,
-                      {"frifull_hh": ffhh_case, "frisys_hh": fshh_case}, hh_plans, sub_chunk)
+                      {"frifull_hh": ffhh_case, "frisys_hh": fshh_case},
+                      {**hh_plans, **unf_plans}, sub_chunk, obs_cases)
 
     keys = ("ms", "plain_ms", "device_ms", "plain_device_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -1847,7 +2180,7 @@ def main():
     frisys_bound_by = max((s["bound_ms"], s["bound_by"]) for s in shapes.values())[1]
     emit_step = {key: step_sum(key) for key in ("ms", "plain_ms", "device_ms",
                                                 "plain_device_ms", "bound_ms")}
-    for name, r in fshh_res["emit_checks"].items():
+    for name, r in {**fshh_res["emit_checks"], **unf_res["emit_checks"]}.items():
         shapes[name] = {**timing(f"emit {name}"), "max_abs_err": r["max_abs_err"],
                         "n_out": r["n_out"], "kept": r["kept"]}
     sort_keys = ("device_ops", "sort_ms", "sort_device_ms", "sort_device_ops")
@@ -1862,6 +2195,13 @@ def main():
     for name, r in (("frifull_hh", ffhh_res), ("frisys_hh", fshh_res)):
         merge_shapes[name].update({key: r["real_step"][key] for key in (
             "arena_rows", "spawns", "live_spawns", "unique_targets", "longest_run")})
+    for name in obs_cases:
+        path, layout = name.split(" ", 1)
+        real = (obs_res if path == "observables" else repl_res)["real_merges"][layout]
+        merge_shapes[name] = {
+            **timing(f"merge {name}"), **{key: t[f"merge {name}"][key] for key in sort_keys},
+            **{key: real[key] for key in ("max_abs_err", "arena_rows", "spawns", "live_spawns",
+                                          "unique_targets", "longest_run")}}
     merge_shapes["frifull_chunk"].update(
         {key: full_res["real_chunk"][key] for key in ("arena_rows", "sentinel_share",
                                                       "unique_targets", "longest_run")},
@@ -1875,7 +2215,8 @@ def main():
         ("frifull", full_res), ("fciqmc", fq_res), ("frimulti", fm_res),
         ("frifull_hh", ffhh_res), ("frisys_hh", fshh_res),
         ("subsp_lowmem", modes_res["subsp_lowmem"]), ("subsp_multi", modes_res["subsp_multi"]),
-        ("subspfull", sfull_res))
+        ("subspfull", sfull_res), ("observables", obs_res), ("obs_repl", repl_res),
+        ("unfused rung", unf_res))
         if kernel in r["launches"]}
     multi_shape = {**timing("merge_multi subspfull_chunk"),
                    **{key: t["merge_multi subspfull_chunk"][key] for key in sort_keys},
@@ -1888,6 +2229,8 @@ def main():
          "launches": sum(by_path("merge").values()), "launches_by_path": by_path("merge"),
          "launches_per_frifull_step": full_res["merge_launches_per_step"],
          "launches_per_fciqmc_step": fq_res["merge_launches_per_step"],
+         "launches_by_observables_layout": {"observables": obs_res["launches_by_layout"],
+                                            "obs_repl": repl_res["launches_by_layout"]},
          "max_abs_err": max(m["rung"]["max_abs_err"], m["chunk_regime"]["max_abs_err"],
                             fq_res["first_step"]["max_abs_err"],
                             *(sh["max_abs_err"] for sh in merge_shapes.values())),
@@ -1913,6 +2256,7 @@ def main():
          "replaces": "fries_tpu/runtime/pallas_merge.py:77", "launches": pc["launches"],
          "max_abs_err": pc["max_abs_err"], **timing("probe_copy")},
     ]
+    log(f"cli resume: {json.dumps(cli_res)}")
     log(f"chip_smoke: total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

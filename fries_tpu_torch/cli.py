@@ -1,9 +1,6 @@
-"""Command line of the port: the ``frifull_mol``, ``frisys_mol``,
-``frimulti_mol``, ``fciqmc_mol``, ``fciqmc_fp_mol``, ``subsp_mol``,
-``subsp_mol_lowmem``, ``subspfull_mol``, ``frifull_hh`` and ``frisys_hh``
-workloads.
+"""Command line of the port: every workload of ``python -m fries_tpu.cli``.
 
-Same flags and per-iteration output streams as ``python -m fries_tpu.cli``:
+Same flags and per-iteration output streams as the reference:
 
 * ``frifull_mol`` (exact H * v; no ``--mat_nonz``) and ``frisys_mol``
   (``--det_space`` a text file of deterministic-subspace determinants,
@@ -30,14 +27,26 @@ Same flags and per-iteration output streams as ``python -m fries_tpu.cli``:
   (``--out_format`` txt, bin, npy or none), shifts.txt (the norm factors
   every shift interval), norms.txt, n_ini.txt and params.txt; the trial
   vectors are ``<prefix>XXdets`` / ``<prefix>XXvals`` text files or one
-  ``.dice`` file.
+  ``.dice`` file;
+* ``observables_mol`` (the Rayleigh estimator of O = sum_s a^+_cre,s
+  a_des,s; ``--obs_des``, ``--obs_cre``, ``--exponent``, ``--burn_in``,
+  ``--n_obs``, ``--btw_obs``) and ``obs_repl_mol`` (the replica estimator):
+  obs_num.txt / obs_den.txt (the in-period steps of the Rayleigh estimator,
+  every step of the replica one) and params.txt;
+* ``dice_dots``: the overlap matrix of two sets of Dice / SHCI vectors
+  (``--vecs1``, ``--vecs2``, ``--n_orb``, ``--n_states1``, ``--n_states2``),
+  printed and written to dice_dots.txt in the working directory.
 
-All run on ``--device`` (default ``cuda``; a run asking for CUDA where there
-is no CUDA device stops with an error, ``--device cpu`` runs the plain
-versions on the CPU).  None writes ``checkpoint.npz`` (checkpoints are not
-ported), and ``--load_dir``, ``--hf_path`` and ``--n_chips > 1`` raise.  The
-other workloads of the reference (``observables_mol``, ``obs_repl_mol``
-and ``dice_dots``) exit with "not ported yet".
+The molecular workloads read ``--fcidump_path`` or ``--hf_path`` (an HF
+input directory, whose core energy is taken as 0).  Every driver but
+``dice_dots`` writes ``checkpoint.npz`` every ``--save_interval``
+iterations and at the end, and ``checkpoint_overflow.npz`` (the state
+before the block) before it stops on an overflow; ``--load_dir DIR``
+resumes from ``DIR/checkpoint.npz`` (:mod:`fries_tpu_torch.runtime.checkpoint`)
+and appends to the streams.  All run on ``--device`` (default ``cuda``; a
+run asking for CUDA where there is no CUDA device stops with an error,
+``--device cpu`` runs the plain versions on the CPU).  ``--n_chips > 1``
+raises: sharding is not ported.
 
 Usage:  python -m fries_tpu_torch.cli frisys_mol --fcidump_path FCIDUMP \\
             --epsilon 1e-3 --vec_nonz 100000 --mat_nonz 100000 \\
@@ -51,6 +60,9 @@ Usage:  python -m fries_tpu_torch.cli frisys_mol --fcidump_path FCIDUMP \\
             --max_dets 524288 --trial_vecs trial --num_trial 2
         python -m fries_tpu_torch.cli frisys_hh --params_path hubbard_params.txt \\
             --vec_nonz 100000 --mat_nonz 100000 --max_dets 1000000
+        python -m fries_tpu_torch.cli observables_mol --fcidump_path FCIDUMP \\
+            --epsilon 0.005 --vec_nonz 30000 --max_dets 262144 \\
+            --obs_des 2 --obs_cre 3
 """
 
 from __future__ import annotations
@@ -60,8 +72,6 @@ import os
 import sys
 
 import numpy as np
-
-_OTHER_WORKLOADS = ("observables_mol", "obs_repl_mol", "dice_dots")
 
 _STREAMS = {
     "proj_num": "projnum.txt", "proj_den": "projden.txt", "shift": "S.txt",
@@ -145,17 +155,33 @@ def _parser():
         p.add_argument("--restart_int", type=int, default=10)
         p.add_argument("--time_reversal", type=int, default=0, choices=[-1, 0, 1])
         p.add_argument("--out_format", default="txt", choices=["none", "txt", "npy", "bin"])
+    for name, help_ in (("observables_mol", "Rayleigh observable estimator"),
+                        ("obs_repl_mol", "replica observable estimator")):
+        p = sub.add_parser(name, help=help_)
+        _add_common(p, mat_nonz=False)
+        p.add_argument("--obs_des", type=int, required=True)
+        p.add_argument("--obs_cre", type=int, required=True)
+        if name == "observables_mol":
+            p.add_argument("--exponent", type=float, default=0.5)
+            p.add_argument("--burn_in", type=int, default=1000)
+            p.add_argument("--n_obs", type=int, default=100)
+            p.add_argument("--btw_obs", type=int, default=100)
+    p = sub.add_parser("dice_dots", help="dot products between Dice vectors")
+    p.add_argument("--vecs1", required=True)
+    p.add_argument("--vecs2", required=True)
+    p.add_argument("--n_orb", type=int, required=True)
+    p.add_argument("--n_states1", type=int, required=True)
+    p.add_argument("--n_states2", type=int, required=True)
     return parser
 
 
-def _unported(args, flags, need_fcidump=True):
-    for flag, why in flags:
-        if getattr(args, flag, None):
-            raise NotImplementedError(f"--{flag} ({why}) is not ported yet")
+def _check_run(args, molecular=True):
+    """Stop on what the port does not run: several chips, or a molecular
+    workload without an integral input."""
     if args.n_chips > 1:
         raise NotImplementedError("--n_chips > 1 is not ported yet")
-    if need_fcidump and not args.fcidump_path:
-        raise SystemExit(f"{args.cmd} needs --fcidump_path")
+    if molecular and not (args.fcidump_path or args.hf_path):
+        raise SystemExit(f"{args.cmd} needs --fcidump_path or --hf_path")
 
 
 def _device(args):
@@ -169,11 +195,16 @@ def _device(args):
 
 
 def _load(args):
-    """(device, Hamiltonian, e_ref override or None) of a molecular run."""
+    """(device, Hamiltonian, e_ref override or None) of a molecular run: the
+    FCIDUMP, or the HF input directory (core energy 0)."""
     from fries_tpu_torch import io
 
+    _check_run(args)
     device = _device(args)
-    ham, core_en = io.parse_fcidump(args.fcidump_path, args.point_group, device=device)
+    if args.fcidump_path:
+        ham, core_en = io.parse_fcidump(args.fcidump_path, args.point_group, device=device)
+    else:
+        ham, core_en = io.parse_hf_input(args.hf_path, device=device)[0], 0.0
     ham_shift = getattr(args, "ham_shift", None)
     e_ref = None if ham_shift is None else ham_shift - core_en
     return device, ham, e_ref
@@ -186,20 +217,67 @@ def _write_params(args):
             f.write(f"{k}: {v}\n")
 
 
-def _overflow_exit(done, n):
+def _resume(args, state):
+    """The state of ``--load_dir``'s checkpoint.npz, or ``state``."""
+    from fries_tpu_torch.runtime import checkpoint
+
+    if not args.load_dir:
+        return state
+    path = os.path.join(args.load_dir, "checkpoint.npz")
+    try:
+        state = checkpoint.restore(path, state)
+    except ValueError as err:
+        raise SystemExit(f"--load_dir: {err}") from None
+    print(f"resumed from {path} at iteration {state.iterat}")
+    return state
+
+
+def _checkpoint(args, state, done):
+    """checkpoint.npz every --save_interval iterations and at the end."""
+    from fries_tpu_torch.runtime import checkpoint
+
+    if done % args.save_interval == 0 or done >= args.max_iter:
+        checkpoint.save_state(os.path.join(args.result_dir, "checkpoint.npz"), state)
+        return True
+    return False
+
+
+def _snapshot(state):
+    """``state`` as it stands before a block, for checkpoint_overflow.npz:
+    the block draws from the same generator object, so its stream is
+    copied."""
+    import dataclasses
+
+    import torch
+
+    if getattr(state, "generator", None) is None:
+        return state
+    gen = torch.Generator(device="cpu")
+    gen.set_state(state.generator.get_state())
+    return dataclasses.replace(state, generator=gen)
+
+
+def _overflow_exit(args, done, n, prev_state):
+    """Save the state before the block to checkpoint_overflow.npz and stop."""
+    from fries_tpu_torch.runtime import checkpoint
+
+    checkpoint.save_state(os.path.join(args.result_dir, "checkpoint_overflow.npz"),
+                          prev_state)
     raise SystemExit(
         "ERROR: spawn/arena buffer overflow in the block ending at "
         f"iteration {done + n}; results from this block are invalid. "
-        "Re-run with larger --max_dets (or mat_nonz spawn capacity)")
+        "Re-run with larger --max_dets (or mat_nonz spawn capacity); "
+        "last good state saved to checkpoint_overflow.npz")
 
 
 def _run_power_driver(args, run_steps, state, aux, protected=None):
-    """The iteration loop of the single-vector drivers: run in blocks and
+    """The iteration loop of the single-vector drivers: run in blocks,
     stream the metrics to the reference's output files (a stream the driver
-    does not report is left empty)."""
+    does not report is left empty) and checkpoint."""
     from fries_tpu_torch.runtime import arena as ar
 
     _write_params(args)
+    state = _resume(args, state)
     est = (aux["num_keys"], aux["num_vals"], aux["den_keys"], aux["den_vals"],
            aux["ref_key"])
     files = {k: open(os.path.join(args.result_dir, v), "a") for k, v in _STREAMS.items()}
@@ -209,10 +287,11 @@ def _run_power_driver(args, run_steps, state, aux, protected=None):
         done = 0
         while done < args.max_iter:
             n = min(block, args.max_iter - done)
+            prev_state = _snapshot(state)
             state, traj = run_steps(state, *est, n, **kw)
             traj = {k: v.cpu().numpy() for k, v in traj.items()}
             if traj["overflow"].any():
-                _overflow_exit(done, n)
+                _overflow_exit(args, done, n, prev_state)
             for name, f in files.items():
                 if name not in traj:   # a driver reports a subset of the streams
                     continue
@@ -222,7 +301,7 @@ def _run_power_driver(args, run_steps, state, aux, protected=None):
             done += n
             print(f"{done}, en est: {traj['proj_num'][-1] / traj['proj_den'][-1]:.8f}, "
                   f"shift: {traj['shift'][-1]:.6f}, norm: {traj['norm'][-1]:.2f}")
-            if done % args.save_interval == 0 or done >= args.max_iter:
+            if _checkpoint(args, state, done):
                 occ = ar.occupancy_stats(state.arena)
                 with open(os.path.join(args.result_dir, "arena_occ.txt"), "a") as f:
                     f.write(f"{done},{occ['used']},{occ['capacity']},"
@@ -233,13 +312,9 @@ def _run_power_driver(args, run_steps, state, aux, protected=None):
             f.close()
 
 
-_UNPORTED_INPUTS = (("hf_path", "HF-directory input"), ("load_dir", "checkpoint resume"))
-
-
 def run_frifull(args):
     from fries_tpu_torch.drivers import frifull, power
 
-    _unported(args, _UNPORTED_INPUTS)
     _, ham, _ = _load(args)
     cfg = power.PowerConfig(
         eps=args.epsilon, target_nonz=args.vec_nonz, capacity=args.max_dets,
@@ -252,7 +327,6 @@ def run_frisys(args):
     from fries_tpu_torch import io
     from fries_tpu_torch.drivers import frisys
 
-    _unported(args, _UNPORTED_INPUTS)
     _, ham, e_ref = _load(args)
     determ_keys = io.read_dets(args.det_space, ham.n_bits) if args.det_space else None
     trial = io.load_vec_txt(args.trial_vec, ham.n_bits) if args.trial_vec else None
@@ -272,7 +346,6 @@ def run_frimulti(args):
     from fries_tpu_torch import io
     from fries_tpu_torch.drivers import frimulti
 
-    _unported(args, _UNPORTED_INPUTS)
     _, ham, e_ref = _load(args)
     trial = io.load_vec_txt(args.trial_vec, ham.n_bits) if args.trial_vec else None
     init_vec = io.load_vec_txt(args.ini_vec, ham.n_bits) if args.ini_vec else None
@@ -289,7 +362,6 @@ def run_frimulti(args):
 def run_fciqmc(args):
     from fries_tpu_torch.drivers import fciqmc
 
-    _unported(args, _UNPORTED_INPUTS)
     _, ham, _ = _load(args)
     cfg = fciqmc.FciqmcConfig(
         eps=args.epsilon, target_walkers=args.target_norm, capacity=args.max_dets,
@@ -305,7 +377,7 @@ def run_hh(args):
     from fries_tpu_torch.drivers import frifull_hh, frisys_hh, power
     from fries_tpu_torch.ops import hubbard
 
-    _unported(args, _UNPORTED_INPUTS, need_fcidump=False)
+    _check_run(args, molecular=False)
     device = _device(args)
     params = io.parse_hh_input(args.params_path)
     ham = hubbard.HubbardHolstein(
@@ -355,7 +427,6 @@ def run_subspace(args):
     from fries_tpu_torch import io
     from fries_tpu_torch.drivers import subspace
 
-    _unported(args, _UNPORTED_INPUTS)
     _, ham, e_ref = _load(args)
     trial_keys, trial_vals = _trial_vectors(args, ham)
     cfg = subspace.SubspaceConfig(
@@ -368,6 +439,7 @@ def run_subspace(args):
                                             seed=args.seed, e_ref=e_ref)
 
     _write_params(args)
+    state = _resume(args, state)
     out = lambda name, mode="a": open(os.path.join(args.result_dir, name), mode)
     fmt = args.out_format
     hfile = dfile = None
@@ -381,10 +453,11 @@ def run_subspace(args):
         block = min(args.save_interval, 100)
         while done < args.max_iter:
             n = min(block, args.max_iter - done)
+            prev_state = _snapshot(state)
             state, traj = run_steps(state, n)
             traj = {k: v.cpu().numpy() for k, v in traj.items()}
             if traj["overflow"].any():
-                _overflow_exit(done, n)
+                _overflow_exit(args, done, n, prev_state)
             for i in range(n):
                 h, d = traj["h_mat"][i], traj["d_mat"][i]
                 if fmt == "txt":
@@ -396,7 +469,8 @@ def run_subspace(args):
                 elif fmt == "npy":
                     io.npy_append(os.path.join(args.result_dir, "h_mat.npy"), h)
                     io.npy_append(os.path.join(args.result_dir, "d_mat.npy"), d)
-                if (done + i + 1) % cfg.shift_interval == 0:
+                # the controller's absolute iteration (after a resume too)
+                if (prev_state.iterat + i + 1) % cfg.shift_interval == 0:
                     shift_f.write(_csv(traj["norm_factors"][i]))
                 norm_f.write(_csv(traj["norms"][i]))
                 nini_f.write(_csv(traj["n_ini"][i], lambda x: str(int(x))))
@@ -405,24 +479,78 @@ def run_subspace(args):
                     f.flush()
             done += n
             print(f"subspace iteration {done}")
+            _checkpoint(args, state, done)
     finally:
         for f in (hfile, dfile, shift_f, norm_f, nini_f):
             if f is not None:
                 f.close()
 
 
+def run_observables(args):
+    from fries_tpu_torch.drivers import observables
+
+    _, ham, _ = _load(args)
+    cfg = observables.ObservablesConfig(
+        eps=args.epsilon, target_nonz=args.vec_nonz, capacity=args.max_dets,
+        obs_des=args.obs_des, obs_cre=args.obs_cre,
+        exponent=getattr(args, "exponent", 0.5), burn_in=getattr(args, "burn_in", 1000),
+        n_obs=getattr(args, "n_obs", 100), btw_obs=getattr(args, "btw_obs", 100),
+        replica=args.cmd == "obs_repl_mol")
+    _, run_steps, state, _ = observables.build(ham, cfg, seed=args.seed)
+    _write_params(args)
+    state = _resume(args, state)
+    numf = open(os.path.join(args.result_dir, "obs_num.txt"), "a")
+    denf = open(os.path.join(args.result_dir, "obs_den.txt"), "a")
+    try:
+        done = 0
+        block = min(args.save_interval, 200)
+        while done < args.max_iter:
+            n = min(block, args.max_iter - done)
+            prev_state = _snapshot(state)
+            state, traj = run_steps(state, n)
+            traj = {k: v.cpu().numpy() for k, v in traj.items()}
+            if traj["overflow"].any():
+                _overflow_exit(args, done, n, prev_state)
+            keep = np.ones(n, bool) if cfg.replica else traj["in_obs"]
+            for f, name in ((numf, "obs_num"), (denf, "obs_den")):
+                for x in traj[name][keep]:
+                    f.write(repr(x.item()) + "\n")
+                f.flush()
+            done += n
+            print(f"observables iteration {done}")
+            _checkpoint(args, state, done)
+    finally:
+        numf.close()
+        denf.close()
+
+
+def run_dice_dots(args):
+    """The (n_states1, n_states2) overlaps of two sets of Dice vectors."""
+    from fries_tpu_torch import io
+
+    n_bits = 2 * args.n_orb
+    vecs1 = [io.load_vec_dice(args.vecs1, args.n_orb, n_bits, state=i)
+             for i in range(args.n_states1)]
+    vecs2 = [io.load_vec_dice(args.vecs2, args.n_orb, n_bits, state=j)
+             for j in range(args.n_states2)]
+    mats = np.zeros((args.n_states1, args.n_states2))
+    for i, (k1, v1) in enumerate(vecs1):
+        d1 = {tuple(k): v for k, v in zip(k1, v1)}
+        for j, (k2, v2) in enumerate(vecs2):
+            mats[i, j] = sum(d1.get(tuple(k), 0.0) * v for k, v in zip(k2, v2))
+    print(mats)
+    np.savetxt("dice_dots.txt", mats, delimiter=",")
+
+
 def main(argv=None):
-    argv = sys.argv[1:] if argv is None else list(argv)
-    if argv and argv[0] in _OTHER_WORKLOADS:
-        raise SystemExit(f"{argv[0]}: not ported yet (the port runs frifull_mol, "
-                         "frisys_mol, frimulti_mol, fciqmc_mol, fciqmc_fp_mol, subsp_mol, "
-                         "subsp_mol_lowmem, subspfull_mol, frifull_hh and frisys_hh)")
-    args = _parser().parse_args(argv)
+    args = _parser().parse_args(sys.argv[1:] if argv is None else list(argv))
     return {"frifull_mol": run_frifull, "frisys_mol": run_frisys,
             "frimulti_mol": run_frimulti, "fciqmc_mol": run_fciqmc,
             "fciqmc_fp_mol": run_fciqmc, "subsp_mol": run_subspace,
             "subsp_mol_lowmem": run_subspace, "subspfull_mol": run_subspace,
-            "frifull_hh": run_hh, "frisys_hh": run_hh}[args.cmd](args)
+            "frifull_hh": run_hh, "frisys_hh": run_hh,
+            "observables_mol": run_observables, "obs_repl_mol": run_observables,
+            "dice_dots": run_dice_dots}[args.cmd](args)
 
 
 if __name__ == "__main__":

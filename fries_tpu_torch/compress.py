@@ -5,7 +5,8 @@ Counterpart of the main-path part of ``fries_tpu/compress.py``:
 
 * ``find_preserve``: the greedy "preserve the largest exactly" rule as a
   threshold fixpoint, seeded by a histogram bound (``_preserve_threshold_seed``).
-* ``sys_comp``: systematic resampling on a shared grid.
+* ``sys_comp``: systematic resampling on a shared grid; ``compress_vector``
+  runs ``find_preserve`` and ``sys_comp`` in one call.
 * ``comp_sub``: one hierarchical compression level whose output slots are
   emitted by :func:`fries_tpu_torch.runtime.emit.emit` (the comp_sub
   emission kernel on the card).
@@ -230,6 +231,12 @@ def sys_comp(vals, keep, n_samp, rn, loc_norm):
     sampled = torch.sign(vals64) * hits * unit
     out = torch.where(keep, vals64, torch.where(n_samp > 0, sampled, 0.0))
     return out.to(dtype)
+
+
+def compress_vector(vals, n_samp: int, rn):
+    """``find_preserve`` then ``sys_comp``: one vector compression step."""
+    keep, n_left, loc_norm = find_preserve(vals.abs(), n_samp)
+    return sys_comp(vals, keep, n_left, rn, loc_norm)
 
 
 # ---------------------------------------------------------------------------

@@ -3,9 +3,13 @@
 //
 // Replaces the TPU kernel fries_tpu/runtime/pallas_merge.py:617 _kernel_v2
 // (and its v1 _kernel, :264).  Contract (fries_tpu_torch/runtime/merge.py):
-// the result of compact-then-accumulate for the layouts (n_vecs, origin,
-// dest) = (1, 0, 0) and (2, 0, 1); one value channel, occupancy tested on
-// the origin row, sums added to the dest row.
+// the result of compact-then-accumulate; one value channel, occupancy
+// tested on the origin row, sums added to the dest row, the other value
+// rows passed through.  Without a keep mask any layout (n_vecs, origin,
+// dest) with origin, dest < n_vecs (origin == dest included; the
+// observables' four-row arena merges at (4, s, s) and (4, s, 3)); with one,
+// (1, 0, 0) and (2, 0, 1), the layouts whose fused compaction is shown equal
+// (runtime/merge.py).  A row outside [0, n_vecs) is refused.
 //
 // What bounds it on the H100: bytes, about 32 B per valid arena row read
 // (two key words, two value rows, the keep bit), 33 B per spawn (sorted key,

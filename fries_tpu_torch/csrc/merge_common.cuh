@@ -591,6 +591,9 @@ cudaError_t launch_w(const MergeArgs& a, int64_t nt_r, int64_t nt_m, cudaStream_
 // (merge.py allocates both).
 cudaError_t launch_merge(const MergeArgs& a, int w, cudaStream_t stream) {
   if (a.n_chan < 1 || a.n_chan > kMaxChannels || a.c < 1 || a.s < 1) return cudaErrorInvalidValue;
+  if (!a.per_row && (a.origin_row < 0 || a.origin_row >= a.n_rows || a.dest_row < 0 ||
+                     a.dest_row >= a.n_rows))
+    return cudaErrorInvalidValue;
   const int64_t nt_r = n_reduce_tiles(a.s), nt_m = n_merge_tiles(a.c, a.s);
   cudaError_t err = cudaMemsetAsync(a.ctrl, 0, (kCtrlHead + nt_r + nt_m) * sizeof(int64_t), stream);
   if (err) return err;

@@ -14,18 +14,27 @@ shaped sample buffers, then finalizes the sampled excitations:
   finalize: Slater-Condon elements, fermionic parities and the HB-PP
        selection weights (calc_norm_wt / calc_unnorm_wt).
 
-Each round is systematic (``comp_sub``; C+D through ``comp_sub_factored``)
-and consumes the scalar uniforms ``rns[1]``, ``rns[2]`` and ``rns[4]`` of the
-step's six (the reference's level numbering), or with ``pivotal=True``
-pivotal (``comp_sub_piv``, C+D over the materialized joint) and consumes the
-key nodes ``key.fold(77).split(5)[level]`` (:mod:`fries_tpu_torch.rng`).
+With ``fuse_ab=False`` A+B is two rounds, level A (double or single, K = 2)
+and level B (o1 of a double, K = n_elec; the allowed-electron rank of a
+single as a uniform row); with ``fuse_cd=False`` C+D is level C (o2, K =
+n_elec; the virtual of a single as a uniform row) and level D (u1, K =
+n_virt).  The chain masses are those of the fused rounds.  Both off: five
+rounds.  Each round is systematic (``comp_sub``; C+D through
+``comp_sub_factored``) and consumes the scalar uniform ``rns[level]`` of the
+step's six, levels A to E numbered 0 to 4 (fused A+B takes ``rns[1]``, fused
+C+D ``rns[2]``), or with ``pivotal=True`` pivotal (``comp_sub_piv``, C+D
+over the materialized joint) and consumes the key nodes
+``key.fold(77).split(5)[level]`` (:mod:`fries_tpu_torch.rng`).  The
+reference's memory gate on the pivotal fused C+D
+(``FRIES_FUSE_CD_MAX_BYTES``, a workaround for the TPU's memory) is not
+ported: C+D stays fused unless the config says otherwise.
 
 Options: the semistochastic deterministic subspace (``determ_keys``: its
 members are exempt from sampling and their dense H block is applied
 exactly), time reversal (``spin_parity`` +1 / -1: sampled excitations and
 the diagonal fold onto the spin-flip symmetrized basis), a trial vector and
-an initial vector other than HF.  ``fuse_ab=False``, ``fuse_cd=False`` and
-sharding over several devices are not ported and raise.
+an initial vector other than HF.  Sharding over several devices is not
+ported and raises.
 """
 
 from __future__ import annotations
@@ -68,12 +77,8 @@ class FrisysConfig:
     spawn_rows: int = 0     # see power.PowerConfig.spawn_rows
 
     def check_ported(self):
-        for name, bad in (("fuse_ab=False", not self.fuse_ab),
-                          ("fuse_cd=False", not self.fuse_cd),
-                          ("axis_name / n_shards > 1",
-                           self.axis_name or self.n_shards > 1)):
-            if bad:
-                raise NotImplementedError(f"frisys option {name} is not ported")
+        if self.axis_name or self.n_shards > 1:
+            raise NotImplementedError("frisys option axis_name / n_shards > 1 is not ported")
 
     def power(self) -> power.PowerConfig:
         return power.PowerConfig(
@@ -159,28 +164,61 @@ def make_hbpp_spawner(ham: mol.MolecularHamiltonian, tens: hb.HeatBathTensors,
             vals = torch.where(is_determ[:c], 0.0, vals)
         absv = vals.abs()
 
-        # ---- fused level A+B: joint (kind, o1 / allowed-electron rank) ----
-        counts0 = hb.unocc_symm_counts(n_orb, n_elec, symm, symm_counts, occ)
-        _, n_alw0 = hb.sing_allowed(n_orb, n_elec, symm, counts0, occ)
-        probs_b0, o1_norm0 = hb.o1_probs(tens, n_orb, occ)
-        if unnorm:
-            w_doub = torch.where(cols_e[None, :] == 0, 0.0,
-                                 probs_b0 * o1_norm0[:, None]) * (p_doub / tens.s_norm)
+        if cfg.fuse_ab:
+            # ---- fused level A+B: joint (kind, o1 / allowed-electron rank) ----
+            counts0 = hb.unocc_symm_counts(n_orb, n_elec, symm, symm_counts, occ)
+            _, n_alw0 = hb.sing_allowed(n_orb, n_elec, symm, counts0, occ)
+            probs_b0, o1_norm0 = hb.o1_probs(tens, n_orb, occ)
+            if unnorm:
+                w_doub = torch.where(cols_e[None, :] == 0, 0.0,
+                                     probs_b0 * o1_norm0[:, None]) * (p_doub / tens.s_norm)
+            else:
+                w_doub = probs_b0 * p_doub
+            w_sing = torch.where(cols_e[None, :] < n_alw0[:, None],
+                                 (1.0 - p_doub) / n_alw0.clamp_min(1).to(F64)[:, None],
+                                 0.0)
+            val, parent, sub, _, overflow = stage_comp_sub(
+                1, absv, torch.zeros(c, dtype=torch.int64, device=dev),
+                torch.cat([w_doub, w_sing], dim=1), rand, 0)
+            live = parent >= 0
+            det_idx = torch.where(live, parent, 0)
+            is_doub = live & (sub < n_elec)
+            o1_idx = torch.where(is_doub, sub, 0)
+            sing_rank = torch.where(~is_doub & live, sub - n_elec, 0)
         else:
-            w_doub = probs_b0 * p_doub
-        w_sing = torch.where(cols_e[None, :] < n_alw0[:, None],
-                             (1.0 - p_doub) / n_alw0.clamp_min(1).to(F64)[:, None],
-                             0.0)
-        val, parent, sub, _, overflow = stage_comp_sub(
-            1, absv, torch.zeros(c, dtype=torch.int64, device=dev),
-            torch.cat([w_doub, w_sing], dim=1), rand, 0)
-        live = parent >= 0
-        det_idx = torch.where(live, parent, 0)
-        is_doub = live & (sub < n_elec)
-        o1_idx = torch.where(is_doub, sub, 0)
-        sing_rank = torch.where(~is_doub & live, sub - n_elec, 0)
+            # ---- level A: double or single ----
+            w_a = torch.tensor([p_doub, 1.0 - p_doub], dtype=F64, device=dev).expand(c, 2)
+            val, parent, sub, _, overflow = stage_comp_sub(
+                0, absv, torch.zeros(c, dtype=torch.int64, device=dev), w_a, rand, 0)
+            live = parent >= 0
+            det_idx = torch.where(live, parent, 0)
+            is_doub = (sub == 0) & live
 
-        # ---- fused level C+D: joint (o2, u1) over n_elec * n_virt columns --
+            # ---- level B: o1 (doubles) / allowed-electron rank (singles) ----
+            s_occ, _, _ = source(keys, occ, det_idx)
+            counts = hb.unocc_symm_counts(n_orb, n_elec, symm, symm_counts, s_occ)
+            _, n_occ_allowed = hb.sing_allowed(n_orb, n_elec, symm, counts, s_occ)
+            probs_b, o1_norm_frac = hb.o1_probs(tens, n_orb, s_occ)
+            if unnorm:
+                # o2 must lie below o1: drop the first electron, and fold the
+                # normalization fraction into the value
+                w = torch.where(cols_e[None, :] == 0, 0.0, probs_b * o1_norm_frac[:, None])
+                new_norm = w.sum(-1)
+                probs_b = w / new_norm.clamp_min(1e-300)[:, None]
+                val = torch.where(is_doub, val * (new_norm / tens.s_norm), val)
+            ndiv_b = torch.where(is_doub, 0, n_occ_allowed.clamp_min(1))
+            val_b = torch.where(live & (is_doub | (n_occ_allowed > 0)), val, 0.0)
+            val, parent, sub, _, ovf = stage_comp_sub(
+                1, val_b, ndiv_b, torch.where(is_doub[:, None], probs_b, 0.0), rand, n_elec)
+            overflow = overflow | ovf
+            live = parent >= 0
+            pidx = torch.where(live, parent, 0)
+            det_idx = det_idx[pidx]
+            is_doub = is_doub[pidx] & live
+            o1_idx = torch.where(is_doub, sub, 0)
+            sing_rank = torch.where(~is_doub & live, sub, 0)
+
+        # ---- level C (+ D when fused): o2 (and u1) of doubles, virtual of singles ----
         s_occ, s_keys, occ_bits = source(keys, occ, det_idx)
         counts = hb.unocc_symm_counts(n_orb, n_elec, symm, symm_counts, s_occ)
         per_elec, _ = hb.sing_allowed(n_orb, n_elec, symm, counts, s_occ)
@@ -193,41 +231,76 @@ def make_hbpp_spawner(ham: mol.MolecularHamiltonian, tens: hb.HeatBathTensors,
         s_elec = torch.where(s_found, s_elec, 0)
         s_nvirt = _at(per_elec, s_elec)
         sing_ok = ~is_doub & live & s_found & (s_nvirt > 0)
-        o1_orb = _at(s_occ, o1_idx)
-        w_u1, frac_d, _ = hb.u1_probs(tens, n_orb, n_elec, occ_bits, o1_orb)
-        if unnorm:
-            fac_b = w_u1 * frac_d[:, None]
-            kill_b0 = (s_occ // n_orb) == (o1_orb // n_orb)[:, None]
-        else:
-            fac_b = w_u1
-            kill_b0 = None
-        rowsum = probs_c.sum(-1) * fac_b.sum(-1)
-        if kill_b0 is not None:
-            rowsum = rowsum - torch.where(kill_b0, probs_c, 0.0).sum(-1) * fac_b[:, 0]
-        fac_a = torch.where(is_doub[:, None], probs_c, 0.0).to(stage)
-        ndiv_cd = torch.where(is_doub, 0, s_nvirt.clamp_min(1))
-        val_cd = torch.where(is_doub | sing_ok, val, 0.0)
-        val_cd = torch.where(is_doub & (rowsum <= 0), 0.0, val_cd)
-        fac_b = fac_b.to(stage)
-        if cfg.pivotal:
-            joint = fac_a[:, :, None] * fac_b[:, None, :]
+        ndiv_c = torch.where(is_doub, 0, s_nvirt.clamp_min(1))
+        val_c = torch.where(is_doub | sing_ok, val, 0.0)
+        if cfg.fuse_cd:
+            # joint (o2, u1) over n_elec * n_virt columns
+            o1_orb = _at(s_occ, o1_idx)
+            w_u1, frac_d, _ = hb.u1_probs(tens, n_orb, n_elec, occ_bits, o1_orb)
+            if unnorm:
+                fac_b = w_u1 * frac_d[:, None]
+                kill_b0 = (s_occ // n_orb) == (o1_orb // n_orb)[:, None]
+            else:
+                fac_b = w_u1
+                kill_b0 = None
+            rowsum = probs_c.sum(-1) * fac_b.sum(-1)
             if kill_b0 is not None:
-                joint[:, :, 0] = torch.where(kill_b0, 0.0, joint[:, :, 0])
-            val, parent, sub, _, ovf = stage_comp_sub(
-                2, val_cd, ndiv_cd, joint.reshape(-1, n_elec * n_virt), rand,
-                max(n_virt, n_elec * n_virt))
+                rowsum = rowsum - torch.where(kill_b0, probs_c, 0.0).sum(-1) * fac_b[:, 0]
+            fac_a = torch.where(is_doub[:, None], probs_c, 0.0).to(stage)
+            val_c = torch.where(is_doub & (rowsum <= 0), 0.0, val_c)
+            fac_b = fac_b.to(stage)
+            if cfg.pivotal:
+                joint = fac_a[:, :, None] * fac_b[:, None, :]
+                if kill_b0 is not None:
+                    joint[:, :, 0] = torch.where(kill_b0, 0.0, joint[:, :, 0])
+                val, parent, sub, _, ovf = stage_comp_sub(
+                    2, val_c, ndiv_c, joint.reshape(-1, n_elec * n_virt), rand,
+                    max(n_virt, n_elec * n_virt))
+            else:
+                val, parent, sub, _, ovf = compress.comp_sub_factored(
+                    val_c, ndiv_c, fac_a, fac_b, m_samp, rand[2], s_cap,
+                    kill_b0=kill_b0, row_chunk=cd_row_chunk)
+            overflow = overflow | ovf
+            live = parent >= 0
+            pidx = torch.where(live, parent, 0)
+            det_idx, o1_idx, s_elec = det_idx[pidx], o1_idx[pidx], s_elec[pidx]
+            is_doub = is_doub[pidx] & live
+            o2_idx = torch.where(is_doub, sub // n_virt, 0)
+            u1_slot = torch.where(is_doub, sub % n_virt, 0)
+            virt_rank = torch.where(~is_doub & live, sub, 0)
         else:
-            val, parent, sub, _, ovf = compress.comp_sub_factored(
-                val_cd, ndiv_cd, fac_a, fac_b, m_samp, rand[2], s_cap,
-                kill_b0=kill_b0, row_chunk=cd_row_chunk)
-        overflow = overflow | ovf
-        live = parent >= 0
-        pidx = torch.where(live, parent, 0)
-        det_idx, o1_idx, s_elec = det_idx[pidx], o1_idx[pidx], s_elec[pidx]
-        is_doub = is_doub[pidx] & live
-        o2_idx = torch.where(is_doub, sub // n_virt, 0)
-        u1_slot = torch.where(is_doub, sub % n_virt, 0)
-        virt_rank = torch.where(~is_doub & live, sub, 0)
+            val_c = torch.where(is_doub & (probs_c.sum(-1) <= 0), 0.0, val_c)
+            w_c = torch.where(is_doub[:, None] & (probs_c > 0), probs_c, 0.0)
+            val, parent, sub, _, ovf = stage_comp_sub(2, val_c, ndiv_c, w_c, rand, n_virt)
+            overflow = overflow | ovf
+            live = parent >= 0
+            pidx = torch.where(live, parent, 0)
+            det_idx, o1_idx, s_elec = det_idx[pidx], o1_idx[pidx], s_elec[pidx]
+            is_doub = is_doub[pidx] & live
+            o2_idx = torch.where(is_doub, sub, 0)
+            virt_rank = torch.where(~is_doub & live, sub, 0)
+
+            # ---- level D: u1 (doubles) ----
+            s_occ, _, occ_bits = source(keys, occ, det_idx)
+            o1_orb = _at(s_occ, o1_idx)
+            if unnorm:
+                same_oo = (o1_orb // n_orb) == (_at(s_occ, o2_idx) // n_orb)
+                probs_d, u1_frac, _ = hb.u1_probs(tens, n_orb, n_elec, occ_bits, o1_orb,
+                                                  exclude_first=same_oo)
+                val = torch.where(is_doub, val * u1_frac, val)
+            else:
+                probs_d, _, _ = hb.u1_probs(tens, n_orb, n_elec, occ_bits, o1_orb)
+            val_d = torch.where(is_doub & (probs_d.sum(-1) <= 0), 0.0, val)
+            w_d = torch.where(is_doub[:, None] & (probs_d > 0), probs_d, 0.0)
+            val, parent, sub, _, ovf = stage_comp_sub(
+                3, val_d, torch.where(is_doub, 0, 1), w_d, rand, 1)
+            overflow = overflow | ovf
+            live = parent >= 0
+            pidx = torch.where(live, parent, 0)
+            det_idx, o1_idx, o2_idx = det_idx[pidx], o1_idx[pidx], o2_idx[pidx]
+            s_elec, virt_rank = s_elec[pidx], virt_rank[pidx]
+            is_doub = is_doub[pidx] & live
+            u1_slot = torch.where(is_doub, sub, 0)
 
         # ---- level E: u2 (doubles) ----
         def first_virtual(s_occ, occ_bits, o1_idx, u1_slot):

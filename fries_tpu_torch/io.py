@@ -5,7 +5,10 @@ Counterpart of the FCIDUMP, vector-reader and npy parts of
 records filled over all 8 symmetry images, MOLPRO -> XOR-group irrep
 conversion (``convert_symm``); determinant / value text files and Dice
 output (the subspace trial vectors); the Hubbard-Holstein parameter file
-(``parse_hh_input``); and ``npy_append`` for the h/d matrix trajectories.  Everything is parsed with numpy alone.  Determinants come
+(``parse_hh_input``); the HF input directory (``parse_hf_input`` /
+``write_hf_dir``); whole-file and last-line numeric readers (``load_rdm``,
+``load_last_line``); and ``npy_append`` for the h/d matrix trajectories.
+Everything is parsed with numpy alone.  Determinants come
 back as (N, W) uint32 words, as the reference returns them.
 """
 
@@ -148,6 +151,51 @@ def write_fcidump(ham: mol.MolecularHamiltonian, path, point_group: str = "C1",
 
 
 # ---------------------------------------------------------------------------
+# HF-directory input
+# ---------------------------------------------------------------------------
+
+def parse_hf_input(hf_dir, device=None):
+    """Parse an HF input directory: sys_params.txt (keyed n_elec, n_frozen,
+    n_orb, eps, hf_energy), symm.txt, hcore.txt and eris.txt (the dense
+    physicist-notation n^4 CSV), frozen orbitals included.  Returns
+    (MolecularHamiltonian, {"eps", "hf_energy", "n_frozen"})."""
+    hf_dir = Path(hf_dir)
+    p = _read_keyed_params(hf_dir / "sys_params.txt",
+                           ["n_elec", "n_frozen", "n_orb", "eps", "hf_energy"])
+    n_elec, n_frz, n_orb = int(p["n_elec"]), int(p["n_frozen"]), int(p["n_orb"])
+    tot = n_orb + n_frz // 2
+    # trailing commas ("0,\n") are allowed: parse token by token
+    symm = np.asarray((hf_dir / "symm.txt").read_text().replace(",", " ").split(), np.int64)
+    hcore = np.genfromtxt(hf_dir / "hcore.txt", delimiter=",").reshape(-1)[:tot * tot]
+    eris = np.genfromtxt(hf_dir / "eris.txt", delimiter=",").reshape(-1)[:tot**4]
+    ham = mol.MolecularHamiltonian(
+        hcore=torch.as_tensor(hcore.reshape(tot, tot), device=device),
+        eris=torch.as_tensor(eris.reshape((tot,) * 4), device=device),
+        symm=torch.as_tensor(symm[n_frz // 2:], device=device),
+        n_orb=n_orb, n_elec=n_elec - n_frz, n_frozen=n_frz)
+    return ham, {"eps": float(p["eps"]), "hf_energy": float(p["hf_energy"]),
+                 "n_frozen": n_frz}
+
+
+def write_hf_dir(ham: mol.MolecularHamiltonian, hf_dir, eps: float, hf_energy: float):
+    """Write an HF input directory that :func:`parse_hf_input` reads back
+    (symm.txt covers every orbital, frozen ones with irrep 0; ``hf_energy``
+    is the electronic HF energy)."""
+    hf_dir = Path(hf_dir)
+    hf_dir.mkdir(parents=True, exist_ok=True)
+    tot, n_frz = ham.tot_orb, ham.n_frozen
+    (hf_dir / "sys_params.txt").write_text(
+        f"n_elec\n{ham.n_elec + n_frz}\nn_frozen\n{n_frz}\n"
+        f"n_orb\n{ham.n_orb}\neps\n{eps}\nhf_energy\n{hf_energy:.10f}\n")
+    symm_full = np.zeros(tot, np.int64)
+    symm_full[n_frz // 2:] = ham.symm.cpu().numpy()
+    np.savetxt(hf_dir / "symm.txt", symm_full, fmt="%d")
+    np.savetxt(hf_dir / "hcore.txt", ham.hcore.cpu().numpy(), delimiter=",")
+    np.savetxt(hf_dir / "eris.txt", ham.eris.cpu().numpy().reshape(tot * tot, tot * tot),
+               delimiter=",")
+
+
+# ---------------------------------------------------------------------------
 # vector files
 # ---------------------------------------------------------------------------
 
@@ -247,6 +295,18 @@ def load_vec_dice(path, n_orb, n_bits, state: int = 0):
         vals.append(val)
     return (np.asarray(keys, np.uint32).reshape(-1, n_words),
             np.asarray(vals, np.float64))
+
+
+def load_rdm(path):
+    """Every whitespace-separated number of a file as a flat f64 array."""
+    return np.asarray(Path(path).read_text().split(), np.float64)
+
+
+def load_last_line(path):
+    """The last nonblank line of a comma-separated stream as f64 values
+    (empty when the file has none)."""
+    lines = [l for l in Path(path).read_text().splitlines() if l.strip()]
+    return np.asarray(lines[-1].split(",") if lines else [], np.float64)
 
 
 # ---------------------------------------------------------------------------

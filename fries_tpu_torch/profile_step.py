@@ -7,9 +7,12 @@ bench.py's exact-H configuration, ``--dedup_cap N`` for its dedup variant;
 ``--workload subsp``, bench.py's subspace configuration, and its modes
 ``subsp_lowmem``, ``subsp_multi`` and ``subspfull`` (exact H); ``--workload
 fciqmc``, bench.py's 5M-walker FCIQMC configuration; ``--workload
-frimulti``; or the Hubbard-Holstein ``frifull_hh`` and ``frisys_hh``), runs
+frimulti``; the Hubbard-Holstein ``frifull_hh`` and ``frisys_hh``; the
+observable estimators ``observables`` and ``obs_repl``; or ``unfused``, the
+rung with its five comp_sub rounds), runs
 warm-up steps (frifull, subspfull and frisys_hh: until the vectors hold
-their budgets of nonzeros; fciqmc: bench.py's 60), then
+their budgets of nonzeros; fciqmc: bench.py's 60; the observables: the
+6 of their burn-in), then
 
 * counts the host synchronizations of one step (``torch.cuda`` sync debug
   mode, one warning per synchronizing call),
@@ -23,7 +26,8 @@ their budgets of nonzeros; fciqmc: bench.py's 60), then
   binomial rounding, the spawn compaction, death, the estimator; for the
   Hubbard-Holstein paths ``offdiag_batch`` and frisys_hh's level 1, level
   2 and finalize; for the subspace modes the lowmem h rows and
-  ``multi_comp``), the
+  ``multi_comp``; for the observables ``one_elec``, the exact spawn and the
+  merges), the
   device time inside each pair of nested phases (``"C+D & threshold
   fixpoint"``: the fixpoint rounds of the C+D stage), the top kernels, the
   device's busy time and its idle share of the traced span (from the chrome
@@ -70,7 +74,7 @@ def install_labels():
     """Wrap the phases in profiler ranges (module attributes are looked up at
     call time, so the step picks the wrappers up); returns the labels."""
     from fries_tpu_torch import compress
-    from fries_tpu_torch.drivers import fciqmc, frimulti, frisys, frisys_hh, subspace
+    from fries_tpu_torch.drivers import fciqmc, frimulti, frisys, frisys_hh, observables, subspace
     from fries_tpu_torch.ops import heat_bath, hubbard, molecule, near_uniform
     from fries_tpu_torch.runtime import arena, emit, merge, merge_multi
 
@@ -113,7 +117,8 @@ def install_labels():
         (frisys_hh, "level_two", "frisys_hh level 2"),
         (frisys_hh, "finalize", "frisys_hh finalize"),
         (subspace, "lowmem_h_mat", "lowmem h_row"),
-        (compress, "multi_comp", "multi_comp"))
+        (compress, "multi_comp", "multi_comp"),
+        (observables, "apply_one_elec", "one_elec"))
     phases = [(mod, name, label) for mod, name, label in phases if hasattr(mod, name)]
     for mod, name, label in phases:
         setattr(mod, name, _labelled(label, getattr(mod, name)))
@@ -180,7 +185,8 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--workload", choices=[
         "frisys", "semistoch", "frifull", "subsp", "subsp_lowmem", "subsp_multi", "subspfull",
-        "fciqmc", "frimulti", "frifull_hh", "frisys_hh"], default="frisys")
+        "fciqmc", "frimulti", "frifull_hh", "frisys_hh", "observables", "obs_repl",
+        "unfused"], default="frisys")
     parser.add_argument("--dedup_cap", type=int, default=0,
                         help="frifull: collapse each chunk's stream to this many rows")
     parser.add_argument("--steps", type=int, default=3)
@@ -213,8 +219,13 @@ def main(argv=None):
         step, state, est, _ = rung.build_frifull_hh(dev)
     elif args.workload == "frisys_hh":
         step, state, est, _ = rung.build_frisys_hh(dev)
+    elif args.workload == "unfused":
+        step, state, est, _ = rung.build(dev, fuse_ab=False, fuse_cd=False)
     elif args.workload == "subspfull":
         step, state, _ = rung.build_subspfull(dev)
+        est = ()
+    elif args.workload in ("observables", "obs_repl"):
+        step, state, _ = rung.build_observables(dev, replica=args.workload == "obs_repl")
         est = ()
     else:
         modes = {"subsp": {}, "subsp_lowmem": {"lowmem": True},
@@ -228,6 +239,10 @@ def main(argv=None):
     for i in range(60):
         state, m = step(state, *est)
         if args.workload == "fciqmc":
+            continue
+        if args.workload in ("observables", "obs_repl"):
+            if i >= 5:   # the burn-in: the next step starts a period
+                break
             continue
         if args.workload == "subspfull":
             full = bool(((state.arena.vals != 0).sum(1)

@@ -73,6 +73,18 @@
   30,000 per vector, capacity 2^18, 1024 rows per spawn-and-merge chunk,
   restart_int 10, pivotal vector compression.
 
+* ``observables`` and ``obs_repl``: the Rayleigh and the replica
+  estimator on the frifull system (14 orbitals, 6 electrons, 132,496
+  determinants) at frifull's widths: eps 0.005, target_nonz 30,000,
+  capacity 2^18 (the whole space fits: no overflow), 1024 source rows per
+  exact spawn-and-merge chunk, O = the spin-summed HOMO -> LUMO excitation
+  (obs_des 2, obs_cre 3), exponent 0.5; the schedule is cut to burn_in 6,
+  n_obs 3, btw_obs 3 (the CLI's 1000 / 100 / 100), so that 6 warm-up and 6
+  timed steps hold a period start, a weighted period and a free period.
+  The reference has no bench.py configuration of these workloads.
+* ``unfused``: the 1e6 rung with ``fuse_ab=False, fuse_cd=False`` (five
+  comp_sub rounds, A to E, per step).
+
 ``chip_smoke.py`` times them and :mod:`fries_tpu_torch.profile_step`
 profiles them.
 """
@@ -84,7 +96,7 @@ import torch
 
 from fries_tpu_torch import dets, synth
 from fries_tpu_torch.drivers import (fciqmc, frifull, frifull_hh, frimulti, frisys,
-                                     frisys_hh, power, subspace)
+                                     frisys_hh, observables, power, subspace)
 from fries_tpu_torch.ops import hubbard
 from fries_tpu_torch.ops import molecule as mol
 
@@ -96,10 +108,12 @@ N_DETERM = 150
 DETERM_MAX_SHARE = 0.7   # of matr_samp, for the dense block's elements
 
 
-def config() -> frisys.FrisysConfig:
+def config(**stages) -> frisys.FrisysConfig:
+    """The 1e6 rung; ``stages`` sets ``fuse_ab`` / ``fuse_cd`` (the
+    ``unfused`` configuration turns both off)."""
     return frisys.FrisysConfig(eps=EPS, vec_nonz=N_SAMP, matr_samp=N_SAMP,
                                capacity=CAPACITY, spawn_cap=SPAWN_CAP,
-                               target_norm=2.0 * N_SAMP)
+                               target_norm=2.0 * N_SAMP, **stages)
 
 
 def estimator_args(aux):
@@ -107,12 +121,12 @@ def estimator_args(aux):
             aux["ref_key"])
 
 
-def build(device, seed: int = 0):
-    """The rung's workload on ``device``.  Returns (step, state, est, aux):
-    ``step(state, *est)`` advances one iteration, and ``aux`` is
-    :func:`fries_tpu_torch.drivers.frisys.build`'s."""
+def build(device, seed: int = 0, **stages):
+    """The rung's workload on ``device`` (``stages``: :func:`config`).
+    Returns (step, state, est, aux): ``step(state, *est)`` advances one
+    iteration, and ``aux`` is :func:`fries_tpu_torch.drivers.frisys.build`'s."""
     ham = synth.n2_ccpvdz_like(seed=1, device=device)
-    step, _, state, aux = frisys.build(ham, config(), seed=seed)
+    step, _, state, aux = frisys.build(ham, config(**stages), seed=seed)
     return step, state, estimator_args(aux), aux
 
 
@@ -165,6 +179,25 @@ def build_frifull(device, dedup_cap: int = 0, seed: int = 0):
     tmpl = mol.ExcitationTemplate.build(ham.n_orb, ham.n_elec)
     aux["n_excitations"] = tmpl.n_doub + tmpl.n_sing
     return step, state, estimator_args(aux), aux
+
+
+def observables_config(replica: bool = False) -> observables.ObservablesConfig:
+    return observables.ObservablesConfig(eps=0.005, target_nonz=30_000, capacity=1 << 18,
+                                         obs_des=2, obs_cre=3, exponent=0.5, burn_in=6,
+                                         n_obs=3, btw_obs=3, replica=replica, batch=1024)
+
+
+def build_observables(device, replica: bool = False, seed: int = 0):
+    """The ``observables`` (or with ``replica`` the ``obs_repl``)
+    configuration on ``device``.  Returns (step, state, aux): ``step(state)``
+    advances one iteration; ``aux["n_excitations"]`` is the template's
+    candidates per determinant (a chunk's merge sees ``batch *
+    n_excitations`` spawns)."""
+    ham = frifull_system(device)
+    step, _, state, aux = observables.build(ham, observables_config(replica), seed=seed)
+    tmpl = mol.ExcitationTemplate.build(ham.n_orb, ham.n_elec)
+    aux["n_excitations"] = tmpl.n_doub + tmpl.n_sing
+    return step, state, aux
 
 
 def subspace_config(**modes) -> subspace.SubspaceConfig:

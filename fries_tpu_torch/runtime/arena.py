@@ -111,6 +111,24 @@ def n_nonzero(arena: Arena, row: int = 0) -> torch.Tensor:
     return ((arena.vals[row] != 0) & arena.valid).sum()
 
 
+def one_norm(arena: Arena, row: int = 0) -> torch.Tensor:
+    """Sum of |value| over one value row (empty slots hold 0)."""
+    return arena.vals[row].abs().sum()
+
+
+def grow(arena: Arena, new_capacity: int) -> Arena:
+    """The arena with ``new_capacity`` slots: sentinel keys and zero values
+    appended (the sorted prefix is unchanged); a smaller capacity returns
+    the arena as it is."""
+    extra = new_capacity - arena.capacity
+    if extra <= 0:
+        return arena
+    return Arena(
+        keys=torch.cat([arena.keys, dets.invalid_det(arena.n_words, arena.device).repeat(extra, 1)]),
+        vals=torch.cat([arena.vals, arena.vals.new_zeros((arena.n_vecs, extra))], dim=1),
+        n_used=arena.n_used)
+
+
 def set_row(arena: Arena, row: int, values: torch.Tensor) -> Arena:
     vals = arena.vals.clone()
     vals[row] = values

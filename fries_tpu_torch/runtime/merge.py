@@ -26,8 +26,13 @@ this (it zeroes the dest row first).  Without a keep mask nothing is
 required: every valid row survives, the dest row passes through whatever it
 holds and the sums add to it, as the chunked exact-H step needs, whose dest
 row carries the earlier chunks' sums; rows an earlier chunk inserted have
-origin value 0, so a non-initiator spawn onto them does not count.  Layouts:
-(n_vecs, origin, dest) in {(1, 0, 0), (2, 0, 1)}.
+origin value 0, so a non-initiator spawn onto them does not count.  Layouts
+(n_vecs, origin, dest): without a keep mask any 1 <= n_vecs <=
+:data:`fries_tpu_torch.runtime.merge_multi.MAX_ROWS` with 0 <= origin, dest <
+n_vecs, origin == dest included (the observables' four-row arena merges at
+(4, s, s) and (4, s, 3)); the rows other than dest pass through.  With a
+keep mask only (1, 0, 0) and (2, 0, 1), the layouts the fused-compaction
+condition above is shown for.
 
 On the card the spawn keys are packed and sorted with ``torch.sort``
 (:func:`sort_spawns`); everything else is the kernel entry, four device
@@ -133,10 +138,18 @@ def launch(kernel, entry, arena, spawn_keys, spawn_vals, spawn_ini, n_chan,
 def _accumulate_cuda(arena, spawn_keys, spawn_vals, spawn_ini, origin_row,
                      dest_row, keep_mask):
     global LAUNCHES
-    layout = (arena.n_vecs, origin_row, dest_row)
-    if layout not in ((1, 0, 0), (2, 0, 1)):
+    from fries_tpu_torch.runtime.merge_multi import MAX_ROWS
+
+    n_vecs = arena.n_vecs
+    layout = (n_vecs, origin_row, dest_row)
+    if keep_mask is not None and layout not in ((1, 0, 0), (2, 0, 1)):
         raise NotImplementedError(
-            f"merge kernel takes (n_vecs, origin, dest) in (1,0,0)|(2,0,1), got {layout}")
+            f"merge kernel with a keep mask takes (n_vecs, origin, dest) in "
+            f"(1,0,0)|(2,0,1), got {layout}")
+    if not (1 <= n_vecs <= MAX_ROWS and 0 <= origin_row < n_vecs and 0 <= dest_row < n_vecs):
+        raise NotImplementedError(
+            f"merge kernel takes 1 <= n_vecs <= {MAX_ROWS} and origin, dest rows "
+            f"in [0, n_vecs), got {layout}")
     if keep_mask is not None:
         keep_mask = keep_mask.contiguous()
         _build.check_tensor("merge", "keep mask", keep_mask, torch.bool, (arena.capacity,))

@@ -126,7 +126,7 @@ def test_cli_frifull_hh(tmp_path):
             with pytest.raises(SystemExit, match="no CUDA device"):
                 cli.main(base + ["--result_dir", str(tmp_path / "cuda")] + extra)
     with pytest.raises(NotImplementedError):
-        cli.main(base + ["--device", "cpu", "--load_dir", str(tmp_path)])
+        cli.main(base + ["--device", "cpu", "--n_chips", "2"])
 
 
 def test_cli_frifull_hh_pure_hubbard(tmp_path):

@@ -222,9 +222,8 @@ def test_frisys_energy_matches_dense_fci():
 def test_unported_options_raise():
     j, t = system()
     base = dict(eps=0.02, vec_nonz=60, matr_samp=150, capacity=64, spawn_cap=200)
-    for opt in (dict(fuse_ab=False), dict(fuse_cd=False), dict(axis_name="x", n_shards=2)):
-        with pytest.raises(NotImplementedError):
-            tfs.build(t, tfs.FrisysConfig(**base, **opt), seed=0)
+    with pytest.raises(NotImplementedError):
+        tfs.build(t, tfs.FrisysConfig(**base, axis_name="x", n_shards=2), seed=0)
     with pytest.raises(ValueError, match="matr_samp"):   # the dense block eats the budget
         tfs.build(t, tfs.FrisysConfig(**dict(base, matr_samp=20)), seed=0,
                   determ_keys=td.hf_det(8, 4)[None].numpy())
@@ -280,12 +279,10 @@ def test_cli_frisys_mol(tmp_path):
         assert np.loadtxt(out / name).shape == (30,), name
     assert (out / "params.txt").exists()
     assert len((out / "arena_occ.txt").read_text().splitlines()) == 3
-    with pytest.raises(SystemExit, match="not ported yet"):
-        cli.main(["observables_mol", "--max_dets", "10"])
     with pytest.raises(NotImplementedError):
         cli.main(["frisys_mol", "--fcidump_path", str(fcidump), "--epsilon", "0.02",
                   "--vec_nonz", "40", "--mat_nonz", "100", "--max_dets", "256",
-                  "--load_dir", str(tmp_path)])
+                  "--n_chips", "2"])
 
 
 def test_rung_is_bench_ladder_1e6():

@@ -15,7 +15,7 @@ torch.set_num_threads(1)
 
 from fries_tpu_torch import _build, compress, dets, probe_reshape, rng as trng, rung, synth  # noqa: E402
 from fries_tpu_torch.drivers import (fciqmc, frifull, frifull_hh, frimulti, frisys,  # noqa: E402
-                                     frisys_hh, power, subspace)
+                                     frisys_hh, observables, power, subspace)
 from fries_tpu_torch.ops import hubbard, molecule as mol  # noqa: E402
 from fries_tpu_torch.runtime import arena as ar  # noqa: E402
 from fries_tpu_torch.runtime import emit, merge, merge_multi  # noqa: E402
@@ -932,3 +932,122 @@ def test_subspace_mode_step_cuda_matches_cpu(cuda, mode):
         merges += int(mc.get("n_merges", 1))
     assert merge_multi.LAUNCHES - c0 == merges
     assert merges >= (12 if mode == "exact_h" else 4)
+
+
+# ---------------------------------------------------------------------------
+# kernel A in general layouts (the observables' four-row merges), kernel B at
+# the unfused frisys levels, and the two paths' steps on the card
+# ---------------------------------------------------------------------------
+
+GENERAL_LAYOUTS = [(4, 0, 0), (4, 0, 3), (4, 1, 1), (4, 1, 3), (3, 2, 0), (1, 0, 0),
+                   (2, 1, 1), (32, 31, 5), (32, 7, 7)]
+
+
+@pytest.mark.parametrize("sentinel_frac", [0.1, 0.9])
+@pytest.mark.parametrize("n_words", [1, 2])
+@pytest.mark.parametrize("layout", GENERAL_LAYOUTS)
+def test_merge_general_layouts(cuda, layout, n_words, sentinel_frac):
+    """Kernel A without a keep mask at (n_vecs, origin, dest), origin ==
+    dest included, every row holding values (zeros in the origin row among
+    them), mixed initiator flags, against its plain version."""
+    n_vecs, origin, dest = layout
+    rng = np.random.default_rng(1000 + 31 * n_vecs + 7 * origin + dest + n_words)
+    a, sk, sv, si = merge_case(rng, n_words, 2048, 700, 5000, 1500,
+                               invalid_frac=sentinel_frac)
+    n = int(a.n_used[0])
+    vals = rng.standard_normal((n_vecs, a.capacity))
+    vals[rng.random(vals.shape) < 0.3] = 0.0
+    vals[:, n:] = 0.0
+    a = ar.Arena(keys=a.keys, vals=torch.as_tensor(vals), n_used=a.n_used)
+    ref, rstats = merge.accumulate_plain(a, sk, sv, si, origin, dest)
+    before = merge.LAUNCHES
+    got, gstats = merge.accumulate(to_dev(a, cuda), sk.to(cuda), sv.to(cuda), si.to(cuda),
+                                   origin, dest)
+    torch.cuda.synchronize()
+    assert merge.LAUNCHES == before + 1
+    assert_merge_equal(got, gstats, ref, rstats)
+    others = [r for r in range(n_vecs) if r != dest]
+    assert torch.equal(got.vals[others].cpu(), ref.vals[others])
+
+
+def test_merge_refuses_layouts_outside_its_contract(cuda):
+    """A keep mask outside (1, 0, 0) and (2, 0, 1), a row outside the arena,
+    or more than 32 value rows: refused before any launch."""
+    a4 = to_dev(ar.make(64, 2, 4), cuda)
+    keys = a4.keys[:4]
+    vals = torch.zeros(4, dtype=torch.float64, device=cuda)
+    ini = torch.ones(4, dtype=torch.bool, device=cuda)
+    keep = torch.ones(64, dtype=torch.bool, device=cuda)
+    before = merge.LAUNCHES
+    for origin, dest, mask in ((0, 3, keep), (0, 0, keep), (1, 1, keep), (0, 4, None),
+                               (4, 0, None), (-1, 0, None)):
+        with pytest.raises(NotImplementedError):
+            merge.accumulate(a4, keys, vals, ini, origin, dest, keep_mask=mask)
+    a33 = to_dev(ar.make(64, 2, 33), cuda)
+    with pytest.raises(NotImplementedError):
+        merge.accumulate(a33, keys, vals, ini, 0, 0)
+    assert merge.LAUNCHES == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("k,uniform_frac", [(2, 0.0), (14, 0.4), (21, 0.3), (14, 0.0)])
+def test_emit_unfused_levels(cuda, dtype, k, uniform_frac):
+    """Kernel B at the widths of the unfused frisys levels on the rung's
+    system (28 orbitals, 14 electrons): level A's K = 2 rows, levels B and C's
+    K = n_elec = 14 rows with uniform (single) parents, level D's K = n_virt
+    = 21 rows."""
+    rng = np.random.default_rng(50 + k)
+    plan = emission_case(rng, 20000, k, 15000, 20480, uniform_frac, dtype)
+    ref = emit.emit(**plan)
+    before = emit.LAUNCHES
+    got = emit.emit(**{key: v.to(cuda) if isinstance(v, torch.Tensor) else v
+                       for key, v in plan.items()})
+    torch.cuda.synchronize()
+    assert emit.LAUNCHES == before + 1
+    assert_emission_close(plan, got, ref)
+
+
+@pytest.mark.parametrize("stages", [dict(fuse_ab=False), dict(fuse_cd=False),
+                                    dict(fuse_ab=False, fuse_cd=False)])
+def test_frisys_unfused_step_cuda_matches_cpu(cuda, stages):
+    """The unfused stages' steps on the card against the CPU: one kernel B
+    launch per comp_sub round (4 with one stage unfused, 5 with both)."""
+    cfg = frisys.FrisysConfig(eps=0.02, vec_nonz=60, matr_samp=150, capacity=256,
+                              spawn_cap=200, target_norm=200.0, shift_interval=2, **stages)
+    built = {dev: frisys.build(synth.make_system(8, 4, symm=SYMM8, seed=3, device=dev), cfg,
+                               seed=4)
+             for dev in ("cpu", cuda)}
+    m0, e0 = merge.LAUNCHES, emit.LAUNCHES
+    card_steps_match_cpu(cuda, built, 20, 4)
+    assert merge.LAUNCHES - m0 == 4 and emit.LAUNCHES - e0 == 4 * (3 + len(stages))
+
+
+@pytest.mark.parametrize("target_nonz", [256, 30])
+@pytest.mark.parametrize("replica", [False, True])
+def test_observables_step_cuda_matches_cpu(cuda, replica, target_nonz):
+    """Observable steps on the card against the CPU from one state, one key
+    tree (the same bits on both devices): keys exact, values and estimators
+    within rtol 1e-10; every merge a kernel A launch, none plain."""
+    cfg = observables.ObservablesConfig(eps=0.05, target_nonz=target_nonz, capacity=1024,
+                                        obs_des=1, obs_cre=3, burn_in=2, n_obs=2, btw_obs=2,
+                                        replica=replica, batch=16)
+    built = {dev: observables.build(synth.make_system(8, 4, symm=SYMM8, seed=3, device=dev),
+                                    cfg, seed=4)
+             for dev in ("cpu", cuda)}
+    step_c, _, state_c, _ = built["cpu"]
+    step_g, _, state_g, _ = built[cuda]
+    m0, merges = merge.LAUNCHES, 0
+    for _ in range(10):
+        state_c, mc = step_c(state_c)
+        state_g, mg = step_g(state_g)
+        np.testing.assert_array_equal(state_g.arena.keys.cpu().numpy(),
+                                      state_c.arena.keys.numpy())
+        np.testing.assert_allclose(state_g.arena.vals.cpu().numpy(),
+                                   state_c.arena.vals.numpy(), rtol=1e-10, atol=1e-13)
+        for key in mc:
+            np.testing.assert_allclose(float(mg[key]), float(mc[key]), rtol=1e-10,
+                                       atol=1e-13, err_msg=key)
+        assert not bool(mc["overflow"])
+        merges += int(mc["n_merges"])
+    assert merge.LAUNCHES - m0 == merges and merges > 20
+    assert float(mc["obs_num"]) != 0.0

@@ -267,13 +267,8 @@ def test_unported_options_raise(tmp_path):
     args = ["--fcidump_path", str(fcidump), "--epsilon", "0.02", "--vec_nonz", "40",
             "--mat_nonz", "100", "--max_dets", "64", "--num_trial", "1",
             "--trial_vecs", str(tmp_path / "trial"), "--device", "cpu"]
-    for cmd in ("observables_mol", "obs_repl_mol", "dice_dots"):
-        with pytest.raises(SystemExit, match="not ported yet"):
-            cli.main([cmd] + args)
-    for extra in (["--load_dir", str(tmp_path)], ["--hf_path", str(tmp_path)],
-                  ["--n_chips", "2"]):
-        with pytest.raises(NotImplementedError):
-            cli.main(["subsp_mol"] + args + extra)
+    with pytest.raises(NotImplementedError):
+        cli.main(["subsp_mol"] + args + ["--n_chips", "2"])
 
 
 def test_convert_subspace_state():
