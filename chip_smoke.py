@@ -28,6 +28,13 @@ Phases, in order; any failure exits non-zero:
    path's shapes (C = 2^20 arena rows, R = 2 value rows, S = 600,000
    spawns) and with 200,000 of them on one key, at R = 14, and in the
    empty-spawn, empty-arena and overflow cases;
+5b. kernels A and C on 128-bit keys (W = 3 and 4 words) against their
+   plain versions: made-up streams at ``ne_qz``'s shapes (kernel A: C =
+   2^20, S = 532,768, layouts (2, 0, 1) with a keep mask and (1, 0, 0)) and
+   ``ne_qz_subsp``'s (kernel C: C = 2^20, R = 2, S = 600,000), each also
+   with 200,000 spawns on one key and with 90% sentinel rows, over keys
+   that differ only in the low word or only above the 64-bit boundary; and
+   the overflow, empty-arena and empty-spawn cases;
 6. kernel #6 (the probe relayout, ``fries_tpu_torch.probe_reshape``)
    against its plain version on a random tile, then its entry point
    (``probe_reshape.main``, the port of ``tools/probe_reshape.py``) with its
@@ -107,6 +114,17 @@ Phases, in order; any failure exits non-zero:
 17. checkpoint and resume through the command line's entry point on the
    card: frisys_mol, fciqmc_mol and subsp_mol, 6 iterations then 6 more
    with ``--load_dir`` against a straight 12, stream for stream exactly;
+17b. the four-word paths: a small four-word frisys step (50 orbitals) and
+   subspace step (across a restart), card against CPU from one state; then
+   ``ne_qz`` (``rung.ne_qz_config``: the Ne/cc-pVQZ-shaped system, 54
+   orbitals, 8 electrons, bench.py's 500k rung; 2 warm-up + 5 timed steps,
+   exactly 1 kernel A and 3 kernel B launches per step asserted; ms/step,
+   nonzeros/s, peak memory) and a real step's merge input through kernel A
+   and its plain version, its unnormalized run (2 + 2 steps, the same
+   launches asserted), and ``ne_qz_subsp`` (bench.py's subsp configuration
+   on that system; 2 + 5 iterations, 1 kernel C launch per iteration
+   asserted) and a real iteration's merge input through kernel C and its
+   plain version;
 18. the timings: each kernel's wrapper and its plain version on the inputs of
    its check at the main path's shapes (the same seeds), last, since the
    profiler that reads device times slows every later launch of the process.
@@ -132,10 +150,12 @@ those tensors), the semistochastic merge, FCIQMC's merge (``fciqmc``:
 phase 11's real input) and the Hubbard-Holstein paths' real merges
 (``frifull_hh``, ``frisys_hh``) and the observables' real merges
 (``observables (4, 0, 0)``, ``observables (4, 0, 3)``, ``obs_repl (4, 1,
-1)``, ``obs_repl (4, 1, 3)``).  Kernel B's ``shapes`` add frisys_hh's two
+1)``, ``obs_repl (4, 1, 3)``) and ``ne_qz``'s real four-word merge
+(``ne_qz (W=4)``).  Kernel B's ``shapes`` add frisys_hh's two
 levels (``hh level 1``, ``hh level 2``) and the unfused rung's five
 (``unfused A`` to ``unfused E``), none in its entry's sums; kernel C's the
-subspfull chunk (``subspfull_chunk``).  ``launches`` sums a kernel's
+subspfull chunk (``subspfull_chunk``) and ``ne_qz_subsp``'s real
+four-word merge (``ne_qz_subsp (W=4)``).  ``launches`` sums a kernel's
 launches over the timed steps of every path (``launches_by_path`` breaks
 them down).
 Usage: ``python3 chip_smoke.py``.
@@ -257,20 +277,45 @@ def phase_probe_copy(dev):
 # kernel A
 # ---------------------------------------------------------------------------
 
+def wide_universe(gen, dev, n, n_words):
+    """About ``n`` distinct rows of ``n_words`` > 2 words (the last below
+    2^24): random rows and as many copies of them with one word redrawn, so
+    that many pairs differ in one word only, the low word or one above the
+    64-bit boundary; in the arena's order."""
+    import torch
+    from fries_tpu_torch import dets
+
+    half = n // 2
+    base = torch.randint(0, 1 << 32, (half, n_words), generator=gen, device=dev)
+    base[:, -1] &= (1 << 24) - 1
+    variant = base.clone()
+    word = torch.randint(0, n_words, (half,), generator=gen, device=dev)
+    variant[torch.arange(half, device=dev), word] = torch.randint(
+        0, 1 << 24, (half,), generator=gen, device=dev)
+    uni = torch.cat([base, variant])
+    uni = uni[dets.sort_dets(uni)]
+    first = torch.ones(uni.shape[0], dtype=torch.bool, device=dev)
+    first[1:] = (uni[1:] != uni[:-1]).any(-1)
+    return uni[first]
+
+
 def merge_inputs(gen, dev, capacity, n_occ, n_spawn, n_universe, n_words=2,
                  ini_frac=0.6, invalid_frac=0.1, keep_frac=0.05, n_vecs=2):
     import torch
     from fries_tpu_torch import dets
     from fries_tpu_torch.runtime import arena as ar
 
-    bits = 32 * n_words - 8
-    uni = torch.unique(torch.randint(0, 1 << bits, (n_universe,), generator=gen,
-                                     device=dev))
-    uni = dets.unpack_key(uni ^ dets.INT64_MIN, n_words) if n_words == 2 else \
-        (uni & dets.WORD_MASK)[:, None]
+    if n_words > 2:
+        uni = wide_universe(gen, dev, n_universe, n_words)
+    else:
+        bits = 32 * n_words - 8
+        uni = torch.unique(torch.randint(0, 1 << bits, (n_universe,), generator=gen,
+                                         device=dev))
+        uni = dets.unpack_key(uni ^ dets.INT64_MIN, n_words) if n_words == 2 else \
+            (uni & dets.WORD_MASK)[:, None]
     pick = torch.randperm(uni.shape[0], generator=gen, device=dev)[:n_occ]
     occ = uni[torch.sort(pick).values]
-    occ = occ[torch.sort(dets.pack_key(occ), stable=True).indices]
+    occ = occ[dets.sort_dets(occ)]
     a = ar.make(capacity, n_words, n_vecs, device=dev)
     a.keys[: occ.shape[0]] = occ
     v = torch.randn(occ.shape[0], generator=gen, device=dev, dtype=torch.float64)
@@ -515,6 +560,90 @@ def phase_merge_multi(dev):
                                                     ini_frac=1.0, invalid_frac=0.0))
     if not o["overflow"]:
         raise AssertionError("merge_multi overflow case did not overflow")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# kernels A and C on 128-bit keys (W = 3, 4)
+# ---------------------------------------------------------------------------
+
+def ne_qz_merge_case(gen, dev, n_words=4, invalid_frac=0.1):
+    """Kernel A's made-up case at ne_qz's shapes (C = 2^20, S = 532,768):
+    (arena, spawn keys, values, initiator flags, keep mask)."""
+    from fries_tpu_torch import rung
+
+    return merge_inputs(gen, dev, rung.NE_QZ_CAPACITY, rung.NE_QZ_SAMP, rung.NE_QZ_SPAWN_CAP,
+                        rung.NE_QZ_SAMP * 8 // 5, n_words=n_words, invalid_frac=invalid_frac)
+
+
+def ne_qz_subsp_multi_case(gen, dev, n_words=4, invalid_frac=0.1):
+    """Kernel C's made-up case at ne_qz_subsp's shapes (C = 2^20, R = 2,
+    S = 600,000): (arena, spawn keys, values, destination rows, flags)."""
+    from fries_tpu_torch import rung
+
+    cfg = rung.subspace_config()
+    return multi_inputs(gen, dev, cfg.capacity, 2 * cfg.vec_nonz, cfg.n_trial * cfg.spawn_cap,
+                        4 * cfg.vec_nonz, cfg.n_trial, n_words=n_words,
+                        invalid_frac=invalid_frac)
+
+
+def phase_merge_wide(dev):
+    """Kernels A and C on 128-bit keys, W = 3 and 4, against their plain
+    versions: made-up streams at ne_qz's shapes (kernel A, layouts (2, 0, 1)
+    with a keep mask and (1, 0, 0)) and ne_qz_subsp's (kernel C), each also
+    with 200,000 spawns on one key and with 90% of the stream sentinel rows;
+    keys differing only in the low word or only above the 64-bit boundary
+    (:func:`wide_universe`); and the overflow, empty-arena and empty-spawn
+    cases.  Kernel A's first case also runs at W = 2, the width it is timed
+    against (:func:`phase_timings`, the same seeds).  Returns the checks at
+    the main paths' shapes."""
+    import torch
+    from fries_tpu_torch.runtime import arena as ar
+
+    gen = torch.Generator(device=dev)
+    res = {}
+    for w in (2, 3, 4):
+        gen.manual_seed(90 + w)
+        a, sk, sv, si, keep = ne_qz_merge_case(gen, dev, w)
+        shapes = f"W={w}, ne_qz shapes (C={a.capacity}, S={sk.shape[0]})"
+        res[f"merge W={w}"] = check_merge(f"{shapes} (2,0,1) + keep_mask", a, sk, sv, si,
+                                          (2, 0, 1), keep)
+        if w == 2:      # its other cases are phase_merge's
+            continue
+        check_merge(f"{shapes} (1,0,0)", a, sk, sv, si, (1, 0, 0), None)
+        check_merge(f"{shapes}, 200,000 spawns on one key", a, one_key_stress(a, sk), sv, si,
+                    (2, 0, 1), keep)
+        check_merge(f"{shapes}, 90% sentinel spawns",
+                    *ne_qz_merge_case(gen, dev, w, invalid_frac=0.9)[:4], (2, 0, 1), None)
+        a, sk, sv, si, keep = merge_inputs(gen, dev, 128, 40, 32, 64, n_words=w,
+                                           invalid_frac=1.0)
+        check_merge(f"W={w} empty spawns", a, sk, sv, si, (2, 0, 1), keep)
+        a, sk, sv, si, _ = merge_inputs(gen, dev, 128, 40, 64, 128, n_words=w)
+        check_merge(f"W={w} empty arena", ar.make(128, w, 1, device=dev), sk, sv,
+                    torch.ones_like(si), (1, 0, 0), None)
+        a, sk, sv, si, keep = merge_inputs(gen, dev, 64, 60, 200, 400, n_words=w,
+                                           ini_frac=1.0, invalid_frac=0.0)
+        if not check_merge(f"W={w} overflow", a, sk, sv, si, (2, 0, 1), keep)["overflow"]:
+            raise AssertionError(f"merge W={w} overflow case did not overflow")
+
+        ma, msk, msv, msr, msi = ne_qz_subsp_multi_case(gen, dev, w)
+        shapes = f"W={w}, ne_qz_subsp shapes (C={ma.capacity}, R=2, S={msk.shape[0]})"
+        res[f"merge_multi W={w}"] = check_merge_multi(shapes, ma, msk, msv, msr, msi)
+        check_merge_multi(f"{shapes}, 200,000 spawns on one key", ma, one_key_stress(ma, msk),
+                          msv, msr, msi)
+        check_merge_multi(f"{shapes}, 90% sentinel spawns",
+                          *ne_qz_subsp_multi_case(gen, dev, w, invalid_frac=0.9))
+        check_merge_multi(f"W={w} empty spawns",
+                          *multi_inputs(gen, dev, 128, 40, 32, 64, 2, n_words=w,
+                                        invalid_frac=1.0))
+        _, esk, esv, esr, esi = multi_inputs(gen, dev, 128, 40, 64, 128, 2, n_words=w)
+        check_merge_multi(f"W={w} empty arena", ar.make(128, w, 2, device=dev), esk, esv, esr,
+                          torch.ones_like(esi))
+        o = check_merge_multi(f"W={w} overflow",
+                              *multi_inputs(gen, dev, 64, 60, 200, 400, 3, n_words=w,
+                                            ini_frac=1.0, invalid_frac=0.0))
+        if not o["overflow"]:
+            raise AssertionError(f"merge_multi W={w} overflow case did not overflow")
     return res
 
 
@@ -829,7 +958,8 @@ def longest_spawn_segment(spawn, state):
     a = state.arena
     rns = torch.rand(6, dtype=torch.float64, device=a.device)
     words, amps, _ = spawn(a.keys, torch.where(a.valid, a.vals[0], 0.0), -rung.EPS, rns)
-    keys = torch.sort(dets.pack_key(words[amps != 0])).values
+    (keys,), _, _ = dets.order_keys(words[amps != 0])
+    keys = torch.sort(keys).values
     return int(torch.unique_consecutive(keys, return_counts=True)[1].max())
 
 
@@ -883,12 +1013,13 @@ def phase_main_path(dev):
     return res
 
 
-def subspace_steps_match(label, dev, cfg, n_warm=4, n_steps=4):
-    """A small subspace system (8 orbitals, 4 electrons; HF and its single
-    1 -> 5 as trial vectors) stepped on the card and on the CPU from the same
-    state with the same key tree: keys and counts exact, values and h / d
-    within rtol 1e-10; one kernel C launch per iteration, or one per chunk
-    (``n_merges``) with ``exact_h``."""
+def subspace_steps_match(label, dev, cfg, n_warm=4, n_steps=4, system=None):
+    """A small subspace system (``system(device)``, by default
+    :func:`small_system`; HF and its single 1 -> 5 as trial vectors) stepped
+    on the card and on the CPU from the same state with the same key tree:
+    keys and counts exact, values and h / d within rtol 1e-10; one kernel C
+    launch per iteration, or one per chunk (``n_merges``) with
+    ``exact_h``."""
     import numpy as np
     import torch
     from fries_tpu_torch import dets, rng
@@ -896,11 +1027,13 @@ def subspace_steps_match(label, dev, cfg, n_warm=4, n_steps=4):
     from fries_tpu_torch.runtime import arena as ar
     from fries_tpu_torch.runtime import merge_multi
 
-    hf = dets.hf_det(8, 4)
+    system = system or small_system
+    ham = system()
+    hf = dets.hf_det(ham.n_orb, ham.n_elec)
     d1, _ = dets.single_parity(hf[None], torch.tensor([1]), torch.tensor([5]))
     tk, tv = torch.stack([hf[None], d1]).numpy(), np.ones((2, 1))
-    step_c, run_c, state, _ = subspace.build(small_system(), cfg, tk, tv, seed=4)
-    step_g, _, _, _ = subspace.build(small_system(dev), cfg, tk, tv, seed=4)
+    step_c, run_c, state, _ = subspace.build(ham, cfg, tk, tv, seed=4)
+    step_g, _, _, _ = subspace.build(system(dev), cfg, tk, tv, seed=4)
     state, _ = run_c(state, n_warm)
     c0, merges = merge_multi.LAUNCHES, 0
     for it in range(n_steps):
@@ -990,6 +1123,127 @@ def phase_subspace(dev):
            "eigenvalues_last_step": sorted(float(x) for x in evals.real), "e_ref": aux["e_ref"]}
     log(f"subspace: {json.dumps(res)}")
     return res
+
+
+def wide_small_system(device=None):
+    """The small four-word system of the card-against-CPU checks (50
+    orbitals, 4 electrons, four irreps)."""
+    import numpy as np
+    from fries_tpu_torch import synth
+
+    return synth.make_system(50, 4, symm=np.arange(50) % 4, seed=3, scale_two=0.1,
+                             device=device)
+
+
+def phase_small_wide(dev):
+    """A small four-word frisys step and subspace step (across a restart),
+    card against CPU from one state: the W = 4 merges, lookups and
+    estimators."""
+    from fries_tpu_torch.drivers import frisys, subspace
+    from fries_tpu_torch.runtime import emit, merge
+
+    cfg = frisys.FrisysConfig(eps=0.01, vec_nonz=400, matr_samp=2000, capacity=8192,
+                              spawn_cap=2600, target_norm=2000.0, shift_interval=2)
+    small_steps_match("small four-word system", dev,
+                      lambda d: frisys.build(wide_small_system(d), cfg, seed=4), 3, 3,
+                      {merge: 1, emit: 3})
+    scfg = subspace.SubspaceConfig(eps=0.02, n_trial=2, vec_nonz=300, matr_samp=1500,
+                                   capacity=8192, spawn_cap=2000, restart_int=3,
+                                   shift_interval=3)
+    subspace_steps_match("subspace small four-word system", dev, scfg, n_warm=1, n_steps=3,
+                         system=wide_small_system)
+
+
+def phase_ne_qz(dev):
+    """The ``ne_qz`` configuration (54 orbitals, four-word keys): 2 warm-up
+    and 5 timed steps with exactly 1 kernel A and 3 kernel B launches per
+    step asserted, then a real step's merge input through kernel A and its
+    plain version; then the unnormalized run, 2 + 2 steps.  Returns the
+    results and that merge input."""
+    import torch
+    from fries_tpu_torch import rung
+    from fries_tpu_torch.runtime import emit, merge
+
+    cfg = rung.ne_qz_config()
+    res = {}
+    for unnorm, n_timed in ((False, N_TIMED), (True, 2)):
+        name = "ne_qz unnorm" if unnorm else "ne_qz"
+        t0 = time.perf_counter()
+        step, state, args, aux = rung.build_ne_qz(dev, unnorm=unnorm)
+        torch.cuda.synchronize()
+        log(f"{name}: built in {time.perf_counter() - t0:.1f} s (54 orbitals, 8 electrons, "
+            f"{aux['ref_key'].shape[0]} words, capacity {cfg.capacity}, spawn_cap "
+            f"{cfg.spawn_cap})")
+        state, _, _ = timed_block(step, state, args, N_WARM, f"{name} warm-up")
+        torch.cuda.reset_peak_memory_stats()
+        merge.LAUNCHES = emit.LAUNCHES = 0
+        state, metrics, s_per_step = timed_block(step, state, args, n_timed, name)
+        launches = {"merge": merge.LAUNCHES, "emit": emit.LAUNCHES}
+        if launches != {"merge": n_timed, "emit": 3 * n_timed}:
+            raise AssertionError(f"{name}: launches {launches} in {n_timed} steps, not 1 "
+                                 "kernel A and 3 kernel B per step")
+        last = metrics[-1]
+        r = {"config": name, "ms_per_step": 1e3 * s_per_step,
+             "sampled_nonzeros_per_s": cfg.matr_samp / s_per_step,
+             "peak_mem_bytes": torch.cuda.max_memory_allocated(), "launches": launches,
+             "n_dets_timed_steps": [int(m["n_dets"]) for m in metrics],
+             "arena_rows": int(state.arena.n_used[0]), "norm": float(last["norm"]),
+             "e_corr_est": float(last["proj_num"]) / float(last["proj_den"])}
+        log(f"{name}: {json.dumps(r)}")
+        res[name] = r
+        if not unnorm:
+            rns = torch.rand(6, dtype=torch.float64, generator=state.generator).to(dev)
+            case = power_merge_input(state, aux, cfg.eps, rns)
+            r["real_step"] = {**merge_stream_stats(case[0], case[1]),
+                              **check_merge("ne_qz, a real step's stream (W=4), (2,0,1) "
+                                            "+ keep_mask", *case[:4], None, case[4])}
+            log(f"ne_qz real step: {json.dumps(r['real_step'])}")
+        del step, state
+    return res, case
+
+
+def phase_ne_qz_subsp(dev):
+    """The ``ne_qz_subsp`` configuration: 2 warm-up and 5 timed iterations,
+    one kernel C launch per iteration asserted; then a real iteration's
+    merge input through kernel C and its plain version.  Returns the
+    results and that input."""
+    import torch
+    from fries_tpu_torch import linalg, rung
+    from fries_tpu_torch.runtime import arena as ar
+
+    cfg = rung.subspace_config()
+    t0 = time.perf_counter()
+    step, state, aux = rung.build_ne_qz_subsp(dev)
+    torch.cuda.synchronize()
+    log(f"ne_qz_subsp: built in {time.perf_counter() - t0:.1f} s (54 orbitals, 8 electrons, "
+        f"trial vectors HF and the single {rung.ne_qz_single(rung.ne_qz_system())}, "
+        f"capacity {cfg.capacity}, spawn_cap {cfg.spawn_cap} per state)")
+    state, r = subspace_run("ne_qz_subsp", step, state, N_WARM, N_TIMED)
+    if r["launches"]["merge_multi"] != N_TIMED:
+        raise AssertionError(f"ne_qz_subsp: {r['launches']} in {N_TIMED} iterations")
+    last = r.pop("metrics")[-1]
+    evals, _ = linalg.gen_eig(last["h_mat"].cpu().numpy(), last["d_mat"].cpu().numpy())
+    r.update(config="ne_qz_subsp",
+             sampled_nonzeros_per_s=cfg.n_trial * cfg.matr_samp / r.pop("s_per_step"),
+             eigenvalues_last_step=sorted(float(x) for x in evals.real), e_ref=aux["e_ref"])
+    log(f"ne_qz_subsp: {json.dumps(r)}")
+    captured, orig = [], ar.accumulate_multi_best
+
+    def recording(*args):
+        captured.append(args)
+        return orig(*args)
+
+    ar.accumulate_multi_best = recording
+    try:
+        step(state)
+    finally:
+        ar.accumulate_multi_best = orig
+    case = captured[0]
+    r["real_step"] = {**merge_stream_stats(case[0], case[1]),
+                      **check_merge_multi("ne_qz_subsp, a real iteration's T streams (W=4)",
+                                          *case)}
+    log(f"ne_qz_subsp real step: {json.dumps(r['real_step'])}")
+    return r, case
 
 
 def check_power_metrics(label, metrics):
@@ -1263,8 +1517,8 @@ def merge_stream_stats(a, sk):
     import torch
     from fries_tpu_torch import dets
 
-    skey = dets.pack_key(sk)
-    live = skey != dets.sentinel_key(a.n_words)
+    (skey,), sent, _ = dets.order_keys(sk)
+    live = skey != sent
     runs = torch.unique_consecutive(torch.sort(skey[live]).values, return_counts=True)[1]
     return {"arena_rows": int(a.n_used[0]), "spawns": sk.shape[0],
             "live_spawns": int(live.sum()), "unique_targets": int(runs.shape[0]),
@@ -1990,7 +2244,7 @@ def phase_cli_resume(dev):
 
 
 def phase_timings(dev, n_elements, chunk_case, fciqmc_case, hh_cases, path_plans, sub_chunk,
-                  obs_cases):
+                  obs_cases, ne_qz_case, ne_qz_subsp_case):
     """Each kernel's wrapper and its plain version on the inputs of its
     check at the main path's shapes (the same seeds; ``chunk_case`` is the
     exact-H path's own chunk, ``fciqmc_case`` FCIQMC's own merge input,
@@ -1998,7 +2252,9 @@ def phase_timings(dev, n_elements, chunk_case, fciqmc_case, hh_cases, path_plans
     ``path_plans`` frisys_hh's and the unfused rung's own emission plans by
     name, ``sub_chunk`` the subspfull path's own kernel C chunk,
     ``obs_cases`` the observables' own merge inputs (arena, spawn keys,
-    values, flags, origin, dest) by name), with its bound:
+    values, flags, origin, dest) by name, ``ne_qz_case`` and
+    ``ne_qz_subsp_case`` the four-word paths' own kernel A and C inputs),
+    with its bound:
     call times first for every kernel, then device times, since the
     profiler slows every later launch of the process."""
     import torch
@@ -2048,6 +2304,34 @@ def phase_timings(dev, n_elements, chunk_case, fciqmc_case, hh_cases, path_plans
         _, rp, rs = emit.emit_plain(**plan)
         cases[f"emit {name}"] = (lambda p=plan: emit.emit(**p), lambda p=plan: emit.emit_plain(**p),
                                  emit_bound(plan, rp, rs), None)
+    for w in (2, 4):    # kernel A at one C and S, two key widths
+        gen.manual_seed(90 + w)
+        wa, wsk, wsv, wsi, wkeep = ne_qz_merge_case(gen, dev, w)
+        wa = with_rows(wa, 2)
+        cases[f"merge ne_qz shapes W={w}"] = (
+            lambda a=wa, k=wsk, v=wsv, i=wsi, m=wkeep: merge.accumulate(a, k, v, i, 0, 1,
+                                                                        keep_mask=m),
+            lambda a=wa, k=wsk, v=wsv, i=wsi, m=wkeep: merge.accumulate_plain(a, k, v, i, 0, 1,
+                                                                              m),
+            merge_bound(wa, (wsk, wsv, wsi), wkeep), None)
+        extras[f"merge ne_qz shapes W={w}"] = {"sort": lambda k=wsk: merge.sort_spawns(k)}
+    za, zsk, zsv, zsi, zkeep = ne_qz_case
+    zsk1 = one_key_stress(za, zsk)
+    cases["merge ne_qz"] = (lambda: merge.accumulate(za, zsk, zsv, zsi, 0, 1, keep_mask=zkeep),
+                            lambda: merge.accumulate_plain(za, zsk, zsv, zsi, 0, 1, zkeep),
+                            merge_bound(za, (zsk, zsv, zsi), zkeep), None)
+    extras["merge ne_qz"] = {
+        "sort": lambda: merge.sort_spawns(zsk),
+        "stress": lambda: merge.accumulate(za, zsk1, zsv, zsi, 0, 1, keep_mask=zkeep)}
+    qa, qsk, qsv, qsr, qsi = ne_qz_subsp_case
+    qsk1 = one_key_stress(qa, qsk)
+    cases["merge_multi ne_qz_subsp"] = (
+        lambda: merge_multi.accumulate(qa, qsk, qsv, qsr, qsi),
+        lambda: ar.accumulate_multi(qa, qsk, qsv, qsr, qsi),
+        merge_bound(qa, (qsk, qsv, qsr, qsi)), None)
+    extras["merge_multi ne_qz_subsp"] = {
+        "sort": lambda: merge.sort_spawns(qsk),
+        "stress": lambda: merge_multi.accumulate(qa, qsk1, qsv, qsr, qsi)}
     ca, csk, csv, csr, csi = sub_chunk
     cases["merge_multi subspfull_chunk"] = (
         lambda: merge_multi.accumulate(ca, csk, csv, csr, csi),
@@ -2133,6 +2417,7 @@ def main():
     m = phase_merge(dev)
     e = phase_emit(dev)
     c = phase_merge_multi(dev)
+    wide = phase_merge_wide(dev)
     p = phase_probe(dev)
     phase_small_step(dev)
     main_res = phase_main_path(dev)
@@ -2158,6 +2443,9 @@ def main():
     phase_small_unfused(dev)
     unf_res, unf_plans = phase_unfused(dev)
     cli_res = phase_cli_resume(dev)
+    phase_small_wide(dev)
+    qz_res, qz_case = phase_ne_qz(dev)
+    qzs_res, qzs_case = phase_ne_qz_subsp(dev)
     obs_cases = {f"{name} {layout}": (*captured[layout], layout[1], layout[2])
                  for name, captured, layouts in (
                      ("observables", obs_captured, ((4, 0, 0), (4, 0, 3))),
@@ -2166,7 +2454,7 @@ def main():
     # last: its profiler slows what follows
     t = phase_timings(dev, semi_res["n_elements"], chunk_case, fciqmc_case,
                       {"frifull_hh": ffhh_case, "frisys_hh": fshh_case},
-                      {**hh_plans, **unf_plans}, sub_chunk, obs_cases)
+                      {**hh_plans, **unf_plans}, sub_chunk, obs_cases, qz_case, qzs_case)
 
     keys = ("ms", "plain_ms", "device_ms", "plain_device_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -2202,6 +2490,15 @@ def main():
             **timing(f"merge {name}"), **{key: t[f"merge {name}"][key] for key in sort_keys},
             **{key: real[key] for key in ("max_abs_err", "arena_rows", "spawns", "live_spawns",
                                           "unique_targets", "longest_run")}}
+    for w in (2, 4):
+        name = f"ne_qz shapes W={w}"
+        merge_shapes[f"{name}, made-up"] = {
+            **timing(f"merge {name}"), **{key: t[f"merge {name}"][key] for key in sort_keys},
+            "max_abs_err": wide[f"merge W={w}"]["max_abs_err"]}
+    merge_shapes["ne_qz (W=4)"] = {
+        **merge_timing("merge ne_qz"), "max_abs_err": qz_res["ne_qz"]["real_step"]["max_abs_err"],
+        **{key: qz_res["ne_qz"]["real_step"][key] for key in (
+            "arena_rows", "spawns", "live_spawns", "unique_targets", "longest_run")}}
     merge_shapes["frifull_chunk"].update(
         {key: full_res["real_chunk"][key] for key in ("arena_rows", "sentinel_share",
                                                       "unique_targets", "longest_run")},
@@ -2216,7 +2513,8 @@ def main():
         ("frifull_hh", ffhh_res), ("frisys_hh", fshh_res),
         ("subsp_lowmem", modes_res["subsp_lowmem"]), ("subsp_multi", modes_res["subsp_multi"]),
         ("subspfull", sfull_res), ("observables", obs_res), ("obs_repl", repl_res),
-        ("unfused rung", unf_res))
+        ("unfused rung", unf_res), ("ne_qz", qz_res["ne_qz"]),
+        ("ne_qz unnorm", qz_res["ne_qz unnorm"]), ("ne_qz_subsp", qzs_res))
         if kernel in r["launches"]}
     multi_shape = {**timing("merge_multi subspfull_chunk"),
                    **{key: t["merge_multi subspfull_chunk"][key] for key in sort_keys},
@@ -2232,7 +2530,8 @@ def main():
          "launches_by_observables_layout": {"observables": obs_res["launches_by_layout"],
                                             "obs_repl": repl_res["launches_by_layout"]},
          "max_abs_err": max(m["rung"]["max_abs_err"], m["chunk_regime"]["max_abs_err"],
-                            fq_res["first_step"]["max_abs_err"],
+                            fq_res["first_step"]["max_abs_err"], wide["merge W=3"]["max_abs_err"],
+                            wide["merge W=4"]["max_abs_err"],
                             *(sh["max_abs_err"] for sh in merge_shapes.values())),
          **merge_timing("merge"), "shapes": merge_shapes},
         {"name": "emit", "route": "cuda", "source": "fries_tpu_torch/csrc/emit.cu",
@@ -2246,8 +2545,16 @@ def main():
          "launches": sum(by_path("merge_multi").values()),
          "launches_by_path": by_path("merge_multi"),
          "launches_per_subspfull_step": sfull_res["merges_per_step"],
-         "max_abs_err": max(c["max_abs_err"], sfull_res["real_chunk"]["max_abs_err"]),
-         **merge_timing("merge_multi"), "shapes": {"subspfull_chunk": multi_shape}},
+         "max_abs_err": max(c["max_abs_err"], sfull_res["real_chunk"]["max_abs_err"],
+                            wide["merge_multi W=3"]["max_abs_err"],
+                            wide["merge_multi W=4"]["max_abs_err"],
+                            qzs_res["real_step"]["max_abs_err"]),
+         **merge_timing("merge_multi"),
+         "shapes": {"subspfull_chunk": multi_shape, "ne_qz_subsp (W=4)": {
+             **merge_timing("merge_multi ne_qz_subsp"),
+             "max_abs_err": qzs_res["real_step"]["max_abs_err"],
+             **{key: qzs_res["real_step"][key] for key in (
+                 "arena_rows", "spawns", "live_spawns", "unique_targets", "longest_run")}}}},
         {"name": "probe_reshape", "route": "cuda",
          "source": "fries_tpu_torch/csrc/probe_reshape.cu",
          "replaces": "tools/probe_reshape.py:33", "launches": p["launches"],

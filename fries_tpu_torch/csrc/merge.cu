@@ -14,7 +14,8 @@
 // What bounds it on the H100: bytes, about 32 B per valid arena row read
 // (two key words, two value rows, the keep bit), 33 B per spawn (sorted key,
 // permutation, gathered value and flag) and 32 B per arena row written at
-// capacity.  The Pallas kernel walks both streams on a sequential grid;
+// capacity; at W = 3, 4 (128-bit keys) 16 B more per arena row read and
+// written and 8 B more per spawn.  The Pallas kernel walks both streams on a sequential grid;
 // here the design of merge_common.cuh runs it in four passes: a memset, a
 // segmented reduction of the sorted spawns by key (carries by decoupled
 // look-back), a merge path over the arena's valid rows and the unique keys
@@ -30,7 +31,8 @@ extern "C" const char* fries_error_string(int err) {
 }
 
 // All pointers are device pointers.  akw (C, W) int64 words, avals (n_rows,
-// C), akeep (C) or NULL (no fused compaction); skey (S) packed and sorted, perm (S) the sort's
+// C), akeep (C) or NULL (no fused compaction); skey sorted, (S) packed or, for W = 3, 4,
+// (S, 2) (lo, hi) sign-flipped halves; ukey scratch of one key each; perm (S) the sort's
 // permutation, sval (S) and sini (S) in the stream's order; scratch and the
 // control block as runtime/merge.py allocates them; okw (C, W), ovals
 // (n_rows, C), overflow one byte.

@@ -39,9 +39,13 @@
 //      overflow; every tile adds its non-initiator-onto-occupied count.
 //   3. fill_tail: the sentinel key and zero values in rows [n_used, C).
 //
-// Keys: the arena's (C, W) int64 words are packed on the fly (W = 1 or 2, a
-// template parameter) and written back as words; spawn keys come packed and
-// sorted from torch.sort.  Tickets come from atomic counters, not blockIdx,
+// Keys (Key<W>, W a template parameter): W = 1 or 2 words pack into one
+// sign-flipped int64, W = 3 or 4 into an unsigned 128-bit integer (words 0-1
+// the low half, 2-3 the high half), both compared as integers, the last word
+// the most significant.  The arena's (C, W) int64 words are packed on the fly
+// and written back as words; spawn keys come sorted from torch.sort, as one
+// int64 each or as (lo, hi) sign-flipped int64 halves.  The sentinel is the
+// all-ones row's key, the largest.  Tickets come from atomic counters, not blockIdx,
 // so a tile only waits on tiles already running: the look-backs always make
 // progress.
 
@@ -49,6 +53,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -82,7 +88,8 @@ struct MergeArgs {
   // per_row: channel r tests occupancy in and adds to value row r (kernel
   // C); otherwise one channel tests origin_row and adds to dest_row (A)
   int per_row, origin_row, dest_row;
-  // spawns: keys packed and sorted, the sort's permutation, and values,
+  // spawns: keys sorted (S int64, or S (lo, hi) pairs for W > 2), the sort's
+  // permutation, and values,
   // initiator flags and rows (NULL: channel 0) in the stream's order
   const int64_t* skey;
   const int64_t* perm;
@@ -91,8 +98,8 @@ struct MergeArgs {
   const int64_t* srow;
   int64_t s;
   int n_chan;
-  int64_t sentinel;
-  // scratch: unique keys (S), sums (2 * n_chan * S: all, then ini), counts
+  int64_t sentinel;  // the packed sentinel key (W <= 2)
+  // scratch: unique keys (S Key<W>), sums (2 * n_chan * S: all, then ini), counts
   // ((n_chan + 1) * S: non-initiator per channel, then initiator per key),
   // look-back records, control block
   int64_t* ukey;
@@ -110,10 +117,56 @@ inline int64_t n_reduce_tiles(int64_t s) { return (s + kTile - 1) / kTile; }
 inline int64_t n_merge_tiles(int64_t c, int64_t s) { return (c + s + kTile - 1) / kTile; }
 
 template <int W>
-__device__ __forceinline__ int64_t arena_key(const int64_t* akw, int64_t i) {
-  uint64_t u = static_cast<uint64_t>(akw[i * W]);
-  if (W == 2) u |= static_cast<uint64_t>(akw[i * 2 + 1]) << 32;
-  return static_cast<int64_t>(u ^ kSignBit);
+using Key = typename std::conditional<(W <= 2), int64_t, unsigned __int128>::type;
+
+template <int W>
+__device__ __forceinline__ Key<W> arena_key(const int64_t* akw, int64_t i) {
+  if constexpr (W <= 2) {
+    uint64_t u = static_cast<uint64_t>(akw[i * W]);
+    if (W == 2) u |= static_cast<uint64_t>(akw[i * 2 + 1]) << 32;
+    return static_cast<int64_t>(u ^ kSignBit);
+  } else {
+    const uint64_t lo = static_cast<uint64_t>(akw[i * W]) |
+                        static_cast<uint64_t>(akw[i * W + 1]) << 32;
+    uint64_t hi = static_cast<uint64_t>(akw[i * W + 2]);
+    if (W == 4) hi |= static_cast<uint64_t>(akw[i * W + 3]) << 32;
+    return static_cast<unsigned __int128>(hi) << 64 | lo;
+  }
+}
+
+template <int W>
+__device__ __forceinline__ Key<W> sentinel_key(const MergeArgs& a) {
+  if constexpr (W <= 2) return a.sentinel;
+  else return static_cast<unsigned __int128>(W == 4 ? ~0ull : kWordMask) << 64 | ~0ull;
+}
+
+// The i-th sorted spawn key.
+template <int W>
+__device__ __forceinline__ Key<W> spawn_key(const MergeArgs& a, int64_t i) {
+  if constexpr (W <= 2) return a.skey[i];
+  else return static_cast<unsigned __int128>(static_cast<uint64_t>(a.skey[2 * i + 1]) ^ kSignBit)
+                  << 64 | (static_cast<uint64_t>(a.skey[2 * i]) ^ kSignBit);
+}
+
+template <int W>
+__device__ __forceinline__ Key<W>* unique_keys(const MergeArgs& a) {
+  return reinterpret_cast<Key<W>*>(a.ukey);
+}
+
+// A key's W words.
+template <int W>
+__device__ __forceinline__ void key_words(Key<W> key, int64_t* word) {
+  if constexpr (W <= 2) {
+    const uint64_t u = static_cast<uint64_t>(key) ^ kSignBit;
+    word[0] = static_cast<int64_t>(u & kWordMask);
+    if (W == 2) word[W - 1] = static_cast<int64_t>((u >> 32) & kWordMask);
+  } else {
+    const uint64_t lo = static_cast<uint64_t>(key), hi = static_cast<uint64_t>(key >> 64);
+    word[0] = static_cast<int64_t>(lo & kWordMask);
+    word[1] = static_cast<int64_t>(lo >> 32);
+    word[2] = static_cast<int64_t>(hi & kWordMask);
+    if (W == 4) word[W - 1] = static_cast<int64_t>(hi >> 32);
+  }
 }
 
 // First index in [lo, hi) where the monotone (true..., false...) predicate
@@ -253,7 +306,7 @@ __device__ void look_back(const int64_t* status, int64_t t, int shift, Fold fold
 
 template <int W>
 __global__ void __launch_bounds__(kThreads) reduce_spawns(MergeArgs a, int64_t nt) {
-  __shared__ int64_t s_key[kTile + 2];  // the tile's keys, one before, one after
+  __shared__ Key<W> s_key[kTile + 2];  // the tile's keys, one before, one after
   __shared__ Part s_agg[kMaxChannels], s_ex[kMaxChannels];
   __shared__ int64_t s_tile;
   if (threadIdx.x == 0)
@@ -262,10 +315,11 @@ __global__ void __launch_bounds__(kThreads) reduce_spawns(MergeArgs a, int64_t n
   __syncthreads();
   const int64_t t = s_tile;
   const int lane = threadIdx.x & 31;
+  const Key<W> sent = sentinel_key<W>(a);
   if (t == nt) {  // the extra block: the arena's valid rows (sentinels sort last)
     if (threadIdx.x < 32) {
       const int64_t nv = warp_partition(0, a.c, [&](int64_t i) {
-        return arena_key<W>(a.akw, i) != a.sentinel;
+        return arena_key<W>(a.akw, i) != sent;
       });
       if (lane == 0) a.ctrl[kNValid] = nv;
     }
@@ -287,16 +341,16 @@ __global__ void __launch_bounds__(kThreads) reduce_spawns(MergeArgs a, int64_t n
   }
   for (int q = threadIdx.x; q < kTile + 2; q += kThreads) {
     const int64_t i = base - 1 + q;
-    s_key[q] = i >= 0 && i < a.s ? a.skey[i] : a.sentinel;
+    s_key[q] = i >= 0 && i < a.s ? spawn_key<W>(a, i) : sent;
   }
   __syncthreads();
-  int64_t key[kItems];
+  Key<W> key[kItems];
   bool head[kItems], end[kItems], counted[kItems];
 #pragma unroll
   for (int j = 0; j < kItems; ++j) {
     const int q = threadIdx.x * kItems + j;
     key[j] = s_key[q + 1];
-    const bool valid = key[j] != a.sentinel;
+    const bool valid = key[j] != sent;
     head[j] = valid && key[j] != s_key[q];
     end[j] = valid && key[j] != s_key[q + 2];
     counted[j] = valid && row[j] >= 0 && row[j] < a.n_chan;   // a valid spawn of a valid row
@@ -350,7 +404,7 @@ __global__ void __launch_bounds__(kThreads) reduce_spawns(MergeArgs a, int64_t n
     for (int j = 0; j < kItems; ++j) {
       run = combine(run, spawn_part(head[j], counted[j], ini[j], row[j], val[j], ch));
       const int64_t u = run.n - 1;
-      if (ch == 0 && head[j]) a.ukey[u] = key[j];
+      if (ch == 0 && head[j]) unique_keys<W>(a)[u] = key[j];
       if (end[j]) {
         a.usum[ch * a.s + u] = run.sa;
         a.usum[(nc + ch) * a.s + u] = run.si;
@@ -391,9 +445,7 @@ __device__ __forceinline__ void write_rows(const MergeArgs& a, const int64_t* o,
 #pragma unroll
       for (int w = 0; w < W; ++w) word[k][w] = a.akw[static_cast<int64_t>(src[k]) * W + w];
     } else {
-      const uint64_t key = static_cast<uint64_t>(a.ukey[-src[k] - 1]) ^ kSignBit;
-      word[k][0] = static_cast<int64_t>(key & kWordMask);
-      if (W == 2) word[k][W - 1] = static_cast<int64_t>((key >> 32) & kWordMask);
+      key_words<W>(unique_keys<W>(a)[-src[k] - 1], word[k]);
     }
   }
 #pragma unroll
@@ -424,10 +476,17 @@ __device__ __forceinline__ void write_rows(const MergeArgs& a, const int64_t* o,
   }
 }
 
+// Static shared memory of merge_tiles at 16 B keys: the two key tiles and
+// the row descriptors, with 1 KB for the scans' and look-back's words,
+// within the 48 KB of a static allocation.
+static_assert(2 * (kTile + 1) * sizeof(unsigned __int128) + 2 * kTile * sizeof(int32_t) + 1024 <=
+                  48 * 1024,
+              "merge_tiles' static shared memory exceeds 48 KB");
+
 template <int W>
 __global__ void __launch_bounds__(kThreads) merge_tiles(MergeArgs a, int64_t nt_reduce) {
-  __shared__ int64_t s_a[kTile + 1];  // arena keys [a0 - 1, a1)
-  __shared__ int64_t s_b[kTile + 1];  // unique keys [b0, b1]
+  __shared__ Key<W> s_a[kTile + 1];  // arena keys [a0 - 1, a1)
+  __shared__ Key<W> s_b[kTile + 1];  // unique keys [b0, b1]
   __shared__ int32_t s_src[kTile], s_match[kTile];
   __shared__ int64_t s_split[2], s_tile;
   __shared__ unsigned long long s_nonini;
@@ -439,6 +498,8 @@ __global__ void __launch_bounds__(kThreads) merge_tiles(MergeArgs a, int64_t nt_
   }
   __syncthreads();
   const int64_t t = s_tile;
+  const Key<W> sent = sentinel_key<W>(a);
+  const Key<W>* ukey = unique_keys<W>(a);
   const int64_t n_a = a.ctrl[kNValid], n_b = a.ctrl[kNUnique], total = n_a + n_b;
   const int64_t nt = total > 0 ? (total + kTile - 1) / kTile : 1;
   if (t >= nt) return;
@@ -447,7 +508,7 @@ __global__ void __launch_bounds__(kThreads) merge_tiles(MergeArgs a, int64_t nt_
     const int64_t d = (t + warp) * kTile < total ? (t + warp) * kTile : total;
     const int64_t split = warp_partition(d > n_b ? d - n_b : 0, d < n_a ? d : n_a,
                                          [&](int64_t m) {
-      return arena_key<W>(a.akw, m) <= a.ukey[d - 1 - m];
+      return arena_key<W>(a.akw, m) <= ukey[d - 1 - m];
     });
     if (lane == 0) s_split[warp] = split;
   }
@@ -459,9 +520,9 @@ __global__ void __launch_bounds__(kThreads) merge_tiles(MergeArgs a, int64_t nt_
   const int na = static_cast<int>(a1 - a0), nb = static_cast<int>(b1 - b0), n = na + nb;
   // the sentinel stands for "no key": no valid key equals it
   for (int q = threadIdx.x; q <= na; q += kThreads)
-    s_a[q] = a0 - 1 + q >= 0 ? arena_key<W>(a.akw, a0 - 1 + q) : a.sentinel;
+    s_a[q] = a0 - 1 + q >= 0 ? arena_key<W>(a.akw, a0 - 1 + q) : sent;
   for (int q = threadIdx.x; q <= nb; q += kThreads)
-    s_b[q] = b0 + q < n_b ? a.ukey[b0 + q] : a.sentinel;
+    s_b[q] = b0 + q < n_b ? ukey[b0 + q] : sent;
   __syncthreads();
 
   const int dk = threadIdx.x * kItems < n ? threadIdx.x * kItems : n;
@@ -599,6 +660,8 @@ cudaError_t launch_merge(const MergeArgs& a, int w, cudaStream_t stream) {
   if (err) return err;
   if (w == 1) return launch_w<1>(a, nt_r, nt_m, stream);
   if (w == 2) return launch_w<2>(a, nt_r, nt_m, stream);
+  if (w == 3) return launch_w<3>(a, nt_r, nt_m, stream);
+  if (w == 4) return launch_w<4>(a, nt_r, nt_m, stream);
   return cudaErrorInvalidValue;
 }
 

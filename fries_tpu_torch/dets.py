@@ -9,9 +9,13 @@ The words are held in **int64 tensors that carry the uint32 values**
 native shifts, compares and sorts on both the CPU and the card.  Every
 function is vectorized over leading batch dimensions.
 
-The port handles determinants of at most two words (2 * n_orb <= 64), whose
-order-preserving scalar key (:func:`pack_key`) is one int64; wider systems
-raise ``NotImplementedError``.
+The arena's order is lexicographic with the last word the most significant.
+Determinants of at most two words (2 * n_orb <= 64) have an order-preserving
+scalar key, :func:`pack_key`, one int64.  Wider ones sort on
+:func:`key_columns`, one sign-flipped int64 per two words, with one stable
+sort per column (:func:`sort_dets`); where an int64 key is needed (a
+search, a segmented sum) :func:`order_keys` ranks the rows of all the
+tensors at hand in one such sort.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ import torch
 WORD_BITS = 32
 WORD_MASK = 0xFFFFFFFF
 INT64_MIN = -(1 << 63)
+INT64_MAX = (1 << 63) - 1
 PACK_MAX_WORDS = 2
 
 
@@ -39,7 +44,7 @@ def require_packable(num_words: int) -> None:
     if not packable(num_words):
         raise NotImplementedError(
             f"determinants of {num_words} words (> {PACK_MAX_WORDS}) are not "
-            "ported: the port keys its arena on one packed int64")
+            "ported here: this path keys on one packed int64")
 
 
 # ---------------------------------------------------------------------------
@@ -250,9 +255,76 @@ def det_eq(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def det_less(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a < b in the arena's order (the last word is the most significant):
-    the order of :func:`pack_key`."""
-    return pack_key(a) < pack_key(b)
+    """a < b in the arena's order (the last word is the most significant),
+    for any W: lexicographic over :func:`key_columns`, the order of
+    :func:`pack_key` where W <= 2 and of ``fries_tpu.dets.det_less``."""
+    *low, (ca, cb) = zip(key_columns(a), key_columns(b))
+    lt, decided = ca < cb, ca != cb
+    for ca, cb in reversed(low):
+        lt = torch.where(decided, lt, ca < cb)
+        decided = decided | (ca != cb)
+    return lt
+
+
+def key_columns(words: torch.Tensor) -> list[torch.Tensor]:
+    """The int64 sort columns of ``(..., W)`` words, least significant
+    first: words (2k, 2k + 1) as :func:`pack_key` of the pair (the last
+    column alone when W is odd).  Lexicographic order over the columns,
+    most significant first, is the arena's order; W <= 2 gives the one
+    column :func:`pack_key`, and W = 3 or 4 the two halves of a 128-bit
+    key."""
+    return [pack_key(words[..., k:k + 2]) for k in range(0, words.shape[-1], 2)]
+
+
+def sort_dets(words: torch.Tensor) -> torch.Tensor:
+    """The stable permutation that sorts the rows of ``(N, W)`` words in the
+    arena's order: one stable sort per :func:`key_columns` column, least
+    significant first."""
+    cols = key_columns(words)
+    perm = torch.sort(cols[0], stable=True).indices
+    for col in cols[1:]:
+        perm = perm[torch.sort(col[perm], stable=True).indices]
+    return perm
+
+
+def order_keys(*words: torch.Tensor):
+    """Order-preserving int64 keys of the rows of ``(..., W)`` word tensors,
+    comparable across them.  Returns (keys, sentinel, decode): one key
+    tensor per input (its shape without the last axis), the key of the
+    all-ones sentinel row (the largest), and a function from keys back to
+    ``(..., W)`` words.
+
+    W <= 2: :func:`pack_key` and :func:`unpack_key`.  Wider: one
+    :func:`sort_dets` of all the rows given; a row's key is the position of
+    the first equal row in that order (equal rows share it), the sentinel's
+    is int64 max, and ``decode`` gathers from the sorted rows.  Nothing is
+    read on the host."""
+    w = words[0].shape[-1]
+    if packable(w):
+        return [pack_key(x) for x in words], sentinel_key(w), lambda k: unpack_key(k, w)
+    dev = words[0].device
+    flat = torch.cat([x.reshape(-1, w) for x in words] + [invalid_det(w, dev)[None]])
+    n = flat.shape[0]
+    perm = sort_dets(flat)
+    srt = flat[perm]
+    pos = torch.arange(n, device=dev)
+    first = torch.ones(n, dtype=torch.bool, device=dev)
+    first[1:] = (srt[1:] != srt[:-1]).any(-1)
+    key_sorted = torch.cummax(torch.where(first, pos, 0), 0).values
+    key_sorted = torch.where((srt == WORD_MASK).all(-1), INT64_MAX, key_sorted)
+    flat_key = torch.empty_like(key_sorted)
+    flat_key[perm] = key_sorted
+    out, start = [], 0
+    for x in words:
+        m = x.numel() // w
+        out.append(flat_key[start:start + m].reshape(x.shape[:-1]))
+        start += m
+
+    def decode(keys):
+        rows = srt[keys.clamp_max(n - 1)]
+        return torch.where((keys == INT64_MAX)[..., None], WORD_MASK, rows)
+
+    return out, INT64_MAX, decode
 
 
 def pack_key(words: torch.Tensor) -> torch.Tensor:
@@ -277,14 +349,17 @@ def unpack_key(keys: torch.Tensor, num_words: int) -> torch.Tensor:
 
 
 def sentinel_key(num_words: int) -> int:
-    """Packed key of the all-ones sentinel row."""
+    """Packed key of the all-ones sentinel row (W <= 2)."""
+    require_packable(num_words)
     k = ((1 << (WORD_BITS * num_words)) - 1) ^ (1 << 63)
     return k - (1 << 64) if k >= 1 << 63 else k
 
 
 def searchsorted_dets(sorted_words: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:
-    """Index of the first row of ``sorted_words`` (N, W) >= each query."""
-    return torch.searchsorted(pack_key(sorted_words), pack_key(queries).contiguous())
+    """Index of the first row of ``sorted_words`` (N, W) >= each query, for
+    any W (keys from :func:`order_keys`)."""
+    (k_sorted, k_query), _, _ = order_keys(sorted_words, queries)
+    return torch.searchsorted(k_sorted, k_query.contiguous())
 
 
 def lookup_dets(sorted_words: torch.Tensor, queries: torch.Tensor):

@@ -202,7 +202,6 @@ def build(ham: mol.MolecularHamiltonian, cfg: FciqmcConfig, seed: int,
     if cfg.distribution not in ("NU", "HB"):
         raise ValueError(f"unknown distribution {cfg.distribution!r}")
     dev = ham.device
-    dets.require_packable(ham.n_words)
     p_doub = frisys.hf_p_doub(ham, mol.SymmInfo.build(ham.symm.cpu().numpy()))
     spawn = make_spawner(ham, cfg, p_doub)
     hf_words, _, hf_en = mol.hf_reference(ham)

@@ -126,7 +126,6 @@ def build(ham: mol.MolecularHamiltonian, cfg: FrimultiConfig, seed: int,
     (step, run_steps, state, aux) as :func:`fries_tpu_torch.drivers.frisys.build`
     does; the state's key node is ``rng.KeyTree(seed)`` on the device."""
     dev = ham.device
-    dets.require_packable(ham.n_words)
     syminfo = mol.SymmInfo.build(ham.symm.cpu().numpy())
     p_doub = frisys.hf_p_doub(ham, syminfo)
     hf_words, _, hf_en = mol.hf_reference(ham)

@@ -119,7 +119,6 @@ def make_hbpp_spawner(ham: mol.MolecularHamiltonian, tens: hb.HeatBathTensors,
     by the block's element count, and the dense block spawns exactly: its
     rows follow the ``spawn_cap`` sampled ones, all as initiators."""
     cfg.check_ported()
-    dets.require_packable(ham.n_words)
     dev = ham.device
     n_orb, n_elec = ham.n_orb, ham.n_elec
     n_bits = 2 * n_orb
@@ -499,8 +498,8 @@ def compute_htrial(ham: mol.MolecularHamiltonian, trial_keys, trial_vals,
         diag = torch.where(forbid, 0.0, diag + delta)
     keys_all = np.concatenate([tk.cpu().numpy()] + w_parts)
     vals_all = np.concatenate([tv.cpu().numpy() * diag.cpu().numpy()] + a_parts)
-    packed = dets.pack_key(torch.as_tensor(keys_all)).numpy()
-    uniq, first, inv = np.unique(packed, return_index=True, return_inverse=True)
+    (order,), _, _ = dets.order_keys(torch.as_tensor(keys_all))
+    uniq, first, inv = np.unique(order.numpy(), return_index=True, return_inverse=True)
     summed = np.bincount(inv.reshape(-1), weights=vals_all, minlength=len(uniq))
     return keys_all[first], summed
 

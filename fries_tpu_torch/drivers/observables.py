@@ -126,7 +126,6 @@ def build(ham: mol.MolecularHamiltonian, cfg: ObservablesConfig, seed: int,
     step's merges) and ``spawn_rows`` (the source rows of its exact
     spawns)."""
     cfg.check_ported()
-    dets.require_packable(ham.n_words)
     dev = ham.device
     n_orb = ham.n_orb
     hf_words, _, hf_en = mol.hf_reference(ham)

@@ -229,14 +229,11 @@ def parse_hh_input(path):
 
 def read_dets(path, n_bits):
     """Determinants stored as decimal bit masks, one per line -> (N, W)
-    uint32 words.  Masks of up to 64 bits (two words)."""
+    uint32 words, for any width (the masks are read as Python ints)."""
     n_words = dets.n_words(n_bits)
-    dets.require_packable(n_words)
-    masks = np.asarray(Path(path).read_text().split(), dtype=np.uint64)
-    out = np.zeros((len(masks), n_words), np.uint32)
-    for w in range(n_words):
-        out[:, w] = (masks >> np.uint64(32 * w)) & np.uint64(dets.WORD_MASK)
-    return out
+    masks = [int(x) for x in Path(path).read_text().split()]
+    return np.asarray([[(m >> (32 * w)) & dets.WORD_MASK for w in range(n_words)]
+                       for m in masks], np.uint32).reshape(-1, n_words)
 
 
 def load_vec_txt(prefix, n_bits):

@@ -216,18 +216,19 @@ def fold_vector_host(ham: mol.MolecularHamiltonian, keys, vals, spin_parity: int
     keys, vals = keys[vals != 0], vals[vals != 0]
     words = torch.as_tensor(keys)
     flipped = dets.flip_spins(words, ham.n_orb, ham.n_bits)
-    k_key, f_key = dets.pack_key(words).numpy(), dets.pack_key(flipped).numpy()
+    self_conj = dets.det_eq(words, flipped).numpy()
+    flip_less = dets.det_less(flipped, words).numpy()
     flipped = flipped.numpy()
     merged: dict = {}
     for i in range(keys.shape[0]):
         v = vals[i]
-        if k_key[i] == f_key[i]:
+        if self_conj[i]:
             if spin_parity == -1:
                 continue
             canon = keys[i]
         else:
             v = v / np.sqrt(2.0)
-            if k_key[i] > f_key[i]:
+            if flip_less[i]:
                 canon, v = flipped[i], v * spin_parity
             else:
                 canon = keys[i]

@@ -8,8 +8,9 @@ bench.py's exact-H configuration, ``--dedup_cap N`` for its dedup variant;
 ``subsp_lowmem``, ``subsp_multi`` and ``subspfull`` (exact H); ``--workload
 fciqmc``, bench.py's 5M-walker FCIQMC configuration; ``--workload
 frimulti``; the Hubbard-Holstein ``frifull_hh`` and ``frisys_hh``; the
-observable estimators ``observables`` and ``obs_repl``; or ``unfused``, the
-rung with its five comp_sub rounds), runs
+observable estimators ``observables`` and ``obs_repl``; ``unfused``, the
+rung with its five comp_sub rounds; or the Ne/cc-pVQZ-shaped four-word
+configurations ``ne_qz``, ``ne_qz_unnorm`` and ``ne_qz_subsp``), runs
 warm-up steps (frifull, subspfull and frisys_hh: until the vectors hold
 their budgets of nonzeros; fciqmc: bench.py's 60; the observables: the
 6 of their burn-in), then
@@ -186,7 +187,7 @@ def main(argv=None):
     parser.add_argument("--workload", choices=[
         "frisys", "semistoch", "frifull", "subsp", "subsp_lowmem", "subsp_multi", "subspfull",
         "fciqmc", "frimulti", "frifull_hh", "frisys_hh", "observables", "obs_repl",
-        "unfused"], default="frisys")
+        "unfused", "ne_qz", "ne_qz_unnorm", "ne_qz_subsp"], default="frisys")
     parser.add_argument("--dedup_cap", type=int, default=0,
                         help="frifull: collapse each chunk's stream to this many rows")
     parser.add_argument("--steps", type=int, default=3)
@@ -221,6 +222,11 @@ def main(argv=None):
         step, state, est, _ = rung.build_frisys_hh(dev)
     elif args.workload == "unfused":
         step, state, est, _ = rung.build(dev, fuse_ab=False, fuse_cd=False)
+    elif args.workload in ("ne_qz", "ne_qz_unnorm"):
+        step, state, est, _ = rung.build_ne_qz(dev, unnorm=args.workload == "ne_qz_unnorm")
+    elif args.workload == "ne_qz_subsp":
+        step, state, _ = rung.build_ne_qz_subsp(dev)
+        est = ()
     elif args.workload == "subspfull":
         step, state, _ = rung.build_subspfull(dev)
         est = ()

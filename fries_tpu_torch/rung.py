@@ -85,6 +85,21 @@
 * ``unfused``: the 1e6 rung with ``fuse_ab=False, fuse_cd=False`` (five
   comp_sub rounds, A to E, per step).
 
+* ``ne_qz``: the published Ne/cc-pVQZ frisys_mol run (BASELINE.md:27,
+  systematic HB-PP FCI-FRI at 500k vector and matrix nonzeros, n_a = 1) at
+  bench.py's 500k rung (``FULL_LADDER``): eps 1e-3, vec_nonz = matr_samp =
+  500,000, capacity 2^20, spawn_cap 532,768, init_thresh 1.0, target_norm
+  1e6, HF trial vector, fused stages; ``unnorm=True`` is BASELINE.md:46's
+  unnormalized run.  The system has the published shape with synthetic
+  integrals (``synth.make_system(54, 8, symm=NE_QZ_SYMM, seed=1,
+  scale_two=0.1)``): 54 active orbitals (cc-pVQZ's 5s4p3d2f1g, 55
+  functions, less the frozen 1s), 8 electrons, D2h irreps; 108 bits, four
+  words.  The real integrals wait for the integral pipeline.
+* ``ne_qz_subsp``: bench.py's subsp configuration (:func:`subspace_config`,
+  unchanged) on that system, as bench.py runs it by default
+  (``FRIES_SUBSP_SYSTEM=ne_ccpvqz``): HF and bench.py's real-system single,
+  the HOMO (orbital 3) to the first virtual of its irrep.
+
 ``chip_smoke.py`` times them and :mod:`fries_tpu_torch.profile_step`
 profiles them.
 """
@@ -106,6 +121,19 @@ SPAWN_CAP = 1_032_768
 EPS = 1e-3
 N_DETERM = 150
 DETERM_MAX_SHARE = 0.7   # of matr_samp, for the dense block's elements
+
+
+# Ne/cc-pVQZ's D2h irreps in the XOR ids of the synthetic systems (Ag 0,
+# B1g 1, B2g 2, B3g 3, Au 4, B1u 5, B2u 6, B3u 7): the occupied 2s (Ag) and
+# 2p (B1u, B2u, B3u) first, then the virtuals.  s: Ag; p: B1u, B2u, B3u; d:
+# 2 Ag, B1g, B2g, B3g; f: Au, 2 B1u, 2 B2u, 2 B3u; g: 3 Ag, 2 B1g, 2 B2g,
+# 2 B3g; over 5s4p3d2f1g less the frozen 1s: Ag 13, B1u / B2u / B3u 8
+# each, B1g / B2g / B3g 5 each, Au 2.
+NE_QZ_SYMM = (0, 5, 6, 7) + (0,) * 12 + (5,) * 7 + (6,) * 7 + (7,) * 7 + (1,) * 5 \
+    + (2,) * 5 + (3,) * 5 + (4,) * 2
+NE_QZ_SAMP = 500_000
+NE_QZ_CAPACITY = 1 << 20
+NE_QZ_SPAWN_CAP = 532_768
 
 
 def config(**stages) -> frisys.FrisysConfig:
@@ -132,13 +160,14 @@ def build(device, seed: int = 0, **stages):
 
 def determ_space(ham, n_determ: int = N_DETERM, max_elements: float | None = None):
     """HF and the ``n_determ - 1`` determinants with the largest
-    |((H - E_HF) HF)|, ties by packed key, as (n, W) int64 words; cut to the
+    |((H - E_HF) HF)|, ties in the arena's order, as (n, W) int64 words; cut to the
     largest prefix whose dense block has fewer than ``max_elements``
     elements when that is given."""
     hf = dets.hf_det(ham.n_orb, ham.n_elec)
     keys, vals = frisys.compute_htrial(ham, hf[None].numpy(), np.ones(1))
-    packed = dets.pack_key(torch.as_tensor(keys)).numpy()
-    rest = packed != int(dets.pack_key(hf))
+    (packed, hf_key), _, _ = dets.order_keys(torch.as_tensor(keys), hf)
+    packed = packed.numpy()
+    rest = packed != int(hf_key)
     order = np.lexsort((packed[rest], -np.abs(vals[rest])))[:n_determ - 1]
     space = np.concatenate([hf[None].numpy(), keys[rest][order]])
     if max_elements is not None:
@@ -314,3 +343,41 @@ def build_frimulti(device, seed: int = 0):
     ham = synth.n2_ccpvdz_like(seed=1, device=device)
     step, _, state, aux = frimulti.build(ham, frimulti_config(), seed=seed)
     return step, state, estimator_args(aux), aux
+
+
+def ne_qz_system(device=None):
+    """The Ne/cc-pVQZ-shaped system: 54 orbitals, 8 electrons, four-word
+    determinants."""
+    return synth.make_system(54, 8, symm=np.array(NE_QZ_SYMM), seed=1, scale_two=0.1,
+                             device=device)
+
+
+def ne_qz_config(unnorm: bool = False) -> frisys.FrisysConfig:
+    return frisys.FrisysConfig(eps=EPS, vec_nonz=NE_QZ_SAMP, matr_samp=NE_QZ_SAMP,
+                               capacity=NE_QZ_CAPACITY, spawn_cap=NE_QZ_SPAWN_CAP,
+                               init_thresh=1.0, target_norm=2.0 * NE_QZ_SAMP, unnorm=unnorm)
+
+
+def build_ne_qz(device, unnorm: bool = False, seed: int = 0):
+    """The ``ne_qz`` configuration (``unnorm``: its unnormalized run) on
+    ``device``.  Returns (step, state, est, aux) as :func:`build` does."""
+    step, _, state, aux = frisys.build(ne_qz_system(device), ne_qz_config(unnorm), seed=seed)
+    return step, state, estimator_args(aux), aux
+
+
+def ne_qz_single(ham):
+    """bench.py's real-system single: the HOMO to the first virtual of its
+    irrep, as (occ, virt)."""
+    symm = ham.symm.cpu().numpy()
+    o = ham.n_elec // 2 - 1
+    return o, next(i for i in range(o + 1, ham.n_orb) if symm[i] == symm[o])
+
+
+def build_ne_qz_subsp(device, seed: int = 0, **modes):
+    """The ``ne_qz_subsp`` configuration on ``device``.  Returns (step, state,
+    aux) as :func:`build_subspace` does."""
+    ham = ne_qz_system(device)
+    step, _, state, aux = subspace.build(ham, subspace_config(**modes),
+                                         hf_and_single(ham, *ne_qz_single(ham)),
+                                         [[1.0], [1.0]], seed=seed)
+    return step, state, aux

@@ -59,7 +59,6 @@ class Arena:
 
 def make(capacity: int, n_words: int, n_vecs: int, device=None) -> Arena:
     """An empty arena."""
-    dets.require_packable(n_words)
     return Arena(
         keys=dets.invalid_det(n_words, device).repeat(capacity, 1),
         vals=torch.zeros((n_vecs, capacity), dtype=F64, device=device),
@@ -76,7 +75,7 @@ def from_unsorted(arena: Arena, keys: torch.Tensor, vals: torch.Tensor) -> Arena
     if c > n:
         keys = torch.cat([keys, dets.invalid_det(arena.n_words, dev).repeat(c - n, 1)])
         vals = torch.cat([vals, vals.new_zeros((vals.shape[0], c - n))], dim=1)
-    perm = torch.sort(dets.pack_key(keys), stable=True).indices
+    perm = dets.sort_dets(keys)
     keys = keys[perm]
     return Arena(keys=keys, vals=vals[:, perm],
                  n_used=(~dets.is_invalid(keys)).sum()[None])
@@ -158,11 +157,10 @@ def accumulate(arena: Arena, spawn_keys, spawn_vals, spawn_ini,
     spawn lands on it (by count, not value).  Invalid spawns carry the
     sentinel key.  Returns (new_arena, {"overflow", "nonini_occ_add"}); on
     overflow the first C rows of the merged order are kept."""
-    c, w = arena.keys.shape
+    c = arena.capacity
     dev = arena.device
-    sent = dets.sentinel_key(w)
-    akey = dets.pack_key(arena.keys)
-    skey, perm = torch.sort(dets.pack_key(spawn_keys), stable=True)
+    (akey, skey), sent, decode = dets.order_keys(arena.keys, spawn_keys)
+    skey, perm = torch.sort(skey, stable=True)
     sval = spawn_vals[perm].to(F64)
     sini = spawn_ini[perm]
     s_valid = skey != sent
@@ -186,15 +184,15 @@ def accumulate(arena: Arena, spawn_keys, spawn_vals, spawn_ini,
     is_new = u_valid & ~u_found & (seg_cnt > 0)
     new_vals = vals.new_zeros((arena.n_vecs, int(is_new.sum())))
     new_vals[dest_row] = seg_sum[is_new]
-    return _insert(arena, akey, vals, ukey[is_new], new_vals, nonini)
+    return _insert(arena, akey, vals, ukey[is_new], new_vals, nonini, sent, decode)
 
 
-def _insert(arena: Arena, akey, vals, new_keys, new_vals, nonini):
-    """The arena's valid rows (packed keys ``akey``, value rows ``vals``)
-    merged with new keys in key order; the first C rows are kept."""
-    c, w = arena.keys.shape
+def _insert(arena: Arena, akey, vals, new_keys, new_vals, nonini, sent, decode):
+    """The arena's valid rows (keys ``akey`` of :func:`dets.order_keys`, its
+    ``sent`` and ``decode``; value rows ``vals``) merged with new keys in
+    key order; the first C rows are kept."""
+    c = arena.capacity
     dev = arena.device
-    sent = dets.sentinel_key(w)
     a_valid = akey != sent
     all_keys = torch.cat([akey[a_valid], new_keys])
     all_vals = torch.cat([vals[:, a_valid], new_vals], dim=1)
@@ -204,7 +202,7 @@ def _insert(arena: Arena, akey, vals, new_keys, new_vals, nonini):
     out_keys[: order.shape[0]] = all_keys[order]
     out_vals = vals.new_zeros((arena.n_vecs, c))
     out_vals[:, : order.shape[0]] = all_vals[:, order]
-    new_arena = Arena(keys=dets.unpack_key(out_keys, w), vals=out_vals,
+    new_arena = Arena(keys=decode(out_keys), vals=out_vals,
                       n_used=torch.tensor([min(n_alive, c)], device=dev))
     return new_arena, {"overflow": torch.tensor(n_alive > c, device=dev),
                        "nonini_occ_add": nonini}
@@ -223,12 +221,11 @@ def accumulate_multi(arena: Arena, spawn_keys, spawn_vals, spawn_rows, spawn_ini
     occupied targets over all rows.  On overflow the first C rows of the
     merged order are kept.  Returns (new_arena, {"overflow",
     "nonini_occ_add"})."""
-    c, w = arena.keys.shape
+    c = arena.capacity
     r = arena.n_vecs
     dev = arena.device
-    sent = dets.sentinel_key(w)
-    akey = dets.pack_key(arena.keys)
-    skey, perm = torch.sort(dets.pack_key(spawn_keys), stable=True)
+    (akey, skey), sent, decode = dets.order_keys(arena.keys, spawn_keys)
+    skey, perm = torch.sort(skey, stable=True)
     sval = spawn_vals[perm].to(F64)
     sini = spawn_ini[perm]
     srow = spawn_rows[perm].to(torch.int64)
@@ -253,7 +250,8 @@ def accumulate_multi(arena: Arena, spawn_keys, spawn_vals, spawn_rows, spawn_ini
     vals = arena.vals.clone()
     vals[:, upos[u_found]] += seg_sum[:, u_found]
     is_new = u_valid & ~u_found & (seg_cnt > 0)
-    return _insert(arena, akey, vals, ukey[is_new], seg_sum[:, is_new], nonini)
+    return _insert(arena, akey, vals, ukey[is_new], seg_sum[:, is_new], nonini, sent,
+                   decode)
 
 
 def dedup_spawns(spawn_keys, spawn_vals, spawn_ini, cap: int):
@@ -268,10 +266,10 @@ def dedup_spawns(spawn_keys, spawn_vals, spawn_ini, cap: int):
     says that more than ``cap`` segments were live, and then the first
     ``cap`` are kept.  Every shape is fixed, so nothing is read on the
     host."""
-    s, w = spawn_keys.shape
+    s = spawn_keys.shape[0]
     dev = spawn_keys.device
-    sent = dets.sentinel_key(w)
-    key = torch.where(spawn_vals == 0, sent, dets.pack_key(spawn_keys))
+    (key,), sent, decode = dets.order_keys(spawn_keys)
+    key = torch.where(spawn_vals == 0, sent, key)
     skey, perm = torch.sort(key, stable=True)
     sval = spawn_vals[perm].to(F64)
     sini = spawn_ini[perm]
@@ -295,7 +293,7 @@ def dedup_spawns(spawn_keys, spawn_vals, spawn_ini, cap: int):
         0, dest, torch.where(live, sval, 0.0))
     out_ini = torch.zeros(cap + DEDUP_SPARE, dtype=torch.bool, device=dev)
     out_ini[dest] = sini
-    return (dets.unpack_key(out_keys[:cap], w), out_vals[:cap], out_ini[:cap],
+    return (decode(out_keys[:cap]), out_vals[:cap], out_ini[:cap],
             has.sum() > cap)
 
 

@@ -35,8 +35,9 @@ keep mask only (1, 0, 0) and (2, 0, 1), the layouts the fused-compaction
 condition above is shown for.
 
 On the card the spawn keys are packed and sorted with ``torch.sort``
-(:func:`sort_spawns`); everything else is the kernel entry, four device
-operations (``csrc/merge_common.cuh`` has the design): it reads the arena's
+(:func:`sort_spawns`: one sort of the int64 key for W <= 2, two stable
+sorts of the 128-bit key's halves for W = 3, 4); everything else is the
+kernel entry, four device operations (``csrc/merge_common.cuh`` has the design): it reads the arena's
 (C, W) words and (R, C) value rows and the spawns through the sort's
 permutation, and writes the merged arena's words and value rows.  The
 returned ``n_used`` and ``nonini_occ_add`` are views of the kernel's control
@@ -55,6 +56,7 @@ from fries_tpu_torch.runtime import arena as arena_mod
 F64 = torch.float64
 TILE = 1024        # kTile in csrc/merge_common.cuh
 CTRL_HEAD = 8      # kCtrlHead: {n_out, nonini_occ_add, n_used, ...}
+MAX_WORDS = 4      # keys of W <= 2 words are one int64, of W = 3, 4 128 bits
 
 LAUNCHES = 0
 """Kernel launches made by :func:`accumulate` (CUDA tensors only)."""
@@ -83,9 +85,20 @@ def accumulate_plain(arena, spawn_keys, spawn_vals, spawn_ini,
 
 
 def sort_spawns(spawn_keys):
-    """The spawn stream's packed keys sorted (stable) and the permutation:
-    the work a CUDA merge does before its kernel entry."""
-    return torch.sort(dets.pack_key(spawn_keys), stable=True)
+    """The spawn stream's keys sorted (stable) and the permutation: the work
+    a CUDA merge does before its kernel entry.  W <= 2: the (S,) packed
+    int64 keys.  W = 3, 4: the (S, 2) 128-bit keys as int64 (lo, hi)
+    halves, each sign-flipped (:func:`dets.key_columns`), from one stable
+    sort per half, the low half first (:func:`dets.sort_dets`' order).  The
+    halves are gathered, not the (S, W) rows: a row gather through the
+    permutation costs as much as both sorts on the card."""
+    if dets.packable(spawn_keys.shape[-1]):
+        return torch.sort(dets.pack_key(spawn_keys), stable=True)
+    lo, hi = dets.key_columns(spawn_keys)
+    perm = torch.sort(lo, stable=True).indices
+    hi_sorted, p2 = torch.sort(hi[perm], stable=True)
+    perm = perm[p2]
+    return torch.stack([lo[perm], hi_sorted], dim=-1), perm
 
 
 def ptr(t):
@@ -100,9 +113,13 @@ def launch(kernel, entry, arena, spawn_keys, spawn_vals, spawn_ini, n_chan,
     ``arena_args``, the sorted keys, the permutation, the values, then
     ``spawn_args``, the initiator flags, S, the sentinel, the scratch, the
     control block, the outputs and the stream.  Returns the merged arena
-    and its stats."""
+    and its stats.  W > :data:`MAX_WORDS` raises ``NotImplementedError``."""
     c, w = arena.keys.shape
     s = spawn_keys.shape[0]
+    if not 1 <= w <= MAX_WORDS:
+        raise NotImplementedError(
+            f"{kernel}: keys of {w} words (> {MAX_WORDS}, more than 64 orbitals) "
+            "are not ported to the card")
     if c < 1 or s < 1:
         raise ValueError(f"{kernel}: arena and spawn stream must be non-empty")
     if c + s >= 2**31:
@@ -115,7 +132,8 @@ def launch(kernel, entry, arena, spawn_keys, spawn_vals, spawn_ini, n_chan,
     _build.check_tensor(kernel, "spawn initiator flags", spawn_ini, torch.bool, (s,))
     skey, perm = sort_spawns(spawn_keys)
     nt_r, nt_m = -(-s // TILE), -(-(c + s) // TILE)
-    scratch = (torch.empty(s, dtype=torch.int64, device=dev),               # unique keys
+    key_words = 1 if dets.packable(w) else 2      # int64 words per key
+    scratch = (torch.empty(key_words * s, dtype=torch.int64, device=dev),   # unique keys
                torch.empty(2 * n_chan * s, dtype=F64, device=dev),          # their sums
                torch.empty((n_chan + 1) * s, dtype=torch.int32, device=dev),  # their counts
                torch.empty(2 * nt_r * (2 + 3 * n_chan), dtype=F64, device=dev))  # look-back
@@ -126,7 +144,8 @@ def launch(kernel, entry, arena, spawn_keys, spawn_vals, spawn_ini, n_chan,
     err = getattr(_build.load(), entry)(
         ptr(keys), ptr(vals), ctypes.c_int64(c), ctypes.c_int(w), ctypes.c_int(arena.n_vecs),
         *arena_args, ptr(skey), ptr(perm), ptr(spawn_vals), *spawn_args, ptr(spawn_ini),
-        ctypes.c_int64(s), ctypes.c_int64(dets.sentinel_key(w)), *map(ptr, scratch),
+        ctypes.c_int64(s), ctypes.c_int64(dets.sentinel_key(w) if key_words == 1 else 0),
+        *map(ptr, scratch),
         ptr(ctrl), ptr(okw), ptr(ovals), ptr(overflow),
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     if err != 0:

@@ -1051,3 +1051,130 @@ def test_observables_step_cuda_matches_cpu(cuda, replica, target_nonz):
         merges += int(mc["n_merges"])
     assert merge.LAUNCHES - m0 == merges and merges > 20
     assert float(mc["obs_num"]) != 0.0
+
+
+# ---------------------------------------------------------------------------
+# kernels A and C on 128-bit keys (W = 3, 4)
+# ---------------------------------------------------------------------------
+
+def wide_case(rng, n_words, capacity, n_occ, n_spawn, n_universe, n_rows=1,
+              ini_frac=0.6, invalid_frac=0.1):
+    """merge_case's arena and stream over keys of 3 or 4 words: half of the
+    rows share most words (zeros), the other half are copies of them with
+    one word redrawn, so pairs differ only in the low word or only above the
+    64-bit boundary; ``n_rows`` value rows, a quarter of them zero, and a
+    destination row per spawn."""
+    base = rng.integers(0, 2**32, size=(n_universe // 2, n_words))
+    base[rng.random(base.shape) < 0.5] = 0
+    base[:, -1] &= 0x00FFFFFF
+    var = base.copy()
+    var[np.arange(len(var)), rng.integers(0, n_words, len(var))] = rng.integers(
+        0, 2**24, len(var))
+    uni = np.unique(np.concatenate([base, var]), axis=0)
+    uni = uni[dets.sort_dets(torch.as_tensor(uni)).numpy()]
+    occ = uni[np.sort(rng.choice(len(uni), min(n_occ, len(uni)), replace=False))]
+    a = ar.make(capacity, n_words, n_rows)
+    keys = a.keys.clone()
+    keys[: len(occ)] = torch.as_tensor(occ)
+    vals = rng.standard_normal((n_rows, capacity))
+    vals[rng.random(vals.shape) < 0.25] = 0.0
+    vals[:, len(occ):] = 0.0
+    a = ar.Arena(keys=keys, vals=torch.as_tensor(vals), n_used=torch.tensor([len(occ)]))
+    sk = uni[rng.integers(0, len(uni), n_spawn)].copy()
+    sk[rng.random(n_spawn) < invalid_frac] = dets.WORD_MASK
+    return (a, torch.as_tensor(sk), torch.as_tensor(rng.standard_normal(n_spawn) * 0.3),
+            torch.as_tensor(rng.integers(0, n_rows, n_spawn)),
+            torch.as_tensor(rng.random(n_spawn) < ini_frac))
+
+
+WIDE_CASES = {"random": {}, "sentinel_heavy": dict(invalid_frac=0.9),
+              "overflow": dict(capacity=256, n_occ=250, ini_frac=1.0, invalid_frac=0.0),
+              "empty_arena": dict(n_occ=0), "empty_spawns": dict(invalid_frac=1.0),
+              "one_key": {}}
+
+
+def wide_regime(rng, n_words, case, n_rows=1):
+    kw = dict(capacity=1 << 13, n_occ=3000, n_spawn=6000, n_universe=8000, n_rows=n_rows)
+    kw.update(WIDE_CASES[case])
+    a, sk, sv, sr, si = wide_case(rng, n_words, **kw)
+    if case == "one_key":       # a run of one key across several tiles
+        sk[:2500] = a.keys[int(a.n_used[0]) // 2]
+    return a, sk, sv, sr, si
+
+
+@pytest.mark.parametrize("case", sorted(WIDE_CASES))
+@pytest.mark.parametrize("n_words", [3, 4])
+def test_merge_wide_matches_plain(cuda, n_words, case):
+    rng = np.random.default_rng(700 + 10 * n_words + len(case))
+    a, sk, sv, _, si = wide_regime(rng, n_words, case)
+    run_merge(cuda, a, sk, sv, si, (1, 0, 0))
+    keep = torch.as_tensor(rng.random(a.capacity) < 0.05)
+    run_merge(cuda, a, sk, sv, si, (2, 0, 1), keep)
+
+
+@pytest.mark.parametrize("case", sorted(WIDE_CASES))
+@pytest.mark.parametrize("n_words", [3, 4])
+def test_merge_multi_wide_matches_plain(cuda, n_words, case):
+    rng = np.random.default_rng(800 + 10 * n_words + len(case))
+    stats = run_merge_multi(cuda, *wide_regime(rng, n_words, case, n_rows=3))
+    assert bool(stats["overflow"]) == (case == "overflow")
+
+
+def test_merges_refuse_five_words(cuda):
+    """More than 64 orbitals raises before a launch, on both merges."""
+    a = to_dev(ar.make(64, 5, 2), cuda)
+    sv = torch.zeros(4, dtype=torch.float64, device=cuda)
+    si = torch.ones(4, dtype=torch.bool, device=cuda)
+    with pytest.raises(NotImplementedError):
+        merge.accumulate(a, a.keys[:4], sv, si, 0, 1)
+    with pytest.raises(NotImplementedError):
+        merge_multi.accumulate(a, a.keys[:4], sv, torch.zeros(4, dtype=torch.int64,
+                                                              device=cuda), si)
+
+
+def wide_system(device=None):
+    return synth.make_system(50, 4, symm=np.arange(50) % 4, seed=3, scale_two=0.1,
+                             device=device)
+
+
+def test_wide_frisys_step_cuda_matches_cpu(cuda):
+    """Four-word frisys steps (50 orbitals) on the card and on the CPU from
+    one state with the same uniforms."""
+    cfg = frisys.FrisysConfig(eps=0.01, vec_nonz=400, matr_samp=2000, capacity=8192,
+                              spawn_cap=2600, target_norm=2000.0, shift_interval=2)
+    built = {dev: frisys.build(wide_system(dev), cfg, seed=4) for dev in ("cpu", cuda)}
+    m0, e0 = merge.LAUNCHES, emit.LAUNCHES
+    card_steps_match_cpu(cuda, built, 3, 3)
+    assert merge.LAUNCHES - m0 == 3 and emit.LAUNCHES - e0 == 9
+
+
+def test_wide_subspace_step_cuda_matches_cpu(cuda):
+    """Four-word subspace steps on the card and on the CPU from one state
+    with the same key tree, across a restart."""
+    hf = dets.hf_det(50, 4)
+    d1, _ = dets.single_parity(hf[None], torch.tensor([1]), torch.tensor([5]))
+    tk, tv = torch.stack([hf[None], d1]).numpy(), np.ones((2, 1))
+    cfg = subspace.SubspaceConfig(eps=0.02, n_trial=2, vec_nonz=300, matr_samp=1500,
+                                  capacity=8192, spawn_cap=2000, restart_int=3,
+                                  shift_interval=3)
+    built = {dev: subspace.build(wide_system(dev), cfg, tk, tv, seed=4)
+             for dev in ("cpu", cuda)}
+    step_c, run_c, state, _ = built["cpu"]
+    step_g = built[cuda][0]
+    state, _ = run_c(state, 1)
+    c0 = merge_multi.LAUNCHES
+    for _ in range(3):
+        g_state = subspace.SubspaceState(to_dev(state.arena, cuda),
+                                         state.norm_factors.to(cuda),
+                                         state.last_norms.to(cuda),
+                                         trng.KeyTree(4, cuda), state.iterat)
+        state, mc = step_c(state)
+        g_state, mg = step_g(g_state)
+        np.testing.assert_array_equal(g_state.arena.keys.cpu().numpy(),
+                                      state.arena.keys.numpy())
+        np.testing.assert_allclose(g_state.arena.vals.cpu().numpy(),
+                                   state.arena.vals.numpy(), rtol=1e-10, atol=1e-12)
+        for key in mc:
+            np.testing.assert_allclose(mg[key].cpu().numpy(), mc[key].numpy(),
+                                       rtol=1e-10, atol=1e-12, err_msg=key)
+    assert merge_multi.LAUNCHES - c0 == 3
