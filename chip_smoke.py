@@ -125,6 +125,24 @@ Phases, in order; any failure exits non-zero:
    on that system; 2 + 5 iterations, 1 kernel C launch per iteration
    asserted) and a real iteration's merge input through kernel C and its
    plain version;
+17c. the integral pipeline and bench.py's real molecules: the five
+   systems of ``fries_tpu_torch.real_systems`` built on the card (AO
+   integrals, RHF, MO transform, each timed), H2O and N2/cc-pVDZ also on
+   the CPU and held against the card after the gauge alignment (hcore and
+   ERIs within 1e-10, E_HF within 1e-9 Ha, irreps equal), Ne/cc-pVQZ's
+   RHF energy against the reference pipeline's -128.54347011764926 Ha
+   (within 1e-8) and its irreps against ``rung.NE_QZ_SYMM``; ``ne_qz`` and
+   ``ne_qz_subsp`` above run on that real Ne/cc-pVQZ; then ``rung_real``
+   (the 1e6 rung on real N2/cc-pVDZ: 2 + 5 steps, 1 kernel A and 3 kernel
+   B launches per step asserted, a real step's merge through kernel A and
+   its three emission plans through kernel B), ``semistoch_cisd`` (the CISD
+   on the card, its 150 largest-|c| determinants as the deterministic
+   space; 2 + 5 steps; a real merge with the protected keep bits),
+   ``frifull_real`` (real H2O/cc-pVDZ's (10e, 12o): 2 + 5 steps, 48 kernel
+   A launches per step; a real dedup'd chunk) and ``fciqmc_real`` (real
+   stretched N2: 60 + 5 steps, then bench.py's own capacity and shift
+   interval for its 65 iterations, the first overflow logged); each with
+   ms/step, its rate, peak memory and launches per step;
 18. the timings: each kernel's wrapper and its plain version on the inputs of
    its check at the main path's shapes (the same seeds), last, since the
    profiler that reads device times slows every later launch of the process.
@@ -133,6 +151,13 @@ Phases, in order; any failure exits non-zero:
    kernel entry) and the one-key stress case (``stress_ms``,
    ``stress_device_ms``); ``device_ops`` counts the device operations of one
    call (the kernel entry's are ``device_ops - sort_device_ops``).
+
+19. ``python -m fries_tpu_torch.profile_step`` in a child process for each
+   real configuration (``rung_real``, ``semistoch_cisd``, ``ne_qz``,
+   ``ne_qz_unnorm``, ``ne_qz_subsp``, ``frifull_real``, ``fciqmc_real``):
+   device busy ms and idle share per step, host synchronizations, the
+   largest phases (a profiler slows every later launch of its process, so
+   none runs in this one).
 
 Before it touches the card it checks that neither JAX nor the JAX package is
 loaded.  Prints one JSON line of per-kernel results before the last line,
@@ -150,10 +175,13 @@ those tensors), the semistochastic merge, FCIQMC's merge (``fciqmc``:
 phase 11's real input) and the Hubbard-Holstein paths' real merges
 (``frifull_hh``, ``frisys_hh``) and the observables' real merges
 (``observables (4, 0, 0)``, ``observables (4, 0, 3)``, ``obs_repl (4, 1,
-1)``, ``obs_repl (4, 1, 3)``) and ``ne_qz``'s real four-word merge
-(``ne_qz (W=4)``).  Kernel B's ``shapes`` add frisys_hh's two
-levels (``hh level 1``, ``hh level 2``) and the unfused rung's five
-(``unfused A`` to ``unfused E``), none in its entry's sums; kernel C's the
+1)``, ``obs_repl (4, 1, 3)``), ``ne_qz``'s real four-word merge
+(``ne_qz (W=4)``) and the real molecules' (``rung_real``,
+``semistoch_cisd``, ``frifull_real_chunk``, ``fciqmc_real``).  Kernel B's
+``shapes`` add frisys_hh's two levels (``hh level 1``, ``hh level 2``),
+the unfused rung's five (``unfused A`` to ``unfused E``) and rung_real's
+three (``rung_real A+B``, ``rung_real C+D``, ``rung_real E``), none in
+its entry's sums; kernel C's the
 subspfull chunk (``subspfull_chunk``) and ``ne_qz_subsp``'s real
 four-word merge (``ne_qz_subsp (W=4)``).  ``launches`` sums a kernel's
 launches over the timed steps of every path (``launches_by_path`` breaks
@@ -224,7 +252,10 @@ def check_no_reference_imports():
 
     for name in ("fries_tpu_torch.rung", "fries_tpu_torch.cli", "fries_tpu_torch.profile_step",
                  "fries_tpu_torch.probe_reshape", "fries_tpu_torch.convert",
-                 "fries_tpu_torch.stats", "fries_tpu_torch.runtime.checkpoint"):
+                 "fries_tpu_torch.stats", "fries_tpu_torch.runtime.checkpoint",
+                 "fries_tpu_torch.basis", "fries_tpu_torch.sto3g", "fries_tpu_torch.gto",
+                 "fries_tpu_torch.scf", "fries_tpu_torch.cisd", "fries_tpu_torch.linalg",
+                 "fries_tpu_torch.real_systems"):
         importlib.import_module(name)
     loaded = sorted(n for n, mod in sys.modules.items() if mod is not None and (
         n in ("jax", "fries_tpu") or n.startswith(("jax.", "fries_tpu."))))
@@ -1154,8 +1185,9 @@ def phase_small_wide(dev):
                          system=wide_small_system)
 
 
-def phase_ne_qz(dev):
-    """The ``ne_qz`` configuration (54 orbitals, four-word keys): 2 warm-up
+def phase_ne_qz(dev, ham):
+    """The ``ne_qz`` configuration on real Ne/cc-pVQZ (``ham``, built on the
+    card; 54 orbitals, four-word keys): 2 warm-up
     and 5 timed steps with exactly 1 kernel A and 3 kernel B launches per
     step asserted, then a real step's merge input through kernel A and its
     plain version; then the unnormalized run, 2 + 2 steps.  Returns the
@@ -1169,9 +1201,10 @@ def phase_ne_qz(dev):
     for unnorm, n_timed in ((False, N_TIMED), (True, 2)):
         name = "ne_qz unnorm" if unnorm else "ne_qz"
         t0 = time.perf_counter()
-        step, state, args, aux = rung.build_ne_qz(dev, unnorm=unnorm)
+        step, state, args, aux = rung.build_ne_qz(dev, unnorm=unnorm, ham=ham)
         torch.cuda.synchronize()
-        log(f"{name}: built in {time.perf_counter() - t0:.1f} s (54 orbitals, 8 electrons, "
+        log(f"{name}: built in {time.perf_counter() - t0:.1f} s (real Ne/cc-pVQZ, 54 orbitals, "
+            "8 electrons, "
             f"{aux['ref_key'].shape[0]} words, capacity {cfg.capacity}, spawn_cap "
             f"{cfg.spawn_cap})")
         state, _, _ = timed_block(step, state, args, N_WARM, f"{name} warm-up")
@@ -1202,8 +1235,9 @@ def phase_ne_qz(dev):
     return res, case
 
 
-def phase_ne_qz_subsp(dev):
-    """The ``ne_qz_subsp`` configuration: 2 warm-up and 5 timed iterations,
+def phase_ne_qz_subsp(dev, ham):
+    """The ``ne_qz_subsp`` configuration on real Ne/cc-pVQZ (``ham``): 2
+    warm-up and 5 timed iterations,
     one kernel C launch per iteration asserted; then a real iteration's
     merge input through kernel C and its plain version.  Returns the
     results and that input."""
@@ -1213,10 +1247,10 @@ def phase_ne_qz_subsp(dev):
 
     cfg = rung.subspace_config()
     t0 = time.perf_counter()
-    step, state, aux = rung.build_ne_qz_subsp(dev)
+    step, state, aux = rung.build_ne_qz_subsp(dev, ham=ham)
     torch.cuda.synchronize()
-    log(f"ne_qz_subsp: built in {time.perf_counter() - t0:.1f} s (54 orbitals, 8 electrons, "
-        f"trial vectors HF and the single {rung.ne_qz_single(rung.ne_qz_system())}, "
+    log(f"ne_qz_subsp: built in {time.perf_counter() - t0:.1f} s (real Ne/cc-pVQZ, 54 "
+        f"orbitals, 8 electrons, trial vectors HF and the single {rung.ne_qz_single(ham)}, "
         f"capacity {cfg.capacity}, spawn_cap {cfg.spawn_cap} per state)")
     state, r = subspace_run("ne_qz_subsp", step, state, N_WARM, N_TIMED)
     if r["launches"]["merge_multi"] != N_TIMED:
@@ -1739,20 +1773,24 @@ def phase_frifull_hh(dev):
 
 def capture_emissions(spawn, *args):
     """Run ``spawn(*args)`` and return its result and the plans of the
-    emissions it launched (the keyword arguments of each ``emit.emit``)."""
+    emissions it launched (the keyword arguments of each call), dense
+    (``emit.emit``) and factored (``emit.emit_factored``), in launch
+    order."""
     from fries_tpu_torch.runtime import emit
 
-    plans, orig = [], emit.emit
+    plans, orig = [], (emit.emit, emit.emit_factored)
 
-    def recording(**plan):
-        plans.append(plan)
-        return orig(**plan)
+    def recording(fn):
+        def run(**plan):
+            plans.append(plan)
+            return fn(**plan)
+        return run
 
-    emit.emit = recording
+    emit.emit, emit.emit_factored = recording(orig[0]), recording(orig[1])
     try:
         out = spawn(*args)
     finally:
-        emit.emit = orig
+        emit.emit, emit.emit_factored = orig
     return out, plans
 
 
@@ -2243,8 +2281,332 @@ def phase_cli_resume(dev):
     return res
 
 
+# ---------------------------------------------------------------------------
+# the integral pipeline and bench.py's real molecules
+# ---------------------------------------------------------------------------
+
+REAL_SYSTEMS = ("h2o_ccpvdz", "n2_ccpvdz", "n2_stretched", "ne_augccpvdz", "ne_ccpvqz")
+CARD_VS_CPU = ("h2o_ccpvdz", "n2_ccpvdz")
+E_NE_QZ = -128.54347011764926   # the JAX package's pipeline on a CPU
+
+
+def phase_integrals(dev):
+    """Build the five real systems on the card (AO integrals, RHF, MO
+    transform; the seconds of each), H2O and N2 also on the CPU: card
+    against CPU after the gauge alignment (hcore and ERIs within atol
+    1e-10, E_HF within 1e-9 Ha, irreps equal); Ne/cc-pVQZ's total RHF
+    energy against the reference pipeline's, within 1e-8 Ha, and its irreps
+    against ``rung.NE_QZ_SYMM``.  Returns (results, {name: Hamiltonian on
+    the card})."""
+    import torch
+    from fries_tpu_torch import real_systems, rung, scf
+
+    res, hams = {}, {}
+    for name in REAL_SYSTEMS:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ham, info = real_systems.build(name, dev)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+        if ham.hcore.device.type != "cuda" or ham.eris.device.type != "cuda":
+            raise AssertionError(f"integrals {name}: not built on the card")
+        t = ham.tot_orb
+        if ham.hcore.shape != (t, t) or ham.eris.shape != (t,) * 4:
+            raise AssertionError(f"integrals {name}: shapes {ham.hcore.shape} {ham.eris.shape}")
+        if not (torch.isfinite(ham.hcore).all() and torch.isfinite(ham.eris).all()):
+            raise AssertionError(f"integrals {name}: non-finite integrals")
+        r = {"n_ao": int(info["C"].shape[0]), "n_orb": ham.n_orb, "n_elec": ham.n_elec,
+             "n_frozen": ham.n_frozen, "e_hf_total": info["e_hf_total"],
+             "seconds": {"one_electron": info["seconds"]["one_electron"],
+                         "eri": info["seconds"]["eri"], "scf": info["seconds"]["scf"],
+                         "mo_transform": info["seconds"]["mo_transform"], "total": total}}
+        if name in CARD_VS_CPU:
+            t0 = time.perf_counter()
+            cham, cinfo = real_systems.build(name, "cpu")
+            r["cpu_seconds"] = time.perf_counter() - t0
+            de = abs(info["e_hf_total"] - cinfo["e_hf_total"])
+            if not de < 1e-9:
+                raise AssertionError(f"integrals {name}: E_HF card - CPU = {de}")
+            if not (info["irreps"] == cinfo["irreps"]).all():
+                raise AssertionError(f"integrals {name}: irreps differ")
+            o, off = scf.gauge_alignment(info["C"].cpu(), cinfo["C"], cinfo["S"],
+                                         cinfo["mo_energy"], cinfo["irreps"])
+            hcore, eris = scf.rotate_mo_integrals(ham.hcore.cpu(), ham.eris.cpu(), o)
+            dh = float((hcore - cham.hcore).abs().max())
+            de2 = float((eris - cham.eris).abs().max())
+            if not (off < 1e-8 and dh <= 1e-10 and de2 <= 1e-10):
+                raise AssertionError(f"integrals {name}: card against CPU: off-block {off}, "
+                                     f"hcore {dh}, eris {de2}")
+            r["card_vs_cpu"] = {"e_hf": de, "off_block": off, "hcore": dh, "eris": de2}
+        if name == "ne_ccpvqz":
+            de = abs(info["e_hf_total"] - E_NE_QZ)
+            if not de < 1e-8:
+                raise AssertionError(f"integrals ne_ccpvqz: E_HF {info['e_hf_total']!r} is "
+                                     f"{de} from the reference's {E_NE_QZ!r}")
+            if tuple(ham.symm.tolist()) != rung.NE_QZ_SYMM:
+                raise AssertionError(f"integrals ne_ccpvqz: irreps {ham.symm.tolist()} are not "
+                                     "rung.NE_QZ_SYMM")
+            r["e_hf_minus_reference"] = info["e_hf_total"] - E_NE_QZ
+        res[name] = r
+        hams[name] = ham
+        log(f"integrals {name}: {json.dumps(r)}")
+    return res, hams
+
+
+def power_timed(label, step, state, args, n_warm, n_timed, per_step, **step_kw):
+    """``n_warm`` + ``n_timed`` steps of a power-method workload with the
+    kernels' counts reset just before the timed ones, and the launches per
+    step asserted to be ``per_step`` ({module name: launches}); every
+    step's overflow flag and estimator read.  Returns (state, results)."""
+    import torch
+    from fries_tpu_torch.runtime import emit, merge, merge_multi
+
+    mods = {"merge": merge, "emit": emit, "merge_multi": merge_multi}
+    for i in range(n_warm):
+        state, m = step(state, *args, **step_kw)
+        check_power_metrics(f"{label} warm-up", [m])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for mod in mods.values():
+        mod.LAUNCHES = 0
+    t0 = time.perf_counter()
+    metrics = []
+    for _ in range(n_timed):
+        state, m = step(state, *args, **step_kw)
+        metrics.append(m)
+    torch.cuda.synchronize()
+    s_per_step = (time.perf_counter() - t0) / n_timed
+    launches = {k: mod.LAUNCHES for k, mod in mods.items() if mod.LAUNCHES or k in per_step}
+    check_power_metrics(label, metrics)
+    want = {k: v * n_timed for k, v in per_step.items()}
+    if launches != want:
+        raise AssertionError(f"{label}: launches {launches} in {n_timed} steps, want {want}")
+    last = metrics[-1]
+    return state, {
+        "ms_per_step": 1e3 * s_per_step, "s_per_step": s_per_step,
+        "peak_mem_bytes": torch.cuda.max_memory_allocated(), "launches": launches,
+        "launches_per_step": per_step, "warm_up_steps": n_warm, "timed_steps": n_timed,
+        "overflow": any(bool(m["overflow"]) for m in metrics),
+        "n_dets_timed_steps": [int(m["n_dets"]) for m in metrics],
+        "norm": float(last["norm"]), "shift": float(last["shift"]),
+        "e_corr_est": float(last["proj_num"]) / float(last["proj_den"])}
+
+
+def phase_rung_real(dev, ham):
+    """``rung_real``: the 1e6 rung on real N2/cc-pVDZ, 2 warm-up + 5 timed
+    steps (1 kernel A and 3 kernel B launches per step asserted), then a
+    real step's merge input through kernel A and the three emission plans
+    of that step (A+B, C+D factored, E) through kernel B, each against its
+    plain version.  Returns (results, merge case, {round: plan})."""
+    import torch
+    from fries_tpu_torch import rung
+
+    t0 = time.perf_counter()
+    step, state, args, aux = rung.build_real(dev, ham=ham)
+    torch.cuda.synchronize()
+    log(f"rung_real: built in {time.perf_counter() - t0:.1f} s (real N2/cc-pVDZ, "
+        f"{ham.n_orb} orbitals, {ham.n_elec} electrons, {ham.n_frozen} frozen, capacity "
+        f"{rung.CAPACITY}, spawn_cap {rung.SPAWN_CAP})")
+    state, r = power_timed("rung_real", step, state, args, N_WARM, N_TIMED,
+                           {"merge": 1, "emit": 3})
+    r.update(config="rung_real", sampled_nonzeros_per_s=rung.N_SAMP / r.pop("s_per_step"))
+    log(f"rung_real: {json.dumps(r)}")
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(21)
+    rns = torch.rand(6, dtype=torch.float64, generator=gen).to(dev)
+    case, plans = capture_emissions(power_merge_input, state, aux, rung.EPS, rns)
+    if len(plans) != 3:
+        raise AssertionError(f"rung_real: {len(plans)} emissions in one spawn")
+    plans = dict(zip(("rung_real A+B", "rung_real C+D", "rung_real E"), plans))
+    r["emit_checks"] = {
+        name: check_emit(f"{name}, a real step's plan (N={plan['offsets'].shape[0]})", plan,
+                         need_kept=False) for name, plan in plans.items()}
+    r["real_step"] = {**merge_stream_stats(case[0], case[1]),
+                      **check_merge("rung_real, a real step's stream, (2,0,1) + keep_mask",
+                                    *case[:4], None, case[4])}
+    log(f"rung_real real step: {json.dumps(r['real_step'])}")
+    return r, case, plans
+
+
+def phase_semistoch_cisd(dev, ham):
+    """``semistoch_cisd``: the CISD on the card (its seconds), the 150
+    largest-|c| determinants as the deterministic space, 2 warm-up + 5
+    timed steps with the protected keep bits (1 kernel A and 3 kernel B
+    launches per step asserted), then a real step's merge input through
+    kernel A and its plain version.  Returns (results, merge case)."""
+    import torch
+    from fries_tpu_torch import rung
+    from fries_tpu_torch.runtime import arena as ar
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step, state, args, aux = rung.build_semistoch_cisd(dev, ham=ham)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    prot = aux["protected_keys"]
+    n_el = aux["n_elements"]
+    log(f"semistoch_cisd: CISD and build in {build_s:.1f} s (E_CISD - E_HF "
+        f"{aux['e_cisd']:.10f}, {prot.shape[0]} deterministic determinants, {n_el} dense "
+        f"elements, sampling budget {rung.N_SAMP - n_el}, merge S = {rung.SPAWN_CAP + n_el})")
+    if prot.shape[0] != rung.N_DETERM or not 0 < n_el < rung.DETERM_MAX_SHARE * rung.N_SAMP:
+        raise AssertionError(f"semistoch_cisd: {prot.shape[0]} determinants, {n_el} elements")
+    state, r = power_timed("semistoch_cisd", step, state, args, N_WARM, N_TIMED,
+                           {"merge": 1, "emit": 3}, protected_keys=prot)
+    if not bool(ar.lookup(state.arena, prot)[1].all()):
+        raise AssertionError("semistoch_cisd: a protected determinant left the arena")
+    r.update(config="semistoch_cisd", n_determ=prot.shape[0], n_elements=n_el,
+             e_cisd=aux["e_cisd"], cisd_and_build_s=build_s,
+             sampled_nonzeros_per_s=(rung.N_SAMP - n_el) / r.pop("s_per_step"))
+    log(f"semistoch_cisd: {json.dumps(r)}")
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(22)
+    rns = torch.rand(6, dtype=torch.float64, generator=gen).to(dev)
+    a, w, amp, ini, keep = power_merge_input(state, aux, rung.EPS, rns)
+    pos, found = ar.lookup(a, prot)      # the step's keep mask: the reference and the space
+    mask = torch.zeros(a.capacity + 1, dtype=torch.bool, device=dev)
+    mask.index_fill_(0, torch.where(found, pos, a.capacity), True)
+    keep = keep | mask[:a.capacity]
+    case = (a, w, amp, ini, keep)
+    r["real_step"] = {**merge_stream_stats(a, w),
+                      **check_merge("semistoch_cisd, a real step's stream, (2,0,1) + protected "
+                                    "keep bits", a, w, amp, ini, None, keep)}
+    log(f"semistoch_cisd real step: {json.dumps(r['real_step'])}")
+    return r, case
+
+
+def phase_frifull_real(dev, full):
+    """``frifull_real``: real H2O/cc-pVDZ sliced to (10e, 12o), 2 warm-up +
+    5 timed steps (48 kernel A launches per step asserted), then one real
+    chunk's stream (the second chunk of the next step, dedup'd as the step
+    does) merged by kernel A and its plain version into the arena holding
+    the first chunk's sums.  Returns (results, that chunk's case)."""
+    import torch
+    from fries_tpu_torch import dets, rung
+    from fries_tpu_torch.runtime import arena as ar
+    from fries_tpu_torch.runtime import merge
+
+    cfg = rung.frifull_real_config()
+    n_chunks = -(-cfg.spawn_rows // cfg.batch)
+    ham = rung.frifull_real_system(dev, full=full)
+    t0 = time.perf_counter()
+    step, state, args, aux = rung.build_frifull_real(dev, ham=ham)
+    torch.cuda.synchronize()
+    s_chunk = cfg.batch * aux["n_excitations"]
+    log(f"frifull_real: built in {time.perf_counter() - t0:.1f} s (real H2O/cc-pVDZ, "
+        f"({ham.n_elec}e, {ham.n_orb}o), capacity {cfg.capacity}, {n_chunks} chunks of "
+        f"{cfg.batch} rows, {aux['n_excitations']} template excitations, S = {s_chunk} per "
+        f"chunk, dedup_cap {cfg.dedup_cap})")
+    state, r = power_timed("frifull_real", step, state, args, N_WARM, N_TIMED,
+                           {"merge": n_chunks})
+    s_per_step = r.pop("s_per_step")
+    r.update(config="frifull_real", merge_launches_per_step=n_chunks, spawns_per_chunk=s_chunk,
+             candidates_per_s=n_chunks * s_chunk / s_per_step)
+    log(f"frifull_real: {json.dumps(r)}")
+    a = state.arena
+    vals0 = torch.where(a.valid, a.vals[0], 0.0)
+    sentinel = dets.invalid_det(a.n_words, dev)
+    streams = []
+    for i in range(2):
+        rows = slice(i * cfg.batch, (i + 1) * cfg.batch)
+        w, amp, ini = aux["spawn"](a.keys[rows], vals0[rows], -cfg.eps, None)
+        w = torch.where((amp != 0)[:, None], w, sentinel)
+        w, amp, ini, _ = ar.dedup_spawns(w, amp, ini, cfg.dedup_cap)
+        streams.append((w, amp, ini))
+    mid, _ = merge.accumulate(a, *streams[0], 0, 1)
+    r["real_chunk"] = {**merge_stream_stats(mid, streams[1][0]),
+                       **check_merge("frifull_real, a real chunk's dedup'd stream into the "
+                                     "arena after chunk 0", mid, *streams[1], None, None)}
+    log(f"frifull_real real chunk: {json.dumps(r['real_chunk'])}")
+    return r, (mid, *streams[1], None)
+
+
+def phase_fciqmc_real(dev, ham):
+    """``fciqmc_real``: ``rung.fciqmc_config`` on real stretched N2 as
+    bench.py schedules it (12 blocks of 5 warm-up steps, 5 timed; 1 kernel
+    A launch per step asserted), a real step's merge input through kernel A
+    and its plain version (exact); then bench.py's own values
+    (``fciqmc_config(bench_values=True)``: capacity 2^21, shift interval
+    10) for bench.py's 65 iterations, with the first overflow logged.
+    Returns (results, the merge case)."""
+    import torch
+    from fries_tpu_torch import rung
+
+    cfg = rung.fciqmc_config()
+    t0 = time.perf_counter()
+    step, state, args, aux = rung.build_fciqmc_real(dev, ham=ham)
+    torch.cuda.synchronize()
+    log(f"fciqmc_real: built in {time.perf_counter() - t0:.1f} s (real N2 r = 4.2, "
+        f"{ham.n_orb} orbitals, {ham.n_elec} electrons, capacity {cfg.capacity}, attempt_cap "
+        f"{cfg.attempt_cap}, {rung.FCIQMC_INIT_WALKERS:.0f} walkers on HF)")
+    state, r = power_timed("fciqmc_real", step, state, args, 60, N_TIMED, {"merge": 1})
+    s_per_step = r.pop("s_per_step")
+    r.update(config="fciqmc_real", walker_iterations_per_s=r["norm"] / s_per_step,
+             ns_per_walker_iteration=1e9 * s_per_step / r["norm"],
+             merge_launches_per_step=1)
+    log(f"fciqmc_real: {json.dumps(r)}")
+    case = aux["merge_input"](state)
+    r["real_step"] = {**merge_stream_stats(case[0], case[1]),
+                      **check_merge("fciqmc_real, a real step's post-death arena and spawn "
+                                    "stream, (1,0,0), exact", *case, None, None, exact=True)}
+    log(f"fciqmc_real real step: {json.dumps(r['real_step'])}")
+    del step, state
+    step, state, args, _ = rung.build_fciqmc_real(dev, ham=ham, bench_values=True)
+    first = None
+    norms = []
+    for i in range(65):
+        state, m = step(state, *args)
+        if i % 5 == 4:
+            norms.append(float(m["norm"]))
+        if bool(m["overflow"]):
+            first = i
+            break
+    r["bench_values"] = {"capacity": rung.fciqmc_config(True).capacity, "shift_interval": 10,
+                         "iterations": 65, "first_overflow_iteration": first,
+                         "norm_every_5": norms, "n_dets": int(m["n_dets"])}
+    log(f"fciqmc_real with bench.py's values: {json.dumps(r['bench_values'])}")
+    return r, (*case, None)
+
+
+REAL_PROFILES = ("rung_real", "semistoch_cisd", "ne_qz", "ne_qz_unnorm", "ne_qz_subsp",
+                 "frifull_real", "fciqmc_real")
+
+
+def phase_real_profiles(dev):
+    """``python -m fries_tpu_torch.profile_step --workload W`` for each real
+    configuration, one child process each (a profiler slows every later
+    launch of its process, so none runs in this one): device busy ms and
+    idle share per step, host synchronizations, the largest phases."""
+    import gc
+    import os
+
+    import torch
+    from fries_tpu_torch import _build
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    res = {}
+    for w in REAL_PROFILES:
+        t0 = time.perf_counter()
+        out = subprocess.run([sys.executable, "-m", "fries_tpu_torch.profile_step",
+                              "--workload", w, "--steps", "2", "--trace",
+                              str(_build.BUILD_DIR / f"profile_{w}.json")],
+                             capture_output=True, text=True, timeout=600,
+                             cwd=os.path.dirname(os.path.abspath(__file__)))
+        if out.returncode != 0:
+            raise AssertionError(f"profile_step {w} failed:\n{out.stderr[-3000:]}")
+        rep = json.loads(out.stdout[out.stdout.index("{\n"):])
+        phases = sorted(rep["phase_busy_ms_per_step"].items(), key=lambda kv: -kv[1])[:8]
+        res[w] = {k: rep[k] for k in ("wall_ms_per_step", "device_busy_ms_per_step",
+                                      "device_idle_share", "device_ops_per_step",
+                                      "host_syncs_per_step")}
+        res[w]["top_phases_ms_per_step"] = phases
+        res[w]["seconds"] = time.perf_counter() - t0
+        log(f"profile {w}: {json.dumps(res[w])}")
+    return res
+
+
 def phase_timings(dev, n_elements, chunk_case, fciqmc_case, hh_cases, path_plans, sub_chunk,
-                  obs_cases, ne_qz_case, ne_qz_subsp_case):
+                  obs_cases, ne_qz_case, ne_qz_subsp_case, real_cases):
     """Each kernel's wrapper and its plain version on the inputs of its
     check at the main path's shapes (the same seeds; ``chunk_case`` is the
     exact-H path's own chunk, ``fciqmc_case`` FCIQMC's own merge input,
@@ -2253,7 +2615,9 @@ def phase_timings(dev, n_elements, chunk_case, fciqmc_case, hh_cases, path_plans
     name, ``sub_chunk`` the subspfull path's own kernel C chunk,
     ``obs_cases`` the observables' own merge inputs (arena, spawn keys,
     values, flags, origin, dest) by name, ``ne_qz_case`` and
-    ``ne_qz_subsp_case`` the four-word paths' own kernel A and C inputs),
+    ``ne_qz_subsp_case`` the four-word paths' own kernel A and C inputs,
+    ``real_cases`` the real molecules' own merge inputs (arena, spawn keys,
+    values, flags, keep mask or None) by name),
     with its bound:
     call times first for every kernel, then device times, since the
     profiler slows every later launch of the process."""
@@ -2300,9 +2664,19 @@ def phase_timings(dev, n_elements, chunk_case, fciqmc_case, hh_cases, path_plans
                 a, k, v, i, o, d),
             merge_bound(oa, (osk, osv, osi)), None)
         extras[f"merge {name}"] = {"sort": lambda k=osk: merge.sort_spawns(k)}
+    for name, (ra, rsk, rsv, rsi, rkeep) in real_cases.items():
+        dest = min(1, ra.n_vecs - 1)
+        cases[f"merge {name}"] = (
+            lambda a=ra, k=rsk, v=rsv, i=rsi, m=rkeep, d=dest: merge.accumulate(
+                a, k, v, i, 0, d, keep_mask=m),
+            lambda a=ra, k=rsk, v=rsv, i=rsi, m=rkeep, d=dest: merge.accumulate_plain(
+                a, k, v, i, 0, d, m),
+            merge_bound(ra, (rsk, rsv, rsi), rkeep), None)
+        extras[f"merge {name}"] = {"sort": lambda k=rsk: merge.sort_spawns(k)}
     for name, plan in path_plans.items():
-        _, rp, rs = emit.emit_plain(**plan)
-        cases[f"emit {name}"] = (lambda p=plan: emit.emit(**p), lambda p=plan: emit.emit_plain(**p),
+        kernel, plain = emit_pair(plan)
+        _, rp, rs = plain(**plan)
+        cases[f"emit {name}"] = (lambda f=kernel, p=plan: f(**p), lambda f=plain, p=plan: f(**p),
                                  emit_bound(plan, rp, rs), None)
     for w in (2, 4):    # kernel A at one C and S, two key widths
         gen.manual_seed(90 + w)
@@ -2444,8 +2818,19 @@ def main():
     unf_res, unf_plans = phase_unfused(dev)
     cli_res = phase_cli_resume(dev)
     phase_small_wide(dev)
-    qz_res, qz_case = phase_ne_qz(dev)
-    qzs_res, qzs_case = phase_ne_qz_subsp(dev)
+    int_res, hams = phase_integrals(dev)
+    qz_res, qz_case = phase_ne_qz(dev, hams["ne_ccpvqz"])
+    qzs_res, qzs_case = phase_ne_qz_subsp(dev, hams["ne_ccpvqz"])
+    real_res, real_cases, real_plans = {}, {}, {}
+    real_res["rung_real"], real_cases["rung_real"], real_plans = phase_rung_real(
+        dev, hams["n2_ccpvdz"])
+    real_res["semistoch_cisd"], real_cases["semistoch_cisd"] = phase_semistoch_cisd(
+        dev, hams["n2_ccpvdz"])
+    real_res["frifull_real"], real_cases["frifull_real_chunk"] = phase_frifull_real(
+        dev, hams["h2o_ccpvdz"])
+    real_res["fciqmc_real"], real_cases["fciqmc_real"] = phase_fciqmc_real(
+        dev, hams["n2_stretched"])
+    del hams
     obs_cases = {f"{name} {layout}": (*captured[layout], layout[1], layout[2])
                  for name, captured, layouts in (
                      ("observables", obs_captured, ((4, 0, 0), (4, 0, 3))),
@@ -2454,7 +2839,12 @@ def main():
     # last: its profiler slows what follows
     t = phase_timings(dev, semi_res["n_elements"], chunk_case, fciqmc_case,
                       {"frifull_hh": ffhh_case, "frisys_hh": fshh_case},
-                      {**hh_plans, **unf_plans}, sub_chunk, obs_cases, qz_case, qzs_case)
+                      {**hh_plans, **unf_plans, **real_plans}, sub_chunk, obs_cases, qz_case,
+                      qzs_case, real_cases)
+    del real_cases, real_plans, qz_case, qzs_case, chunk_case, fciqmc_case, ffhh_case, fshh_case
+    del hh_plans, unf_plans, sub_chunk, obs_captured, repl_captured
+    obs_cases = list(obs_cases)     # the names; the tensors go before the child processes
+    profiles = phase_real_profiles(dev)
 
     keys = ("ms", "plain_ms", "device_ms", "plain_device_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -2468,7 +2858,8 @@ def main():
     frisys_bound_by = max((s["bound_ms"], s["bound_by"]) for s in shapes.values())[1]
     emit_step = {key: step_sum(key) for key in ("ms", "plain_ms", "device_ms",
                                                 "plain_device_ms", "bound_ms")}
-    for name, r in {**fshh_res["emit_checks"], **unf_res["emit_checks"]}.items():
+    for name, r in {**fshh_res["emit_checks"], **unf_res["emit_checks"],
+                    **real_res["rung_real"]["emit_checks"]}.items():
         shapes[name] = {**timing(f"emit {name}"), "max_abs_err": r["max_abs_err"],
                         "n_out": r["n_out"], "kept": r["kept"]}
     sort_keys = ("device_ops", "sort_ms", "sort_device_ms", "sort_device_ops")
@@ -2499,6 +2890,13 @@ def main():
         **merge_timing("merge ne_qz"), "max_abs_err": qz_res["ne_qz"]["real_step"]["max_abs_err"],
         **{key: qz_res["ne_qz"]["real_step"][key] for key in (
             "arena_rows", "spawns", "live_spawns", "unique_targets", "longest_run")}}
+    for name, path in (("rung_real", "rung_real"), ("semistoch_cisd", "semistoch_cisd"),
+                       ("frifull_real_chunk", "frifull_real"), ("fciqmc_real", "fciqmc_real")):
+        real = real_res[path]["real_chunk" if name.endswith("chunk") else "real_step"]
+        merge_shapes[name] = {
+            **timing(f"merge {name}"), **{key: t[f"merge {name}"][key] for key in sort_keys},
+            **{key: real[key] for key in ("max_abs_err", "arena_rows", "spawns", "live_spawns",
+                                          "unique_targets", "longest_run")}}
     merge_shapes["frifull_chunk"].update(
         {key: full_res["real_chunk"][key] for key in ("arena_rows", "sentinel_share",
                                                       "unique_targets", "longest_run")},
@@ -2514,7 +2912,8 @@ def main():
         ("subsp_lowmem", modes_res["subsp_lowmem"]), ("subsp_multi", modes_res["subsp_multi"]),
         ("subspfull", sfull_res), ("observables", obs_res), ("obs_repl", repl_res),
         ("unfused rung", unf_res), ("ne_qz", qz_res["ne_qz"]),
-        ("ne_qz unnorm", qz_res["ne_qz unnorm"]), ("ne_qz_subsp", qzs_res))
+        ("ne_qz unnorm", qz_res["ne_qz unnorm"]), ("ne_qz_subsp", qzs_res),
+        *real_res.items())
         if kernel in r["launches"]}
     multi_shape = {**timing("merge_multi subspfull_chunk"),
                    **{key: t["merge_multi subspfull_chunk"][key] for key in sort_keys},
@@ -2564,6 +2963,14 @@ def main():
          "max_abs_err": pc["max_abs_err"], **timing("probe_copy")},
     ]
     log(f"cli resume: {json.dumps(cli_res)}")
+    idle = {name: profiles[name]["device_idle_share"] for name in profiles}
+    configs = {"ne_qz": qz_res["ne_qz"], "ne_qz unnorm": qz_res["ne_qz unnorm"],
+               "ne_qz_subsp": qzs_res, **real_res}
+    brief = {name: {k: v for k, v in r.items() if k not in ("emit_checks", "real_step",
+                                                             "real_chunk")}
+             for name, r in configs.items()}
+    log(f"real molecules: {json.dumps({'integrals': int_res, 'configs': brief})}")
+    log(f"real molecules, device idle share (profile_step): {json.dumps(idle)}")
     log(f"chip_smoke: total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

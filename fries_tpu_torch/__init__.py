@@ -10,7 +10,9 @@ roundings (``compress``, drawing from the key tree of ``rng``), the sorted
 arena and its three hand-written CUDA kernels (``runtime.merge`` /
 ``runtime.emit`` / ``runtime.merge_multi`` over ``csrc/*.cu``), the
 power-iteration core, the frisys, frifull, frimulti, fciqmc and subspace
-drivers (``drivers``), host linear algebra (``linalg``), and the
+drivers (``drivers``), linear algebra and Lanczos (``linalg``), the
+integral pipeline that builds real molecules from geometry (``basis``,
+``sto3g``, ``gto``, ``scf``, ``cisd``, ``real_systems``), and the
 ``frisys_mol`` / ``frifull_mol`` / ``frimulti_mol`` / ``fciqmc_mol`` /
 ``fciqmc_fp_mol`` / ``subsp_mol`` command line (``cli``).
 

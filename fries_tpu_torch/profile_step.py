@@ -9,11 +9,14 @@ bench.py's exact-H configuration, ``--dedup_cap N`` for its dedup variant;
 fciqmc``, bench.py's 5M-walker FCIQMC configuration; ``--workload
 frimulti``; the Hubbard-Holstein ``frifull_hh`` and ``frisys_hh``; the
 observable estimators ``observables`` and ``obs_repl``; ``unfused``, the
-rung with its five comp_sub rounds; or the Ne/cc-pVQZ-shaped four-word
-configurations ``ne_qz``, ``ne_qz_unnorm`` and ``ne_qz_subsp``), runs
+rung with its five comp_sub rounds; the four-word configurations on real
+Ne/cc-pVQZ ``ne_qz``, ``ne_qz_unnorm`` and ``ne_qz_subsp``; or the other
+real molecules ``rung_real`` (the 1e6 rung on N2/cc-pVDZ),
+``semistoch_cisd`` (with the 150-determinant CISD space), ``frifull_real``
+(H2O/cc-pVDZ's (10e, 12o)) and ``fciqmc_real`` (stretched N2)), runs
 warm-up steps (frifull, subspfull and frisys_hh: until the vectors hold
-their budgets of nonzeros; fciqmc: bench.py's 60; the observables: the
-6 of their burn-in), then
+their budgets of nonzeros; fciqmc and fciqmc_real: bench.py's 60; the
+observables: the 6 of their burn-in; the others 3), then
 
 * counts the host synchronizations of one step (``torch.cuda`` sync debug
   mode, one warning per synchronizing call),
@@ -187,7 +190,8 @@ def main(argv=None):
     parser.add_argument("--workload", choices=[
         "frisys", "semistoch", "frifull", "subsp", "subsp_lowmem", "subsp_multi", "subspfull",
         "fciqmc", "frimulti", "frifull_hh", "frisys_hh", "observables", "obs_repl",
-        "unfused", "ne_qz", "ne_qz_unnorm", "ne_qz_subsp"], default="frisys")
+        "unfused", "ne_qz", "ne_qz_unnorm", "ne_qz_subsp", "rung_real", "semistoch_cisd",
+        "frifull_real", "fciqmc_real"], default="frisys")
     parser.add_argument("--dedup_cap", type=int, default=0,
                         help="frifull: collapse each chunk's stream to this many rows")
     parser.add_argument("--steps", type=int, default=3)
@@ -214,6 +218,15 @@ def main(argv=None):
         step, state, est, _ = rung.build_frifull(dev, args.dedup_cap)
     elif args.workload == "fciqmc":
         step, state, est, _ = rung.build_fciqmc(dev)
+    elif args.workload == "rung_real":
+        step, state, est, _ = rung.build_real(dev)
+    elif args.workload == "semistoch_cisd":
+        step, state, est, aux = rung.build_semistoch_cisd(dev)
+        kw = {"protected_keys": aux["protected_keys"]}
+    elif args.workload == "frifull_real":
+        step, state, est, _ = rung.build_frifull_real(dev)
+    elif args.workload == "fciqmc_real":
+        step, state, est, _ = rung.build_fciqmc_real(dev)
     elif args.workload == "frimulti":
         step, state, est, _ = rung.build_frimulti(dev)
     elif args.workload == "frifull_hh":
@@ -244,7 +257,7 @@ def main(argv=None):
     step = lambda state, *est: step_kw(state, *est, **kw)
     for i in range(60):
         state, m = step(state, *est)
-        if args.workload == "fciqmc":
+        if args.workload in ("fciqmc", "fciqmc_real"):
             continue
         if args.workload in ("observables", "obs_repl"):
             if i >= 5:   # the burn-in: the next step starts a period

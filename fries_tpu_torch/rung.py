@@ -90,15 +90,46 @@
   bench.py's 500k rung (``FULL_LADDER``): eps 1e-3, vec_nonz = matr_samp =
   500,000, capacity 2^20, spawn_cap 532,768, init_thresh 1.0, target_norm
   1e6, HF trial vector, fused stages; ``unnorm=True`` is BASELINE.md:46's
-  unnormalized run.  The system has the published shape with synthetic
-  integrals (``synth.make_system(54, 8, symm=NE_QZ_SYMM, seed=1,
-  scale_two=0.1)``): 54 active orbitals (cc-pVQZ's 5s4p3d2f1g, 55
-  functions, less the frozen 1s), 8 electrons, D2h irreps; 108 bits, four
-  words.  The real integrals wait for the integral pipeline.
+  unnormalized run.  The system is ``real_systems.ne_ccpvqz()``: Ne in
+  cc-pVQZ (5s4p3d2f1g, 55 functions), RHF, the 1s frozen: 54 active
+  orbitals, 8 electrons, D2h irreps :data:`NE_QZ_SYMM`; 108 bits, four
+  words.
 * ``ne_qz_subsp``: bench.py's subsp configuration (:func:`subspace_config`,
   unchanged) on that system, as bench.py runs it by default
   (``FRIES_SUBSP_SYSTEM=ne_ccpvqz``): HF and bench.py's real-system single,
-  the HOMO (orbital 3) to the first virtual of its irrep.
+  the HOMO (orbital 3) to the first virtual of its irrep in the real
+  ``symm`` (orbital 6).
+
+The real molecules of bench.py's default branches, built by
+:mod:`fries_tpu_torch.real_systems` on the card (no cache):
+
+* ``rung_real``: the 1e6 rung (:func:`config`, unchanged) on
+  ``real_systems.n2_ccpvdz()``: N2 at r = 2.068 a0, cc-pVDZ, 4 frozen
+  electrons, 26 active orbitals, 10 electrons (bench.py's default frisys
+  branch).
+* ``semistoch_cisd``: ``rung_real`` plus the deterministic space of the
+  :data:`N_DETERM` = 150 determinants of largest |c| in the CISD ground
+  state (tools/flagship.py:182-184, Results.tex:142), the CISD from
+  :func:`fries_tpu_torch.cisd.cisd_ground_state` on the same device.
+  Spin-flip partners have equal |c|, so a tie can straddle the 150th
+  place: |c| is rounded to 1e-10 and ties go in the arena's order
+  (:func:`cisd_determ_space`).
+* ``frifull_real``: bench.py's frifull real branch: real H2O/cc-pVDZ
+  (r = 1.84345 a0, 110.6 degrees, no frozen core) sliced to its first 12
+  orbitals, (10e, 12o), FCI dimension 627,264; eps 0.005, target_nonz
+  30,000, capacity 2^21, target_norm 60,000, batch 1024, spawn_rows
+  49,152 (48 chunks per step), dedup_cap 2^19; seed 0.
+* ``fciqmc_real``: bench.py's fciqmc real branch on
+  ``real_systems.n2_stretched()`` (r = 4.2 a0, cc-pVDZ, 4 frozen, 26
+  orbitals, 10 electrons) with :func:`fciqmc_config` (shift_interval 1,
+  capacity 2^22), the two changes the synthetic system forced, kept so
+  that the two fciqmc cells differ in their system alone.  The real
+  system does not need them: with bench.py's own values
+  (``fciqmc_config(bench_values=True)``: shift_interval 10, capacity
+  2^21) it ran bench.py's 65 iterations without an overflow on an NVIDIA
+  H100 80GB HBM3 at 700 W (the population peaked at 6.6e6 walkers at the
+  20th iteration and held 706,595 determinants at the 65th), which
+  ``chip_smoke.py`` checks each run.
 
 ``chip_smoke.py`` times them and :mod:`fries_tpu_torch.profile_step`
 profiles them.
@@ -109,7 +140,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from fries_tpu_torch import dets, synth
+from fries_tpu_torch import cisd, dets, real_systems, synth
 from fries_tpu_torch.drivers import (fciqmc, frifull, frifull_hh, frimulti, frisys,
                                      frisys_hh, observables, power, subspace)
 from fries_tpu_torch.ops import hubbard
@@ -123,14 +154,15 @@ N_DETERM = 150
 DETERM_MAX_SHARE = 0.7   # of matr_samp, for the dense block's elements
 
 
-# Ne/cc-pVQZ's D2h irreps in the XOR ids of the synthetic systems (Ag 0,
-# B1g 1, B2g 2, B3g 3, Au 4, B1u 5, B2u 6, B3u 7): the occupied 2s (Ag) and
-# 2p (B1u, B2u, B3u) first, then the virtuals.  s: Ag; p: B1u, B2u, B3u; d:
-# 2 Ag, B1g, B2g, B3g; f: Au, 2 B1u, 2 B2u, 2 B3u; g: 3 Ag, 2 B1g, 2 B2g,
-# 2 B3g; over 5s4p3d2f1g less the frozen 1s: Ag 13, B1u / B2u / B3u 8
-# each, B1g / B2g / B3g 5 each, Au 2.
-NE_QZ_SYMM = (0, 5, 6, 7) + (0,) * 12 + (5,) * 7 + (6,) * 7 + (7,) * 7 + (1,) * 5 \
-    + (2,) * 5 + (3,) * 5 + (4,) * 2
+# Ne/cc-pVQZ's D2h irreps in the XOR ids (Ag 0, B1g 1, B2g 2, B3g 3, Au 4,
+# B1u 5, B2u 6, B3u 7) of the real RHF orbitals less the frozen 1s, in
+# orbital order (degenerate orbitals by ascending id): 2s, 2p, 3p, 3s, 3d,
+# ...  s: Ag; p: B1u, B2u, B3u; d: 2 Ag, B1g, B2g, B3g; f: Au, 2 B1u, 2
+# B2u, 2 B3u; g: 3 Ag, 2 B1g, 2 B2g, 2 B3g; over 5s4p3d2f1g less the 1s:
+# Ag 13, B1u / B2u / B3u 8 each, B1g / B2g / B3g 5 each, Au 2.
+NE_QZ_SYMM = (0, 5, 6, 7, 5, 6, 7, 0, 0, 0, 1, 2, 3, 5, 6, 7, 0, 4, 5, 5, 6, 6, 7, 7, 0, 0,
+              1, 2, 3, 0, 0, 0, 1, 1, 2, 2, 3, 3, 5, 6, 7, 4, 5, 5, 6, 6, 7, 7, 0, 0, 1, 2,
+              3, 0)
 NE_QZ_SAMP = 500_000
 NE_QZ_CAPACITY = 1 << 20
 NE_QZ_SPAWN_CAP = 532_768
@@ -312,11 +344,14 @@ def fciqmc_system(device=None):
     return synth.n2_ccpvdz_like(seed=2, device=device)
 
 
-def fciqmc_config() -> fciqmc.FciqmcConfig:
-    return fciqmc.FciqmcConfig(eps=1e-3, target_walkers=5_000_000.0, capacity=1 << 22,
+def fciqmc_config(bench_values: bool = False) -> fciqmc.FciqmcConfig:
+    """The ``fciqmc`` configuration; ``bench_values`` gives bench.py's own
+    capacity (2^21) and shift interval (10)."""
+    return fciqmc.FciqmcConfig(eps=1e-3, target_walkers=5_000_000.0,
+                               capacity=1 << (21 if bench_values else 22),
                                attempt_cap=1 << 23, spawn_cap=1 << 22, distribution="HB",
                                integer_walkers=True, init_thresh=3.0, shift_damping=1.0,
-                               shift_interval=1)
+                               shift_interval=10 if bench_values else 1)
 
 
 FCIQMC_INIT_WALKERS = 4_000_000.0
@@ -345,11 +380,10 @@ def build_frimulti(device, seed: int = 0):
     return step, state, estimator_args(aux), aux
 
 
-def ne_qz_system(device=None):
-    """The Ne/cc-pVQZ-shaped system: 54 orbitals, 8 electrons, four-word
-    determinants."""
-    return synth.make_system(54, 8, symm=np.array(NE_QZ_SYMM), seed=1, scale_two=0.1,
-                             device=device)
+def ne_qz_system(device="cuda"):
+    """Ne/cc-pVQZ with the 1s frozen: 54 orbitals, 8 electrons, four-word
+    determinants (:func:`fries_tpu_torch.real_systems.ne_ccpvqz`)."""
+    return real_systems.ne_ccpvqz(device)
 
 
 def ne_qz_config(unnorm: bool = False) -> frisys.FrisysConfig:
@@ -358,26 +392,105 @@ def ne_qz_config(unnorm: bool = False) -> frisys.FrisysConfig:
                                init_thresh=1.0, target_norm=2.0 * NE_QZ_SAMP, unnorm=unnorm)
 
 
-def build_ne_qz(device, unnorm: bool = False, seed: int = 0):
+def build_ne_qz(device, unnorm: bool = False, seed: int = 0, ham=None):
     """The ``ne_qz`` configuration (``unnorm``: its unnormalized run) on
-    ``device``.  Returns (step, state, est, aux) as :func:`build` does."""
-    step, _, state, aux = frisys.build(ne_qz_system(device), ne_qz_config(unnorm), seed=seed)
+    ``device`` (``ham``: the system, when already built there).  Returns
+    (step, state, est, aux) as :func:`build` does."""
+    ham = ne_qz_system(device) if ham is None else ham
+    step, _, state, aux = frisys.build(ham, ne_qz_config(unnorm), seed=seed)
     return step, state, estimator_args(aux), aux
 
 
 def ne_qz_single(ham):
     """bench.py's real-system single: the HOMO to the first virtual of its
-    irrep, as (occ, virt)."""
+    irrep in ``ham.symm``, as (occ, virt)."""
     symm = ham.symm.cpu().numpy()
     o = ham.n_elec // 2 - 1
     return o, next(i for i in range(o + 1, ham.n_orb) if symm[i] == symm[o])
 
 
-def build_ne_qz_subsp(device, seed: int = 0, **modes):
-    """The ``ne_qz_subsp`` configuration on ``device``.  Returns (step, state,
-    aux) as :func:`build_subspace` does."""
-    ham = ne_qz_system(device)
+def build_ne_qz_subsp(device, seed: int = 0, ham=None, **modes):
+    """The ``ne_qz_subsp`` configuration on ``device`` (``ham``: the system,
+    when already built there).  Returns (step, state, aux) as
+    :func:`build_subspace` does."""
+    ham = ne_qz_system(device) if ham is None else ham
     step, _, state, aux = subspace.build(ham, subspace_config(**modes),
                                          hf_and_single(ham, *ne_qz_single(ham)),
                                          [[1.0], [1.0]], seed=seed)
     return step, state, aux
+
+
+# ---------------------------------------------------------------------------
+# bench.py's real-molecule branches
+# ---------------------------------------------------------------------------
+
+def build_real(device, seed: int = 0, ham=None):
+    """``rung_real``: the 1e6 rung on real N2/cc-pVDZ (``ham``: the system,
+    when already built on ``device``).  Returns (step, state, est, aux) as
+    :func:`build` does."""
+    ham = real_systems.n2_ccpvdz(device) if ham is None else ham
+    step, _, state, aux = frisys.build(ham, config(), seed=seed)
+    return step, state, estimator_args(aux), aux
+
+
+def cisd_determ_space(ham, n_determ: int = N_DETERM):
+    """(space (n_determ, W) int64 numpy, e_cisd_corr): the ``n_determ``
+    determinants of largest |c| in ``ham``'s CISD ground state, computed on
+    ``ham``'s device; |c| rounded to 1e-10, ties in the arena's order (the
+    CISD's determinants are sorted so)."""
+    e, words, vec = cisd.cisd_ground_state(ham)
+    mag = np.round(np.abs(vec.cpu().numpy()), 10)
+    order = np.lexsort((np.arange(len(mag)), -mag))[:n_determ]
+    return words.cpu().numpy()[order], e
+
+
+def build_semistoch_cisd(device, seed: int = 0, ham=None):
+    """``semistoch_cisd``: ``rung_real`` plus the 150-determinant CISD
+    space.  Returns (step, state, est, aux) as :func:`build_semistoch`
+    does; ``aux["e_cisd"]`` is the CISD correlation energy."""
+    ham = real_systems.n2_ccpvdz(device) if ham is None else ham
+    space, e_cisd = cisd_determ_space(ham)
+    step, _, state, aux = frisys.build(ham, config(), seed=seed, determ_keys=space)
+    aux["e_cisd"] = e_cisd
+    return step, state, estimator_args(aux), aux
+
+
+FRIFULL_REAL_ORBITALS = 12
+
+
+def frifull_real_system(device="cuda", full=None):
+    """Real H2O/cc-pVDZ (``full``, when already built) sliced to its first
+    :data:`FRIFULL_REAL_ORBITALS` orbitals: (10e, 12o)."""
+    full = real_systems.h2o_ccpvdz(device) if full is None else full
+    k = FRIFULL_REAL_ORBITALS
+    return mol.MolecularHamiltonian(
+        hcore=full.hcore[:k, :k].contiguous(), eris=full.eris[:k, :k, :k, :k].contiguous(),
+        symm=full.symm[:k].contiguous(), n_orb=k, n_elec=full.n_elec, n_frozen=full.n_frozen)
+
+
+def frifull_real_config() -> power.PowerConfig:
+    return power.PowerConfig(eps=0.005, target_nonz=30_000, capacity=1 << 21,
+                             target_norm=60_000.0, batch=1024, spawn_rows=49_152,
+                             dedup_cap=1 << 19)
+
+
+def build_frifull_real(device, seed: int = 0, ham=None):
+    """``frifull_real`` on ``device`` (``ham``: the sliced system, when
+    already built there).  Returns (step, state, est, aux) as
+    :func:`build_frifull` does."""
+    ham = frifull_real_system(device) if ham is None else ham
+    step, _, state, aux = frifull.build(ham, frifull_real_config(), seed=seed)
+    tmpl = mol.ExcitationTemplate.build(ham.n_orb, ham.n_elec)
+    aux["n_excitations"] = tmpl.n_doub + tmpl.n_sing
+    return step, state, estimator_args(aux), aux
+
+
+def build_fciqmc_real(device, seed: int = 0, ham=None, bench_values: bool = False):
+    """``fciqmc_real``: :func:`fciqmc_config` (or with ``bench_values``
+    bench.py's own) on real stretched N2 (``ham``, when already built on
+    ``device``).  Returns (step, state, est, aux) as :func:`build_fciqmc`
+    does."""
+    ham = real_systems.n2_stretched(device) if ham is None else ham
+    step, _, state, aux = fciqmc.build(ham, fciqmc_config(bench_values), seed=seed,
+                                       init_walkers=FCIQMC_INIT_WALKERS)
+    return step, state, estimator_args(aux), aux
