@@ -152,9 +152,35 @@ Phases, in order; any failure exits non-zero:
    ``stress_device_ms``); ``device_ops`` counts the device operations of one
    call (the kernel entry's are ``device_ops - sort_device_ops``).
 
+17d. hash sharding (:mod:`fries_tpu_torch.parallel`, one process per
+   rank): the probe (gloo must take all three collectives the port issues
+   on CUDA tensors in a 2-rank world on this card, each checked for its
+   values, and so must a 1-rank NCCL world; the phase fails on a refusal); the exchange: a 2-rank world
+   on the card over ``rung_real``'s real spawn stream (each rank half of
+   it): every live row lands on the rank its hash names, once (counts, key
+   checksums and amplitude sums per destination), and the ragged and dense
+   paths deliver the same multiset; ``rung_real_sharded`` at full width in a
+   1-rank NCCL world and in a 2-rank world on the card (gloo, the card
+   shared): 2 warm-up steps, then 2 steps fed fixed uniforms with the
+   kernels and with their plain versions from one state (each captured
+   kernel launch of the last step against its plain version at its own
+   tolerance; the merged arenas and metrics of the two runs within the
+   limits of ``compare_runs``: flags equal, at most 20 keys in one arena
+   only, values' relative L1 under 1e-5, float metrics under 1e-6 and the
+   counts before the vector compression under 2e-5; kernel B emits on
+   rank 1 with a nonzero shard offset, kernel A merges each rank's received
+   stream), then 5 timed steps (ms/step, exchange ms, host syncs per step,
+   peak memory per rank); ``subsp_sharded`` the same way (2 + 2 + 3
+   iterations, kernel C per rank); the reference's identity equivalences
+   (frifull, subspace ``exact_h``), 2 ranks against 1, to rtol 1e-9; and,
+   with two or more cards, ``rung_real_sharded`` under NCCL on 2 cards (else
+   the log says it did not run).  The 2-rank-on-one-card times are two
+   processes sharing one card, not a scaling result;
 19. ``python -m fries_tpu_torch.profile_step`` in a child process for each
    real configuration (``rung_real``, ``semistoch_cisd``, ``ne_qz``,
-   ``ne_qz_unnorm``, ``ne_qz_subsp``, ``frifull_real``, ``fciqmc_real``):
+   ``ne_qz_unnorm``, ``ne_qz_subsp``, ``frifull_real``, ``fciqmc_real``, and
+   the sharded ``rung_real_sharded`` and ``subsp_sharded`` in a 1-rank NCCL
+   world, with the exchange's phases):
    device busy ms and idle share per step, host synchronizations, the
    largest phases (a profiler slows every later launch of its process, so
    none runs in this one).
@@ -189,6 +215,7 @@ them down).
 Usage: ``python3 chip_smoke.py``.
 """
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -2568,7 +2595,7 @@ def phase_fciqmc_real(dev, ham):
 
 
 REAL_PROFILES = ("rung_real", "semistoch_cisd", "ne_qz", "ne_qz_unnorm", "ne_qz_subsp",
-                 "frifull_real", "fciqmc_real")
+                 "frifull_real", "fciqmc_real", "rung_real_sharded", "subsp_sharded")
 
 
 def phase_real_profiles(dev):
@@ -2600,8 +2627,603 @@ def phase_real_profiles(dev):
                                       "device_idle_share", "device_ops_per_step",
                                       "host_syncs_per_step")}
         res[w]["top_phases_ms_per_step"] = phases
+        res[w]["exchange_ms_per_step"] = {k: v for k, v in rep["phase_busy_ms_per_step"].items()
+                                          if k.startswith("exchange")}
         res[w]["seconds"] = time.perf_counter() - t0
         log(f"profile {w}: {json.dumps(res[w])}")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# hash sharding
+# ---------------------------------------------------------------------------
+
+SHARD_RANKS = 2
+SHARD_WARM = 2
+SHARD_FIXED = 2
+SHARD_TIMED = 5
+SUBSP_SHARD_TIMED = 3
+SHARD_STREAM = "shard_stream.pt"
+
+
+@contextlib.contextmanager
+def patched(*targets):
+    """Each ``(module, name, wrap)``: ``module.name`` replaced by
+    ``wrap(module.name)`` for the block, and restored after it."""
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in targets]
+    for (mod, name, wrap), (_, _, orig) in zip(targets, saved):
+        setattr(mod, name, wrap(orig))
+    try:
+        yield
+    finally:
+        for mod, name, orig in reversed(saved):
+            setattr(mod, name, orig)
+
+
+def plain_kernels():
+    """The three kernel wrappers replaced by their plain versions, which run
+    on card tensors as they are (for the kernels' comparison only)."""
+    from fries_tpu_torch.runtime import arena, emit, merge, merge_multi
+
+    return patched((merge, "accumulate", lambda _: merge.accumulate_plain),
+                   (emit, "emit", lambda _: emit.emit_plain),
+                   (emit, "emit_factored", lambda _: emit.emit_factored_plain),
+                   (merge_multi, "accumulate", lambda _: arena.accumulate_multi))
+
+
+def timed_exchanges(times):
+    """CUDA events around every spawn exchange of the power core and the
+    subspace step; ``times`` gets (start, end) pairs."""
+    import torch
+    from fries_tpu_torch.drivers import power
+
+    def wrap(fn):
+        def timed(*args, **kwargs):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kwargs)
+            end.record()
+            times.append((start, end))
+            return out
+        return timed
+    return patched((power, "exchange_spawns", wrap))
+
+
+def shard_offsets(seen):
+    """Record the first parent's grid offset (``cum_parent[0]``) of every
+    emission; ``seen`` gets the values."""
+    from fries_tpu_torch.runtime import emit
+
+    def wrap(fn):
+        def rec(**plan):
+            seen.append(float(plan["cum_parent"][0]))
+            return fn(**plan)
+        return rec
+    return patched((emit, "emit", wrap), (emit, "emit_factored", wrap))
+
+
+def count_syncs(fn):
+    """Host synchronizations of one ``fn()`` (sync debug mode warnings)."""
+    import warnings
+
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        out = fn()
+        torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("default")
+    return out, sum("synchroniz" in str(w.message) for w in caught)
+
+
+def probe_collectives(shards):
+    """Each collective on CUDA tensors of this world, its values checked:
+    {name: None, or the error}."""
+    import torch
+    import torch.distributed as dist
+
+    n, r, dev = shards.size, shards.rank, shards.device
+    x = torch.arange(2 * n, dtype=torch.float64, device=dev) + 100 * r
+    base = torch.arange(2 * n, dtype=torch.float64, device=dev)
+    every = torch.stack([base + 100 * j for j in range(n)])
+
+    def all_reduce():
+        y = x.clone()
+        dist.all_reduce(y)
+        return y, every.sum(0)
+
+    def all_gather():
+        out = [torch.empty_like(x) for _ in range(n)]
+        dist.all_gather(out, x)
+        return torch.stack(out), every
+
+    def all_to_all_single():
+        y = torch.empty_like(x)
+        dist.all_to_all_single(y, x)
+        return y, every[:, 2 * r:2 * r + 2].reshape(-1)
+    out = {}
+    for fn in (all_reduce, all_gather, all_to_all_single):
+        try:
+            got, want = fn()
+            torch.cuda.synchronize()
+            out[fn.__name__] = None if torch.equal(got, want) else "wrong values"
+        except Exception as e:   # a refusal is what the probe reports
+            out[fn.__name__] = f"{type(e).__name__}: {str(e).splitlines()[0][:160]}"
+    return out
+
+
+def exchange_check(shards, path):
+    """Rank r's half of a real spawn stream through both exchanges: every
+    live row on the rank its hash names, once; the same multiset from both
+    paths; times."""
+    import torch
+    from fries_tpu_torch import dets
+    from fries_tpu_torch.runtime import shard as sh
+
+    n, r, dev = shards.size, shards.rank, shards.device
+    blob = torch.load(path)
+    s = blob["words"].shape[0]
+    rows = slice(r * s // n, (r + 1) * s // n)
+    arrays = {"keys": blob["words"][rows].to(dev), "amps": blob["amps"][rows].to(dev),
+              "ini": blob["ini"][rows].to(dev)}
+    tgt = sh.shard_of_words(arrays["keys"], n)
+    live = ~dets.is_invalid(arrays["keys"])
+    cap = max(1, 2 * tgt.shape[0] // n)
+    mix = lambda k: (k * torch.tensor([0x9E3779B1, 0x85EBCA77, 0xC2B2AE3D, 0x27D4EB2F],
+                                      device=dev)[:k.shape[1]]).sum(1)
+    # what each rank sends to each destination: (count, key checksum) and the
+    # amplitude sum
+    sent = torch.stack([torch.stack([(live & (tgt == d)).sum(),
+                                     torch.where(live & (tgt == d), mix(arrays["keys"]), 0).sum()])
+                        for d in range(n)])
+    sent_amp = torch.stack([torch.where(live & (tgt == d), arrays["amps"], 0.0).sum()
+                            for d in range(n)])
+    to_me, amp_to_me = shards.gather(sent)[:, r].sum(0), shards.gather(sent_amp)[:, r].sum()
+    res = {"rows_sent": int(live.sum())}
+    for mode, fn, c in (("ragged", sh.exchange_ragged, n * cap),
+                        ("dense", sh.exchange_dense, cap)):
+        times = []
+        for _ in range(3):
+            shards.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rec, ovf = fn(arrays, tgt, n, c, shards)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+        if bool(ovf):
+            raise AssertionError(f"exchange {mode}: overflow at {c} rows")
+        got = ~dets.is_invalid(rec["keys"])
+        if not bool((sh.shard_of_words(rec["keys"][got], n) == r).all()):
+            raise AssertionError(f"exchange {mode}: a row on rank {r} that it does not own")
+        mine = torch.stack([got.sum(), torch.where(got, mix(rec["keys"]), 0).sum()])
+        amp = torch.where(got, rec["amps"], 0.0).sum()
+        if not torch.equal(mine, to_me) or not torch.isclose(amp, amp_to_me, rtol=1e-12):
+            raise AssertionError(f"exchange {mode}: rank {r} received {mine.tolist()}, "
+                                 f"{float(amp)}; sent to it {to_me.tolist()}, "
+                                 f"{float(amp_to_me)}")
+        order = dets.sort_dets(rec["keys"][got])
+        res[mode] = {"ms": sorted(times)[1], "rows_received": int(got.sum()),
+                     "rows": (rec["keys"][got][order].cpu(), rec["amps"][got][order].cpu(),
+                              rec["ini"][got][order].cpu())}
+    for a, b in zip(res["ragged"].pop("rows"), res["dense"].pop("rows")):
+        if not torch.equal(a, b):
+            raise AssertionError(f"exchange: ragged and dense differ on rank {r}")
+    return res
+
+
+# limits of compare_runs, each about 10x above the largest reading of the
+# H100 runs of rung_real_sharded (1-rank NCCL and 2 ranks on one card):
+# 2 keys in one merged arena only, values' relative L1 7.4e-7, float
+# metrics 3.3e-8, integer metrics 2.1e-6 (subsp_sharded read 0 on each)
+STEP_KEYS_ONE_ONLY = 20
+STEP_VALUES_REL_L1 = 1e-5
+STEP_FLOAT_REL = 1e-6
+STEP_INT_REL = 2e-5
+# integer metrics counted before the vector compression (the merge's
+# sign-coherence count, the kept count of find_preserve on the merged vector)
+PRE_COMPRESSION_COUNTS = ("sgn_coh", "nkept")
+
+
+def compare_runs(label, kern, plain):
+    """Steps from one state each, with the kernels and with their plain
+    versions: per step the merged arena before the vector compression
+    (keys, value rows, n_used) and the metrics.  Kernel B may pick a
+    neighbouring sub where a grid point sits within an ulp of a boundary
+    (0.01% of slots, as its own check allows), and the merge carries that
+    into the rows those spawns reach; the compression after the merge is
+    left out of the arena check, since one element kept more or fewer moves
+    its unit and so re-draws the systematic sample along the vector.  So
+    the flags must be equal; at most ``STEP_KEYS_ONE_ONLY`` keys may sit in
+    one merged arena only; the values' L1 difference relative to the plain
+    run's must stay under ``STEP_VALUES_REL_L1``, the float metrics'
+    relative differences under ``STEP_FLOAT_REL`` and those of the integer
+    metrics counted before the compression (``PRE_COMPRESSION_COUNTS``)
+    under ``STEP_INT_REL``; the rows whose key or values (rtol 1e-10)
+    differ and the largest relative difference of every integer metric
+    (some count after the compression) are reported."""
+    import torch
+    from fries_tpu_torch import dets
+
+    out = {"rows_differing": [], "keys_in_one_only": [], "values_rel_l1": [],
+           "float_metric_max_rel_err": 0.0, "pre_compression_count_max_rel_err": 0.0,
+           "int_metric_max_rel_err": 0.0}
+    for i, (a, b) in enumerate(zip(kern, plain)):
+        valid_a, valid_b = ~dets.is_invalid(a[0]), ~dets.is_invalid(b[0])
+        pos, found = dets.lookup_dets(a[0], b[0])
+        found = found & valid_b
+        hit_a = torch.zeros_like(valid_a)
+        hit_a[pos[found]] = True
+        va, vb = a[1][:, pos[found]], b[1][:, found]
+        close = torch.isclose(va, vb, rtol=1e-10, atol=1e-12).all(0)
+        one_only = int((valid_a & ~hit_a).sum()) + int((valid_b & ~found).sum())
+        diff = (float((va - vb).abs().sum()) + float(a[1][:, valid_a & ~hit_a].abs().sum())
+                + float(b[1][:, valid_b & ~found].abs().sum()))
+        out["rows_differing"].append(one_only + int((~close).sum()))
+        out["keys_in_one_only"].append(one_only)
+        out["values_rel_l1"].append(diff / max(float(b[1][:, valid_b].abs().sum()), 1e-300))
+        for k, v in a[3].items():
+            w = b[3][k]
+            if v.dtype == torch.bool:
+                if not torch.equal(v, w):
+                    raise AssertionError(f"{label}: flag {k} differs at step {i}")
+                continue
+            rel = float(((v - w).abs().double() / w.abs().double().clamp_min(1e-300)).max())
+            if v.is_floating_point():
+                keys = ["float_metric_max_rel_err"]
+            else:
+                keys = ["int_metric_max_rel_err"] + (
+                    ["pre_compression_count_max_rel_err"] if k in PRE_COMPRESSION_COUNTS else [])
+            for key in keys:
+                out[key] = max(out[key], rel)
+        if one_only > STEP_KEYS_ONE_ONLY or out["values_rel_l1"][-1] > STEP_VALUES_REL_L1:
+            raise AssertionError(f"{label}: step {i}: {out}")
+    if (out["float_metric_max_rel_err"] > STEP_FLOAT_REL
+            or out["pre_compression_count_max_rel_err"] > STEP_INT_REL):
+        raise AssertionError(f"{label}: {out}")
+    return out
+
+
+def last_merge(found):
+    """``found[0]``: the arena the block's last merge (kernel A or C, or
+    whichever version is in place) returned."""
+    from fries_tpu_torch.runtime import merge, merge_multi
+
+    def wrap(fn):
+        def rec(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            found[:] = [out[0]]
+            return out
+        return rec
+    return patched((merge, "accumulate", wrap), (merge_multi, "accumulate", wrap))
+
+
+def kernel_plain_steps(step_fn, state, n, store):
+    """``n`` steps, each from the kernels' last state, once with the kernels
+    and once with their plain versions; the last step's kernel inputs go to
+    ``store``.  Returns (the kernels' state, kernel results, plain results)
+    as lists of (merged keys, merged value rows, merged n_used, metrics)."""
+    kern, plain = [], []
+    for k in range(n):
+        merged = []
+        with (capture_kernel_inputs(store) if k == n - 1 else contextlib.nullcontext()), \
+                last_merge(merged):
+            st, m = step_fn(state, k)
+        kern.append((merged[0].keys, merged[0].vals, merged[0].n_used, m))
+        with plain_kernels(), last_merge(merged):
+            _, m_p = step_fn(state, k)
+        plain.append((merged[0].keys, merged[0].vals, merged[0].n_used, m_p))
+        state = st
+    return state, kern, plain
+
+
+def capture_kernel_inputs(store):
+    """Keep the inputs of every kernel launch of the block in ``store``
+    (lists under "merge", "emit", "merge_multi"), for the kernels' own
+    checks against their plain versions."""
+    from fries_tpu_torch.runtime import emit, merge, merge_multi
+
+    def into(name):
+        def wrap(fn):
+            def rec(*args, **kwargs):
+                store.setdefault(name, []).append((args, kwargs))
+                return fn(*args, **kwargs)
+            return rec
+        return wrap
+    return patched((merge, "accumulate", into("merge")), (emit, "emit", into("emit")),
+                   (emit, "emit_factored", into("emit")),
+                   (merge_multi, "accumulate", into("merge_multi")))
+
+
+def check_captured(label, store):
+    """Each captured launch of the last step through its kernel and its
+    plain version (kernel A: ``check_merge``; B: ``check_emit``; C:
+    ``check_merge_multi``); returns the largest error of each."""
+    errs = {}
+    for name, calls in store.items():
+        for args, kwargs in calls:
+            if name == "emit":
+                r = check_emit(f"{label}, N={kwargs['offsets'].shape[0]}", kwargs,
+                               need_kept=False)
+            elif name == "merge":
+                a, sk, sv, si, origin, dest = args
+                keep = kwargs.get("keep_mask")
+                r = check_merge(f"{label} ({a.n_vecs},{origin},{dest})", a, sk, sv, si,
+                                (a.n_vecs, origin, dest), keep)
+            else:
+                r = check_merge_multi(label, *args)
+            errs[name] = max(errs.get(name, 0.0), r["max_abs_err"])
+    return errs
+
+
+def sharded_rung_real(shards, ham=None):
+    """``rung_real_sharded`` on this rank: warm-up, the fixed-uniform steps
+    with the kernels and with their plain versions, the timed steps."""
+    import torch
+    from fries_tpu_torch import rung
+    from fries_tpu_torch.runtime import emit, merge
+
+    t0 = time.perf_counter()
+    step, state, est, _ = rung.build_real_sharded(shards, ham=ham)
+    for _ in range(SHARD_WARM):
+        state, m = step(state, *est)
+        check_power_metrics("rung_real_sharded warm-up", [m])
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(31)
+    draws = [torch.rand(7, dtype=torch.float64, generator=gen) for _ in range(SHARD_FIXED)]
+
+    offsets, store = [], {}
+    merge.LAUNCHES = emit.LAUNCHES = 0
+    with shard_offsets(offsets):
+        state, kern, plain = kernel_plain_steps(
+            lambda st, k: step(st, *est, rns=draws[k][:6], rn_vec=draws[k][6]), state,
+            SHARD_FIXED, store)
+    fixed_launches = {"merge": merge.LAUNCHES, "emit": emit.LAUNCHES}
+    label = f"rung_real_sharded rank {shards.rank}"
+    cmp = compare_runs(f"{label}, kernels against plain", kern, plain)
+    err = check_captured(f"{label}, a fixed step's", store)
+    want = {"merge": SHARD_FIXED, "emit": 3 * SHARD_FIXED}
+    if fixed_launches != want:
+        raise AssertionError(f"rung_real_sharded: launches {fixed_launches}, want {want}")
+    del kern, plain, store
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    exch = []
+    merge.LAUNCHES = emit.LAUNCHES = 0
+    with timed_exchanges(exch):
+        t1 = time.perf_counter()
+        metrics = []
+        for _ in range(SHARD_TIMED):
+            state, m = step(state, *est)
+            metrics.append(m)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t1) / SHARD_TIMED
+    launches = {"merge": merge.LAUNCHES, "emit": emit.LAUNCHES}
+    check_power_metrics("rung_real_sharded", metrics)
+    if launches != {"merge": SHARD_TIMED, "emit": 3 * SHARD_TIMED}:
+        raise AssertionError(f"rung_real_sharded: timed launches {launches}")
+    (state, _), syncs = count_syncs(lambda: step(state, *est))
+    last = metrics[-1]
+    return {"rank": shards.rank, "ranks": shards.size, "backend": shards.backend,
+            "built_and_warm_s": t1 - t0, "ms_per_step": ms,
+            "exchange_ms_per_step": sum(a.elapsed_time(b) for a, b in exch) / SHARD_TIMED,
+            "host_syncs_per_step": syncs,
+            "peak_mem_bytes": torch.cuda.max_memory_allocated(), "launches": launches,
+            "fixed_step_launches": fixed_launches, "kernel_vs_plain_max_abs_err": err,
+            "steps_kernels_vs_plain": cmp,
+            "min_grid_offset": min(offsets), "max_grid_offset": max(offsets),
+            "n_used_rank": int(state.arena.n_used[0]),
+            "n_dets_timed_steps": [int(m["n_dets"]) for m in metrics],
+            "e_corr_est": float(last["proj_num"]) / float(last["proj_den"])}
+
+
+def sharded_subsp(shards, ham=None):
+    """``subsp_sharded`` on this rank: warm-up, two iterations with kernel C
+    and with its plain version from one state, the timed iterations."""
+    import torch
+    from fries_tpu_torch import rung
+    from fries_tpu_torch.runtime import merge_multi
+
+    t0 = time.perf_counter()
+    step, state, _ = rung.build_subsp_sharded(shards, ham=ham)
+    for i in range(SHARD_WARM):
+        state, m = step(state)
+        if bool(m["overflow"]):
+            raise AssertionError(f"subsp_sharded: overflow at warm-up step {i}")
+
+    merge_multi.LAUNCHES = 0
+    store = {}
+    state, kern, plain = kernel_plain_steps(lambda st, k: step(st), state, SHARD_FIXED,
+                                            store)
+    fixed_launches = merge_multi.LAUNCHES
+    label = f"subsp_sharded rank {shards.rank}"
+    cmp = compare_runs(f"{label}, kernels against plain", kern, plain)
+    err = check_captured(f"{label}, a fixed iteration's", store)
+    if fixed_launches != SHARD_FIXED:
+        raise AssertionError(f"subsp_sharded: {fixed_launches} kernel C launches")
+    del kern, plain
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    exch = []
+    merge_multi.LAUNCHES = 0
+    with timed_exchanges(exch):
+        t1 = time.perf_counter()
+        metrics = []
+        for _ in range(SUBSP_SHARD_TIMED):
+            state, m = step(state)
+            metrics.append(m)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t1) / SUBSP_SHARD_TIMED
+    for i, m in enumerate(metrics):
+        if bool(m["overflow"]) or not torch.isfinite(m["h_mat"]).all():
+            raise AssertionError(f"subsp_sharded: overflow or non-finite h_mat at step {i}")
+    # the merged arena holds the compressed rows and the new spawned targets:
+    # more than one vector's budget by the timed iterations (the unsharded
+    # configuration holds 472,013-592,561 rows in its)
+    budget = rung.subsp_sharded_config(shards.size).vec_nonz
+    if int(metrics[-1]["n_dets"][0]) < budget:
+        raise AssertionError(f"subsp_sharded: {int(metrics[-1]['n_dets'][0])} rows after "
+                             f"{SHARD_WARM + SHARD_FIXED + SUBSP_SHARD_TIMED} iterations")
+    launches = {"merge_multi": merge_multi.LAUNCHES}
+    if launches["merge_multi"] != SUBSP_SHARD_TIMED:
+        raise AssertionError(f"subsp_sharded: {launches} kernel C launches")
+    (state, _), syncs = count_syncs(lambda: step(state))
+    return {"rank": shards.rank, "ranks": shards.size, "backend": shards.backend,
+            "built_and_warm_s": t1 - t0, "ms_per_iteration": ms,
+            "exchange_ms_per_iteration": sum(a.elapsed_time(b) for a, b in exch)
+            / SUBSP_SHARD_TIMED,
+            "host_syncs_per_iteration": syncs,
+            "peak_mem_bytes": torch.cuda.max_memory_allocated(), "launches": launches,
+            "fixed_step_launches": {"merge_multi": fixed_launches},
+            "kernel_vs_plain_max_abs_err": err, "steps_kernels_vs_plain": cmp,
+            "n_dets_timed_steps": [int(m["n_dets"][0]) for m in metrics],
+            "h_mat_last": metrics[-1]["h_mat"].cpu().tolist()}
+
+
+def equivalence_configs(n_shards):
+    """The reference's identity equivalences (tests/test_sharded.py) on a
+    small system: frifull and subspace ``exact_h`` with budgets above the
+    space, per-rank capacities for ``n_shards`` ranks."""
+    from fries_tpu_torch.drivers import power, subspace
+
+    cap = 64 if n_shards > 1 else 128
+    ff = power.PowerConfig(eps=0.05, target_nonz=256, capacity=cap + 32, n_shards=n_shards,
+                           exchange_cap=4096 if n_shards > 1 else 0)
+    ss = subspace.SubspaceConfig(eps=0.05, n_trial=2, vec_nonz=4096, matr_samp=4096,
+                                 capacity=2 * cap + 64, spawn_cap=4096, restart_int=10,
+                                 exact_h=True, compress_mode="sys", n_shards=n_shards,
+                                 exchange_cap=4096 if n_shards > 1 else 0)
+    return ff, ss
+
+
+def equivalence_runs(shards, device):
+    """30 frifull steps and 15 subspace ``exact_h`` iterations, sharded over
+    ``shards`` (None: one device); their metrics on the CPU."""
+    from fries_tpu_torch import rung, synth
+    from fries_tpu_torch.drivers import frifull, subspace
+
+    ham = synth.make_system(5, 4, seed=41, device=device)
+    ff, ss = equivalence_configs(1 if shards is None else shards.size)
+    if shards is None:
+        _, run, st, aux = frifull.build(ham, ff, seed=0)
+        _, srun, sst, _ = subspace.build(ham, ss, rung.hf_and_single(ham, 1, 3),
+                                         [[1.0], [1.0]], seed=0)
+    else:
+        _, run, st, aux = frifull.build_sharded(ham, ff, 0, shards)
+        _, srun, sst, _ = subspace.build_sharded(ham, ss, rung.hf_and_single(ham, 1, 3),
+                                                 [[1.0], [1.0]], 0, shards)
+    tr = run(st, *rung.estimator_args(aux), 30)[1]
+    str_ = srun(sst, 15)[1]
+    return {"frifull": {k: v.cpu() for k, v in tr.items()},
+            "subspace": {k: v.cpu() for k, v in str_.items()}}
+
+
+def shard_world(shards, stream_path):
+    """The sharded phases of one rank of the 2-rank world on the card."""
+    from fries_tpu_torch import _build
+
+    _build.load()
+    out = {"exchange": exchange_check(shards, stream_path)}
+    out["rung_real"] = sharded_rung_real(shards)
+    out["subsp"] = sharded_subsp(shards)
+    out["equivalence"] = equivalence_runs(shards, shards.device)
+    return out
+
+
+def shard_nccl_world(shards):
+    from fries_tpu_torch import _build
+
+    _build.load()
+    return sharded_rung_real(shards)
+
+
+def check_equivalence(sharded, single):
+    """Sharded against single: frifull's energies, norms and n_dets, the
+    subspace's h and d matrices, rtol 1e-9 / atol 1e-11."""
+    import torch
+
+    errs = {}
+    for name, keys in (("frifull", ("proj_num", "proj_den", "norm")),
+                       ("subspace", ("h_mat", "d_mat"))):
+        a, b = sharded[name], single[name]
+        if bool(a["overflow"].any()) or bool(b["overflow"].any()):
+            raise AssertionError(f"equivalence {name}: overflow")
+        for k in keys:
+            if not torch.allclose(a[k], b[k], rtol=1e-9, atol=1e-11):
+                raise AssertionError(f"equivalence {name}: {k} differs")
+            errs[f"{name} {k}"] = float((a[k] - b[k]).abs().max())
+    if not torch.equal(sharded["frifull"]["n_dets"], single["frifull"]["n_dets"]):
+        raise AssertionError("equivalence frifull: n_dets differ")
+    return errs
+
+
+def phase_sharding(dev, hams, stream):
+    """Phase 17d (see the module docstring).  ``stream``: rung_real's real
+    spawn stream (words, amplitudes, initiator flags)."""
+    import torch
+    from fries_tpu_torch import _build, parallel
+    from fries_tpu_torch.runtime import emit, merge, merge_multi
+
+    res = {}
+    t0 = time.perf_counter()
+    probe = parallel.launch(probe_collectives, SHARD_RANKS, "gloo", "cuda", timeout=120)
+    res["probe_gloo_cuda"] = probe[0]
+    log(f"sharding probe: gloo on CUDA tensors, 2 ranks on one card: {json.dumps(probe[0])}")
+    if any(probe[0].values()):
+        raise AssertionError(f"gloo refuses CUDA tensors in a collective the port issues: "
+                             f"{probe[0]}")
+    shards = parallel.init_world(0, 1, "nccl", dev)
+    try:
+        nccl = probe_collectives(shards)
+        res["probe_nccl_one_rank"] = nccl
+        log(f"sharding probe: 1-rank NCCL world: {json.dumps(nccl)}")
+        if any(nccl.values()):
+            raise AssertionError(f"1-rank NCCL world: {nccl}")
+        res["rung_real_nccl1"] = sharded_rung_real(shards, ham=hams["n2_ccpvdz"])
+        log(f"rung_real_sharded, 1-rank NCCL: {json.dumps(res['rung_real_nccl1'])}")
+        res["subsp_nccl1"] = sharded_subsp(shards, ham=hams["ne_ccpvqz"])
+        log(f"subsp_sharded, 1-rank NCCL: {json.dumps(res['subsp_nccl1'])}")
+    finally:
+        parallel.close_world()
+    path = _build.BUILD_DIR / SHARD_STREAM
+    path.parent.mkdir(parents=True, exist_ok=True)
+    words, amps, ini = (x.cpu() for x in stream)
+    torch.save({"words": words, "amps": amps, "ini": ini}, path)
+    single = equivalence_runs(None, dev)
+    world = parallel.launch(shard_world, SHARD_RANKS, "gloo", "cuda", args=(str(path),),
+                            timeout=300, join_timeout=900)
+    res["exchange"] = [w["exchange"] for w in world]
+    log(f"exchange, 2 ranks on one card over rung_real's real stream "
+        f"({int(words.shape[0])} rows): {json.dumps(res['exchange'])}")
+    res["rung_real_2rank"] = [w["rung_real"] for w in world]
+    if not res["rung_real_2rank"][1]["min_grid_offset"] > 0:
+        raise AssertionError("rung_real_sharded: rank 1 emitted with no shard offset")
+    log(f"rung_real_sharded, 2 ranks on one card (gloo on CUDA tensors; two "
+        f"processes share the card: not a scaling result): {json.dumps(res['rung_real_2rank'])}")
+    res["subsp_2rank"] = [w["subsp"] for w in world]
+    log(f"subsp_sharded, 2 ranks on one card: {json.dumps(res['subsp_2rank'])}")
+    for w in world[1:]:
+        for name in ("frifull", "subspace"):
+            for k, v in w["equivalence"][name].items():
+                if k not in ("spawn_rows", "n_merges") and not torch.equal(
+                        v, world[0]["equivalence"][name][k]):
+                    raise AssertionError(f"equivalence {name}: {k} differs between ranks")
+    res["equivalence_max_abs_err"] = check_equivalence(world[0]["equivalence"], single)
+    log(f"identity equivalences on the card, 2 ranks against 1: "
+        f"{json.dumps(res['equivalence_max_abs_err'])}")
+    if torch.cuda.device_count() >= 2:
+        res["rung_real_nccl2"] = parallel.launch(shard_nccl_world, 2, "nccl", "cuda",
+                                                 timeout=300, join_timeout=600)
+        log(f"rung_real_sharded, NCCL on 2 cards: {json.dumps(res['rung_real_nccl2'])}")
+    else:
+        res["rung_real_nccl2"] = None
+        log(f"rung_real_sharded under NCCL across cards: not run "
+            f"({torch.cuda.device_count()} card visible)")
+    res["seconds"] = time.perf_counter() - t0
+    log(f"sharding: {res['seconds']:.1f} s")
+    merge.LAUNCHES = emit.LAUNCHES = merge_multi.LAUNCHES = 0
     return res
 
 
@@ -2830,6 +3452,7 @@ def main():
         dev, hams["h2o_ccpvdz"])
     real_res["fciqmc_real"], real_cases["fciqmc_real"] = phase_fciqmc_real(
         dev, hams["n2_stretched"])
+    shard_res = phase_sharding(dev, hams, real_cases["rung_real"][1:4])
     del hams
     obs_cases = {f"{name} {layout}": (*captured[layout], layout[1], layout[2])
                  for name, captured, layouts in (
@@ -2905,6 +3528,14 @@ def main():
         {key: fq_res["real_step"][key] for key in ("arena_rows", "spawns", "live_spawns",
                                                    "unique_targets", "longest_run")},
         first_step_longest_run=fq_res["first_step"]["longest_run"])
+    sharded_paths = [("rung_real_sharded 1-rank nccl", shard_res["rung_real_nccl1"]),
+                     ("subsp_sharded 1-rank nccl", shard_res["subsp_nccl1"]),
+                     *((f"rung_real_sharded 2 ranks, rank {r['rank']}", r)
+                       for r in shard_res["rung_real_2rank"]),
+                     *((f"subsp_sharded 2 ranks, rank {r['rank']}", r)
+                       for r in shard_res["subsp_2rank"]),
+                     *((f"rung_real_sharded nccl 2 cards, rank {r['rank']}", r)
+                       for r in shard_res["rung_real_nccl2"] or ())]
     by_path = lambda kernel: {path: r["launches"][kernel] for path, r in (
         ("frisys rung", main_res), ("subsp", sub_res), ("semistoch", semi_res),
         ("frifull", full_res), ("fciqmc", fq_res), ("frimulti", fm_res),
@@ -2913,7 +3544,7 @@ def main():
         ("subspfull", sfull_res), ("observables", obs_res), ("obs_repl", repl_res),
         ("unfused rung", unf_res), ("ne_qz", qz_res["ne_qz"]),
         ("ne_qz unnorm", qz_res["ne_qz unnorm"]), ("ne_qz_subsp", qzs_res),
-        *real_res.items())
+        *real_res.items(), *sharded_paths)
         if kernel in r["launches"]}
     multi_shape = {**timing("merge_multi subspfull_chunk"),
                    **{key: t["merge_multi subspfull_chunk"][key] for key in sort_keys},
@@ -2963,6 +3594,11 @@ def main():
          "max_abs_err": pc["max_abs_err"], **timing("probe_copy")},
     ]
     log(f"cli resume: {json.dumps(cli_res)}")
+    brief_shard = {k: shard_res[k] for k in ("probe_gloo_cuda", "probe_nccl_one_rank",
+                                            "equivalence_max_abs_err", "seconds")}
+    for name in ("rung_real_nccl1", "subsp_nccl1"):
+        brief_shard[name] = {k: v for k, v in shard_res[name].items() if k != "h_mat_last"}
+    log(f"sharding summary: {json.dumps(brief_shard)}")
     idle = {name: profiles[name]["device_idle_share"] for name in profiles}
     configs = {"ne_qz": qz_res["ne_qz"], "ne_qz unnorm": qz_res["ne_qz unnorm"],
                "ne_qz_subsp": qzs_res, **real_res}

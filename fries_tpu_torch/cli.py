@@ -45,8 +45,13 @@ before the block) before it stops on an overflow; ``--load_dir DIR``
 resumes from ``DIR/checkpoint.npz`` (:mod:`fries_tpu_torch.runtime.checkpoint`)
 and appends to the streams.  All run on ``--device`` (default ``cuda``; a
 run asking for CUDA where there is no CUDA device stops with an error,
-``--device cpu`` runs the plain versions on the CPU).  ``--n_chips > 1``
-raises: sharding is not ported.
+``--device cpu`` runs the plain versions on the CPU).  ``frisys_mol
+--n_chips N`` runs N hash-sharded ranks (:mod:`fries_tpu_torch.parallel`):
+NCCL with one rank per card on ``cuda``, gloo on the CPU, or this process's
+rank of a ``torchrun`` world; rank 0 writes the output files and the
+checkpoints (in the reference's stacked layout), ``--load_dir`` resumes on
+the same ``--n_chips``, and ``--max_dets`` is the capacity of each rank.
+Every other subcommand raises on ``--n_chips > 1``.
 
 Usage:  python -m fries_tpu_torch.cli frisys_mol --fcidump_path FCIDUMP \\
             --epsilon 1e-3 --vec_nonz 100000 --mat_nonz 100000 \\
@@ -175,11 +180,17 @@ def _parser():
     return parser
 
 
+RANK_TIMEOUT = 1800.0
+"""The process-group timeout of a sharded run, in seconds: how long a rank
+waits at a collective for the others, long enough for rank 0 to write a
+checkpoint of many GB while the other ranks wait at the next step."""
+
+
 def _check_run(args, molecular=True):
-    """Stop on what the port does not run: several chips, or a molecular
-    workload without an integral input."""
-    if args.n_chips > 1:
-        raise NotImplementedError("--n_chips > 1 is not ported yet")
+    """Stop on what the port does not run: several chips outside
+    frisys_mol, or a molecular workload without an integral input."""
+    if args.n_chips > 1 and args.cmd != "frisys_mol":
+        raise NotImplementedError(f"--n_chips > 1 runs frisys_mol only, not {args.cmd}")
     if molecular and not (args.fcidump_path or args.hf_path):
         raise SystemExit(f"{args.cmd} needs --fcidump_path or --hf_path")
 
@@ -188,6 +199,8 @@ def _device(args):
     import torch
 
     device = torch.device(args.device)
+    if getattr(args, "shards", None) is not None:
+        return args.shards.device
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit(f"--device {args.device}: no CUDA device is available "
                          "(pass --device cpu to run on the CPU)")
@@ -214,7 +227,14 @@ def _write_params(args):
     os.makedirs(args.result_dir, exist_ok=True)
     with open(os.path.join(args.result_dir, "params.txt"), "w") as f:
         for k, v in sorted(vars(args).items()):
-            f.write(f"{k}: {v}\n")
+            if k != "shards":
+                f.write(f"{k}: {v}\n")
+
+
+def _lead(args):
+    """True on the process that writes the outputs (rank 0 of a sharded run)."""
+    shards = getattr(args, "shards", None)
+    return shards is None or shards.rank == 0
 
 
 def _resume(args, state):
@@ -225,10 +245,11 @@ def _resume(args, state):
         return state
     path = os.path.join(args.load_dir, "checkpoint.npz")
     try:
-        state = checkpoint.restore(path, state)
+        state = checkpoint.restore(path, state, getattr(args, "shards", None))
     except ValueError as err:
         raise SystemExit(f"--load_dir: {err}") from None
-    print(f"resumed from {path} at iteration {state.iterat}")
+    if _lead(args):
+        print(f"resumed from {path} at iteration {state.iterat}")
     return state
 
 
@@ -237,7 +258,8 @@ def _checkpoint(args, state, done):
     from fries_tpu_torch.runtime import checkpoint
 
     if done % args.save_interval == 0 or done >= args.max_iter:
-        checkpoint.save_state(os.path.join(args.result_dir, "checkpoint.npz"), state)
+        checkpoint.save_state(os.path.join(args.result_dir, "checkpoint.npz"), state,
+                              getattr(args, "shards", None))
         return True
     return False
 
@@ -262,7 +284,7 @@ def _overflow_exit(args, done, n, prev_state):
     from fries_tpu_torch.runtime import checkpoint
 
     checkpoint.save_state(os.path.join(args.result_dir, "checkpoint_overflow.npz"),
-                          prev_state)
+                          prev_state, getattr(args, "shards", None))
     raise SystemExit(
         "ERROR: spawn/arena buffer overflow in the block ending at "
         f"iteration {done + n}; results from this block are invalid. "
@@ -274,13 +296,19 @@ def _run_power_driver(args, run_steps, state, aux, protected=None):
     """The iteration loop of the single-vector drivers: run in blocks,
     stream the metrics to the reference's output files (a stream the driver
     does not report is left empty) and checkpoint."""
+    import torch
+
     from fries_tpu_torch.runtime import arena as ar
 
-    _write_params(args)
+    lead = _lead(args)
+    shards = getattr(args, "shards", None)
+    if lead:
+        _write_params(args)
     state = _resume(args, state)
     est = (aux["num_keys"], aux["num_vals"], aux["den_keys"], aux["den_vals"],
            aux["ref_key"])
-    files = {k: open(os.path.join(args.result_dir, v), "a") for k, v in _STREAMS.items()}
+    files = ({k: open(os.path.join(args.result_dir, v), "a") for k, v in _STREAMS.items()}
+             if lead else {})
     kw = {} if protected is None else {"protected_keys": protected}
     try:
         block = min(args.save_interval, 100)
@@ -299,10 +327,18 @@ def _run_power_driver(args, run_steps, state, aux, protected=None):
                     f.write(repr(x.item()) + "\n")
                 f.flush()
             done += n
-            print(f"{done}, en est: {traj['proj_num'][-1] / traj['proj_den'][-1]:.8f}, "
-                  f"shift: {traj['shift'][-1]:.6f}, norm: {traj['norm'][-1]:.2f}")
+            if lead:
+                print(f"{done}, en est: {traj['proj_num'][-1] / traj['proj_den'][-1]:.8f}, "
+                      f"shift: {traj['shift'][-1]:.6f}, norm: {traj['norm'][-1]:.2f}")
             if _checkpoint(args, state, done):
                 occ = ar.occupancy_stats(state.arena)
+                if shards is not None:   # the whole world's rows
+                    names = ("used", "capacity", "live", "nonzero", "zero_live")
+                    tot = shards.sum(torch.tensor([int(occ[k]) for k in names]))
+                    occ = dict(zip(names, tot.tolist()))
+                    occ["fill"] = occ["used"] / occ["capacity"]
+                if not lead:
+                    continue
                 with open(os.path.join(args.result_dir, "arena_occ.txt"), "a") as f:
                     f.write(f"{done},{occ['used']},{occ['capacity']},"
                             f"{occ['fill']:.4f},{occ['live']},{occ['nonzero']},"
@@ -323,10 +359,34 @@ def run_frifull(args):
     _run_power_driver(args, run_steps, state, aux)
 
 
-def run_frisys(args):
+def _frisys_rank(shards, args):
+    """One rank of a sharded frisys_mol run; returns the SystemExit message
+    that stopped it, if any."""
+    args.shards = shards
+    try:
+        run_frisys(args)
+    except SystemExit as err:
+        return str(err)
+    return None
+
+
+def run_frisys(args, join_timeout: float = float("inf")):
+    """``frisys_mol``; with ``--n_chips`` N > 1, N ranks that are killed
+    once the run has taken ``join_timeout`` seconds (none by default)."""
     from fries_tpu_torch import io
     from fries_tpu_torch.drivers import frisys
 
+    shards = getattr(args, "shards", None)
+    if args.n_chips > 1 and shards is None:
+        from fries_tpu_torch import parallel
+
+        device = _device(args)
+        backend = "nccl" if device.type == "cuda" else "gloo"
+        stops = parallel.launch(_frisys_rank, args.n_chips, backend, device, args=(args,),
+                                timeout=RANK_TIMEOUT, join_timeout=join_timeout)
+        if stops[0]:
+            raise SystemExit(stops[0])
+        return
     _, ham, e_ref = _load(args)
     determ_keys = io.read_dets(args.det_space, ham.n_bits) if args.det_space else None
     trial = io.load_vec_txt(args.trial_vec, ham.n_bits) if args.trial_vec else None
@@ -335,10 +395,10 @@ def run_frisys(args):
         eps=args.epsilon, vec_nonz=args.vec_nonz, matr_samp=args.mat_nonz,
         capacity=args.max_dets, spawn_cap=int(args.mat_nonz * 1.4),
         init_thresh=args.init_thresh, target_norm=args.target_norm,
-        unnorm=args.distribution == "HB_unnorm")
+        unnorm=args.distribution == "HB_unnorm", n_shards=args.n_chips)
     _, run_steps, state, aux = frisys.build(
         ham, cfg, seed=args.seed, determ_keys=determ_keys, trial=trial,
-        init_vec=init_vec, e_ref=e_ref)
+        init_vec=init_vec, e_ref=e_ref, shards=shards)
     _run_power_driver(args, run_steps, state, aux, protected=aux["protected_keys"])
 
 

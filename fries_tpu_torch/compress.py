@@ -23,16 +23,28 @@ Counterpart of the main-path part of ``fries_tpu/compress.py``:
 * pivotal resampling: ``piv_select_tree`` / ``piv_select_tree_2d`` (the
   log-depth duel tournaments, in the reference's duel order), ``piv_comp``
   (vector compression) and ``comp_sub_piv`` (one pivotal hierarchical
-  level).  They draw from a key node (:mod:`fries_tpu_torch.rng`).  The
-  sharded pieces (``piv_budget``, ``piv_comp_serial``) raise
-  ``NotImplementedError``.
+  level).  They draw from a key node (:mod:`fries_tpu_torch.rng`).
+  ``piv_budget`` splits a pivotal budget over the ranks with
+  ``piv_comp_serial`` (the sequential pivotal method, a host loop).
 * ``multi_comp``: multinomial vector compression (the subspace's
   ``compress_mode="multi"``), drawing from a key node.
 
+Hash sharding: where the reference takes ``axis_name``, these functions
+take ``shards`` (a :class:`fries_tpu_torch.parallel.Shards` handle, None on
+one device).  Budgets, norms and counts are then global
+(:func:`fries_tpu_torch.parallel.gsum`, the reference's ``_gsum``; a norm
+and a count share one all-reduce), each rank's
+systematic grid starts at the norm of the ranks below it (the reference's
+``_gsum`` and ``_prefix_sum_over_shards`` of a rank's norm are one
+all-gather here, ``_norm_over_ranks``), and a pivotal budget is split over
+the ranks by ``piv_budget`` with each rank's key folded with its rank.
+
 The reference's ``lax.while_loop`` fixpoints are host loops here: each round
-reads one count back from the device.  Every array keeps the static,
-capacity-padded shape of the reference, so a step's work is set by the rung
-and not by the current population.
+reads one count back from the device.  Every branch and loop that depends on
+the data tests an all-reduced value, so all ranks issue the same
+collectives.  Every array keeps the static, capacity-padded shape of the
+reference, so a step's work is set by the rung and not by the current
+population.
 """
 
 from __future__ import annotations
@@ -41,6 +53,7 @@ import math
 
 import torch
 
+from fries_tpu_torch import parallel
 from fries_tpu_torch.runtime import emit as emit_mod
 
 F64 = torch.float64
@@ -50,6 +63,17 @@ _SEED_TILE = 8192
 
 def _f64(x, device):
     return torch.as_tensor(x, dtype=F64, device=device)
+
+
+def _norm_over_ranks(loc_norm, count, shards):
+    """(global norm, global count, norm of the ranks below) from one
+    all-gather of this rank's (norm, count); (loc_norm, count, 0) on one
+    device.  Every rank sums the gathered rows in rank order."""
+    if shards is None:
+        return loc_norm, count, torch.zeros_like(loc_norm)
+    count = torch.as_tensor(count, device=loc_norm.device).to(F64)
+    g = shards.gather(torch.stack([loc_norm.to(F64), count]))
+    return g[:, 0].sum(), g[:, 1].sum().to(torch.int64), g[:shards.rank, 0].sum()
 
 
 # ---------------------------------------------------------------------------
@@ -142,8 +166,11 @@ def _seed_hist_part(u, mass, cost, edges):
     return mass_above, cost_above
 
 
-def _seed_finish(mass_above, cost_above, n_samp, tot_mass):
-    """Greedy simulation over whole histogram buckets -> conservative T_est."""
+def _seed_finish(mass_above, cost_above, n_samp, tot_mass, shards=None):
+    """Greedy simulation over whole histogram buckets -> conservative T_est
+    (the histogram summed over the ranks)."""
+    if shards is not None:
+        mass_above, cost_above = shards.sum(torch.stack([mass_above, cost_above])).unbind()
     n_sampf = float(max(int(n_samp), 1))
     t0 = tot_mass / n_sampf
     edges = _seed_edges(tot_mass, n_samp)
@@ -161,7 +188,7 @@ def _seed_finish(mass_above, cost_above, n_samp, tot_mass):
     return torch.where(tot_mass > 0, t_est, inf)
 
 
-def _preserve_threshold_seed(parts, n_samp, tot_mass):
+def _preserve_threshold_seed(parts, n_samp, tot_mass, shards=None):
     """Conservative upper bound T_est >= the final greedy preserve threshold.
 
     ``parts``: list of (u, mass, cost): u the per-budget-unit weight (0 =
@@ -174,40 +201,45 @@ def _preserve_threshold_seed(parts, n_samp, tot_mass):
         m, c = _seed_hist_part(u, mass, cost, edges)
         mass_above += m
         cost_above += c
-    return _seed_finish(mass_above, cost_above, n_samp, tot_mass)
+    return _seed_finish(mass_above, cost_above, n_samp, tot_mass, shards)
 
 
 # ---------------------------------------------------------------------------
 # exact preservation and systematic resampling
 # ---------------------------------------------------------------------------
 
-def find_preserve(abs_vals: torch.Tensor, n_samp: int, max_rounds: int = 64):
+def find_preserve(abs_vals: torch.Tensor, n_samp: int, max_rounds: int = 64,
+                  shards=None):
     """Elements to preserve exactly before stochastic resampling.
 
     An element is preserved when its magnitude is at least the remaining mean
     mass per remaining sample, iterated to a fixpoint (one host read per
     round).  Returns (keep (N,) bool, n_samp_left 0-dim int64, loc_norm 0-dim
-    f64 1-norm of the non-preserved elements)."""
+    f64 1-norm of this rank's non-preserved elements); the budget is global
+    over ``shards``' ranks."""
     abs_vals = abs_vals.to(F64)
     n_samp = int(n_samp)
-    tot_mass = abs_vals.sum()
-    t_est = _preserve_threshold_seed([(abs_vals, abs_vals, None)], n_samp, tot_mass)
+    tot_mass = parallel.gsum(shards, abs_vals.sum())
+    t_est = _preserve_threshold_seed([(abs_vals, abs_vals, None)], n_samp, tot_mass,
+                                     shards)
     keep = abs_vals >= t_est
     live = abs_vals > 0
     inf = torch.tensor(float("inf"), dtype=F64, device=abs_vals.device)
-    for _ in range(max_rounds):
+    # each round reads the global preserved count (one all-reduce with the
+    # residual norm); an unchanged count means the last round added nothing
+    n_prev = -1
+    for rounds in range(max_rounds + 1):
         rem_mask = ~keep & live
-        glob_norm = torch.where(rem_mask, abs_vals, 0.0).sum()
-        budget = (n_samp - keep.sum()).clamp_min(0)
-        threshold = torch.where(budget > 0, glob_norm / budget.clamp_min(1).to(F64), inf)
-        added = rem_mask & (abs_vals >= threshold)
-        keep = keep | added
-        if not bool(added.any()):
+        loc_norm = torch.where(rem_mask, abs_vals, 0.0).sum()
+        glob_norm, n_kept = parallel.gsum(shards, loc_norm, keep.sum())
+        if int(n_kept) == n_prev or rounds == max_rounds:
             break
-    rem_mask = ~keep & live
-    loc_norm = torch.where(rem_mask, abs_vals, 0.0).sum()
-    n_left = (n_samp - keep.sum()).clamp_min(0)
-    n_left = torch.where(loc_norm < 1e-9, 0, n_left)
+        n_prev = int(n_kept)
+        budget = (n_samp - n_kept).clamp_min(0)
+        threshold = torch.where(budget > 0, glob_norm / budget.clamp_min(1).to(F64), inf)
+        keep = keep | (rem_mask & (abs_vals >= threshold))
+    n_left = (n_samp - n_kept).clamp_min(0)
+    n_left = torch.where(glob_norm < 1e-9, 0, n_left)
     return keep, n_left, loc_norm
 
 
@@ -216,16 +248,21 @@ def _grid_count_below(x, rn, unit):
     return (torch.floor(x / unit - rn) + 1).clamp_min(0.0).to(torch.int64)
 
 
-def sys_comp(vals, keep, n_samp, rn, loc_norm):
+def sys_comp(vals, keep, n_samp, rn, loc_norm, shards=None):
     """Systematic resampling of the non-preserved elements: each becomes
     sign * glob_norm / n_samp times the number of shared-grid points landing
-    in its interval.  Unbiased: E[out] = in."""
+    in its interval, the grid shared by every rank (``rn`` the same on all;
+    this rank's interval starts at the norm of the ranks below it).
+    Unbiased: E[out] = in."""
     dtype = vals.dtype
     vals64 = vals.to(F64)
     absw = torch.where(~keep, vals64.abs(), 0.0)
     inf = torch.tensor(float("inf"), dtype=F64, device=vals.device)
-    unit = torch.where(n_samp > 0, loc_norm / n_samp.clamp_min(1), inf)
+    glob_norm, _, lbound = _norm_over_ranks(loc_norm, 0, shards)
+    unit = torch.where(n_samp > 0, glob_norm / n_samp.clamp_min(1), inf)
     cum = torch.cumsum(absw, 0) - absw
+    if shards is not None:
+        cum = lbound + cum
     hits = (_grid_count_below(cum + absw, rn, unit)
             - _grid_count_below(cum, rn, unit)).to(F64)
     sampled = torch.sign(vals64) * hits * unit
@@ -233,10 +270,10 @@ def sys_comp(vals, keep, n_samp, rn, loc_norm):
     return out.to(dtype)
 
 
-def compress_vector(vals, n_samp: int, rn):
+def compress_vector(vals, n_samp: int, rn, shards=None):
     """``find_preserve`` then ``sys_comp``: one vector compression step."""
-    keep, n_left, loc_norm = find_preserve(vals.abs(), n_samp)
-    return sys_comp(vals, keep, n_left, rn, loc_norm)
+    keep, n_left, loc_norm = find_preserve(vals.abs(), n_samp, shards=shards)
+    return sys_comp(vals, keep, n_left, rn, loc_norm, shards)
 
 
 # ---------------------------------------------------------------------------
@@ -331,41 +368,111 @@ def piv_comp_shard(key, vals, keep, n_budget):
     return out.to(dtype)
 
 
-def piv_comp(key, vals, n_samp):
-    """Pivotal vector compression on one device: find_preserve, then
-    :func:`piv_comp_shard` with the whole remaining budget."""
-    keep, n_left, _ = find_preserve(vals.abs(), n_samp)
-    return piv_comp_shard(key, vals, keep, n_left)
+def _rank_budget(key, loc_norm, n_left, shards):
+    """(this rank's pivotal budget, its key): the global budget split over
+    the ranks by :func:`piv_budget` under ``key.fold(1)``, and
+    ``key.fold(2).fold(rank)``; (n_left, key) on one device."""
+    if shards is None:
+        return n_left, key
+    budgets = piv_budget(key.fold(1), shards.gather(loc_norm), n_left)
+    return budgets[shards.rank], key.fold(2).fold(shards.rank)
 
 
-def piv_budget(*args, **kwargs):
-    raise NotImplementedError("piv_budget (the sharded pivotal budget split) is not ported")
+def piv_comp(key, vals, n_samp, shards=None):
+    """Pivotal vector compression: the global find_preserve, then
+    :func:`piv_comp_shard` with this rank's share of the remaining budget
+    (the whole of it on one device)."""
+    keep, n_left, loc_norm = find_preserve(vals.abs(), n_samp, shards=shards)
+    budget, key = _rank_budget(key, loc_norm, n_left, shards)
+    return piv_comp_shard(key, vals, keep, budget)
 
 
-def piv_comp_serial(*args, **kwargs):
-    raise NotImplementedError("piv_comp_serial (the sharded pivotal path) is not ported")
+def piv_budget(key, shard_norms, n_samp):
+    """Integer budgets (n,) int64 of the ranks from their norms
+    ``shard_norms`` (n,): the floor of each share of ``n_samp``, plus one
+    for the ranks whose fractional remainders :func:`piv_comp_serial`
+    selects, so they sum to ``n_samp``.  Every rank computes the same split
+    from the gathered norms.  A budget of 0 gives every rank 0: the
+    reference's split divides by max(n_samp, 1) and hands a rank holding
+    all the norm a budget of 1, which then samples at an infinite unit."""
+    shard_norms = shard_norms.to(F64)
+    n_samp = torch.as_tensor(n_samp, device=shard_norms.device)
+    unit = shard_norms.sum() / n_samp.clamp_min(1)
+    share = shard_norms / unit.clamp_min(1e-300)
+    base = torch.floor(share).to(torch.int64)
+    frac = share - base
+    extra = piv_comp_serial(key, frac, torch.zeros_like(frac, dtype=torch.bool),
+                            n_samp - base.sum(), frac.sum())
+    return torch.where(n_samp > 0, base + (extra > 0).to(torch.int64), 0)
 
 
-def multi_comp(key, vals, keep, n_samp, loc_norm):
+def piv_comp_serial(key, vals, keep, n_samp, loc_norm):
+    """Pivotal resampling of the non-preserved elements by the sequential
+    pivotal method in natural order (a host loop over the elements, exact and
+    O(N); the port calls it on the per-rank norms): the running residual
+    duels each element with uniform ``key.uniform((N,))[i]``, and the last
+    residual survives with its probability (``key.fold(1).uniform(())``).
+    Each element is selected at most once at sign * loc_norm / n_samp;
+    E[out] = in."""
+    dtype, dev = vals.dtype, vals.device
+    vals64 = vals.to(F64)
+    absw = torch.where(~keep, vals64.abs(), 0.0)
+    n_samp = torch.as_tensor(n_samp, device=dev)
+    inf = torch.tensor(float("inf"), dtype=F64, device=dev)
+    unit = torch.where(n_samp > 0, torch.as_tensor(loc_norm, dtype=F64, device=dev)
+                       / n_samp.clamp_min(1), inf)
+    p = torch.where(absw > 0, absw / unit, 0.0).cpu().tolist()
+    u = key.uniform((len(p),)).cpu().tolist()
+    res_p, res_idx = 0.0, -1
+    selected = [False] * len(p)
+    for i, (pi, ui) in enumerate(zip(p, u)):
+        if not pi > 0:
+            continue
+        tot = res_p + pi
+        if tot < 1.0:
+            res_idx = i if ui < pi / max(tot, 1e-300) else res_idx
+            res_p = tot
+        else:
+            sel_new = ui < (1.0 - res_p) / max(2.0 - tot, 1e-300)
+            fin, res_idx = (i, res_idx) if sel_new else (res_idx, i)
+            if fin >= 0:
+                selected[fin] = True
+            res_p = tot - 1.0
+    last_u = float(key.fold(1).uniform(()))
+    if res_idx >= 0 and last_u < res_p:
+        selected[res_idx] = True
+    sel = torch.tensor(selected, dtype=torch.bool, device=dev)
+    out = torch.where(keep, vals64, torch.where(sel & (n_samp > 0),
+                                                torch.sign(vals64) * unit, 0.0))
+    return out.to(dtype)
+
+
+def multi_comp(key, vals, keep, n_samp, loc_norm, shards=None):
     """Multinomial compression of the non-preserved elements: counts ~
-    Multinomial(n_samp, |v| / loc_norm), each value sign * unit * count with
-    unit = loc_norm / n_samp; the preserved elements pass through.
+    Multinomial(n_samp, |v| / glob_norm), each value sign * unit * count
+    with unit = glob_norm / n_samp; the preserved elements pass through.
 
-    The draws are ``key.uniform((N,))``, N = len(vals); those past the
-    budget are masked before the sort (masking after it would keep the
-    smallest), the rest are placed by ``searchsorted`` against the running
-    |v| sum and counted by index."""
+    The draws are ``key.uniform((N,))``, N = len(vals), the same on every
+    rank; those past the budget are masked before the sort (masking after it
+    would keep the smallest), the rest are placed by ``searchsorted`` against
+    the running |v| sum, which starts at the norm of the ranks below, and
+    counted by index.  A rank counts only the draws above that start: the
+    reference counts the lower ranks' draws at its first element."""
     n = vals.shape[0]
     dev = vals.device
     vals64 = vals.to(F64)
     absw = torch.where(~keep, vals64.abs(), 0.0)
     n_samp = torch.as_tensor(n_samp, device=dev)
     inf = torch.tensor(float("inf"), dtype=F64, device=dev)
-    unit = torch.where(n_samp > 0, loc_norm / n_samp.clamp_min(1), inf)
+    glob_norm, _, lbound = _norm_over_ranks(loc_norm, 0, shards)
+    unit = torch.where(n_samp > 0, glob_norm / n_samp.clamp_min(1), inf)
     cum = torch.cumsum(absw, 0)
     u = key.uniform((n,)).to(dev)
     live_draw = torch.arange(n, device=dev) < n_samp
-    draws = torch.sort(torch.where(live_draw, u, inf)).values * loc_norm
+    draws = torch.sort(torch.where(live_draw, u, inf)).values * glob_norm
+    if shards is not None and shards.rank > 0:
+        cum = lbound + cum
+        draws = torch.where(draws > lbound, draws, inf)
     pos = torch.searchsorted(cum, draws, side="left")
     counts = torch.zeros(n + 1, dtype=torch.int64, device=dev).index_add_(
         0, pos.clamp_max(n), torch.ones_like(pos))[:n]
@@ -378,14 +485,15 @@ def multi_comp(key, vals, keep, n_samp, loc_norm):
 # subdivided (hierarchical) compression
 # ---------------------------------------------------------------------------
 
-def _threshold_fixpoint(counts_at, t_est, n_samp, max_rounds):
+def _threshold_fixpoint(counts_at, t_est, n_samp, max_rounds, shards=None):
     """The scalar-threshold fixpoint of comp_sub: thresholds descend; stop
-    once the preserved budget stops changing (one host read per round)."""
+    once the global preserved budget stops changing (one host read per
+    round, of an all-reduced count, so every rank runs the same rounds)."""
     thr = t_est
     n_kept, n_prev = -1, -2
     rounds = 0
     while n_kept != n_prev and rounds < max_rounds:
-        loc, used = counts_at(thr)
+        loc, used = parallel.gsum(shards, *counts_at(thr))
         budget = (n_samp - used).clamp_min(0)
         new_thr = torch.where(budget > 0, loc / budget.clamp_min(1).to(F64), thr)
         thr = torch.minimum(new_thr, thr)
@@ -395,14 +503,19 @@ def _threshold_fixpoint(counts_at, t_est, n_samp, max_rounds):
 
 
 def _grid_layout(parent_rem, kept_counts, loc_norm, kept_budget, n_samp, rn,
-                 out_size):
+                 out_size, shards=None):
     """Per-parent grid starts, output offsets and totals shared by the
-    comp_sub variants."""
+    comp_sub variants.  Sharded, the grid is global: its unit is the global
+    norm over the global grid budget, and this rank's parents start at the
+    norm of the ranks below (a nonzero ``cum_parent`` offset)."""
     inf = torch.tensor(float("inf"), dtype=F64, device=parent_rem.device)
-    n_grid = (n_samp - kept_budget).clamp_min(0)
-    n_grid = torch.where(loc_norm < 1e-9, 0, n_grid)
-    unit = torch.where(n_grid > 0, loc_norm / n_grid.clamp_min(1).to(F64), inf)
+    glob_norm, kept_g, lbound = _norm_over_ranks(loc_norm, kept_budget, shards)
+    n_grid = (n_samp - kept_g).clamp_min(0)
+    n_grid = torch.where(glob_norm < 1e-9, 0, n_grid)
+    unit = torch.where(n_grid > 0, glob_norm / n_grid.clamp_min(1).to(F64), inf)
     cum_parent = torch.cumsum(parent_rem, 0) - parent_rem
+    if shards is not None:
+        cum_parent = lbound + cum_parent
     g_start = _grid_count_below(cum_parent, rn, unit)
     g_end = _grid_count_below(cum_parent + parent_rem, rn, unit)
     grid_counts = torch.where(n_grid > 0, g_end - g_start, 0)
@@ -414,7 +527,7 @@ def _grid_layout(parent_rem, kept_counts, loc_norm, kept_budget, n_samp, rn,
 
 
 def comp_sub_plan(values, ndiv, sub_weights, sub_mask, n_samp, rn,
-                  out_size: int, max_rounds: int = 64):
+                  out_size: int, max_rounds: int = 64, shards=None):
     """comp_sub up to its emission: the preservation fixpoint and the grid
     layout.  Returns (the keyword arguments of
     :func:`fries_tpu_torch.runtime.emit.emit`, overflow flag)."""
@@ -431,12 +544,12 @@ def comp_sub_plan(values, ndiv, sub_weights, sub_mask, n_samp, rn,
                         torch.zeros((), dtype=cdtype, device=dev))
     w_uni = torch.where(uniform, values, 0.0)
     ndiv_f = ndiv.clamp_min(1).to(F64)
-    tot_norm0 = w_sub.sum(dtype=F64) + w_uni.sum()
+    tot_norm0 = parallel.gsum(shards, w_sub.sum(dtype=F64) + w_uni.sum())
     w_floor = (1e-14 * tot_norm0).to(cdtype)
     u_uni = w_uni / ndiv_f
 
     t_est = _preserve_threshold_seed(
-        [(w_sub, w_sub, None), (u_uni, w_uni, ndiv_f)], n_samp, tot_norm0)
+        [(w_sub, w_sub, None), (u_uni, w_uni, ndiv_f)], n_samp, tot_norm0, shards)
 
     def keep_at(thr):
         return (w_sub > w_floor) & (w_sub.to(F64) >= thr)
@@ -449,7 +562,7 @@ def comp_sub_plan(values, ndiv, sub_weights, sub_mask, n_samp, rn,
         used = kept.sum() + torch.where(kept_uni, ndiv, 0).sum()
         return loc, used
 
-    thr_f = _threshold_fixpoint(counts_at, t_est, n_samp, max_rounds)
+    thr_f = _threshold_fixpoint(counts_at, t_est, n_samp, max_rounds, shards)
     keep_sub = keep_at(thr_f)
     keep_uni = (w_uni > 0) & (u_uni >= thr_f)
     loc_norm, kept_budget = counts_at(thr_f)
@@ -458,7 +571,7 @@ def comp_sub_plan(values, ndiv, sub_weights, sub_mask, n_samp, rn,
                   + torch.where(keep_uni, 0.0, w_uni))
     kept_counts = torch.where(keep_uni, ndiv, keep_sub.sum(1))
     lay = _grid_layout(parent_rem, kept_counts, loc_norm, kept_budget, n_samp,
-                       rn, out_size)
+                       rn, out_size, shards)
     plan = dict(offsets=lay["offsets"], kept_counts=kept_counts,
                 g_start=lay["g_start"], ndiv=ndiv, uniform=uniform, w_sub=w_sub,
                 cum_parent=lay["cum_parent"], parent_rem=parent_rem,
@@ -468,7 +581,7 @@ def comp_sub_plan(values, ndiv, sub_weights, sub_mask, n_samp, rn,
 
 
 def comp_sub(values, ndiv, sub_weights, sub_mask, n_samp, rn, out_size: int,
-             max_rounds: int = 64):
+             max_rounds: int = 64, shards=None):
     """One level of hierarchical compression.
 
     Parent i carries weight ``values[i]`` (>= 0) subdivided uniformly into
@@ -478,16 +591,19 @@ def comp_sub(values, ndiv, sub_weights, sub_mask, n_samp, rn, out_size: int,
     ``sub_weights`` may be float32: per-sub masses are then held in f32 while
     norms and grid positions stay f64.
 
+    Sharded (``shards``), the budget ``n_samp`` is global and the grid
+    shared: each rank emits its own parents' slots.
+
     Returns (out_vals (M,) f64, out_parent (M,), out_sub (M,), n_out,
     overflow) with M = ``out_size``; invalid slots are (0, -1, -1)."""
     plan, overflow = comp_sub_plan(values, ndiv, sub_weights, sub_mask, n_samp,
-                                   rn, out_size, max_rounds)
+                                   rn, out_size, max_rounds, shards)
     out_val, out_parent, out_sub = emit_mod.emit(**plan)
     return (out_val, out_parent, out_sub,
             plan["total"].clamp_max(out_size), overflow)
 
 
-def _factored_seed(chunks, u_uni, w_uni, ndiv_f, tot_norm0, n_samp, cdtype):
+def _factored_seed(chunks, u_uni, w_uni, ndiv_f, tot_norm0, n_samp, cdtype, shards=None):
     """comp_sub's histogram seed over the factored rows: the mass and count
     above each edge, inner reductions over K in the stage dtype."""
     edges = _seed_edges(tot_norm0, n_samp)
@@ -501,11 +617,12 @@ def _factored_seed(chunks, u_uni, w_uni, ndiv_f, tot_norm0, n_samp, cdtype):
             mass_above[e] += torch.where(ge, w, zero_c).sum(1).sum(dtype=F64)
             cost_above[e] += ge.sum(1).sum(dtype=F64)
     m, c = _seed_hist_part(u_uni, w_uni, ndiv_f, edges)
-    return _seed_finish(mass_above + m, cost_above + c, n_samp, tot_norm0)
+    return _seed_finish(mass_above + m, cost_above + c, n_samp, tot_norm0, shards)
 
 
 def comp_sub_factored_plan(values, ndiv, fac_a, fac_b, n_samp, rn, out_size: int,
-                           kill_b0=None, max_rounds: int = 64, row_chunk: int = 0):
+                           kill_b0=None, max_rounds: int = 64, row_chunk: int = 0,
+                           shards=None):
     """:func:`comp_sub_factored` up to its emission.  Returns (the keyword
     arguments of :func:`fries_tpu_torch.runtime.emit.emit_factored`,
     overflow flag)."""
@@ -533,9 +650,11 @@ def comp_sub_factored_plan(values, ndiv, fac_a, fac_b, n_samp, rn, out_size: int
             yield sl, emit_mod.factored_rows(fa[sl], fb[sl],
                                              None if kill_b0 is None else kill_b0[sl])
 
-    tot_norm0 = sum(w.sum(dtype=F64) for _, w in chunks()) + w_uni.sum()
+    tot_norm0 = parallel.gsum(shards,
+                              sum(w.sum(dtype=F64) for _, w in chunks()) + w_uni.sum())
     w_floor = (1e-14 * tot_norm0).to(cdtype)
-    t_est = _factored_seed(chunks, u_uni, w_uni, ndiv_f, tot_norm0, n_samp, cdtype)
+    t_est = _factored_seed(chunks, u_uni, w_uni, ndiv_f, tot_norm0, n_samp, cdtype,
+                           shards)
 
     def keep_of(w, thr):
         return (w > w_floor) & (w.to(F64) >= thr)
@@ -551,7 +670,7 @@ def comp_sub_factored_plan(values, ndiv, fac_a, fac_b, n_samp, rn, out_size: int
         loc = loc + torch.where(kept_uni, 0.0, w_uni).sum()
         return loc, used + torch.where(kept_uni, ndiv, 0).sum()
 
-    thr_f = _threshold_fixpoint(counts_at, t_est, n_samp, max_rounds)
+    thr_f = _threshold_fixpoint(counts_at, t_est, n_samp, max_rounds, shards)
     keep_uni = (w_uni > 0) & (u_uni >= thr_f)
     rem_uni = torch.where(keep_uni, 0.0, w_uni)
 
@@ -567,7 +686,7 @@ def comp_sub_factored_plan(values, ndiv, fac_a, fac_b, n_samp, rn, out_size: int
     parent_rem = parent_rem_w + rem_uni
     kept_counts = torch.where(keep_uni, ndiv, kept_counts_w)
     lay = _grid_layout(parent_rem, kept_counts, loc_norm, kept_budget, n_samp,
-                       rn, out_size)
+                       rn, out_size, shards)
     plan = dict(offsets=lay["offsets"], kept_counts=kept_counts,
                 g_start=lay["g_start"], ndiv=ndiv, uniform=uniform, fa=fa, fb=fb,
                 cum_parent=lay["cum_parent"], parent_rem=parent_rem,
@@ -578,7 +697,8 @@ def comp_sub_factored_plan(values, ndiv, fac_a, fac_b, n_samp, rn, out_size: int
 
 
 def comp_sub_factored(values, ndiv, fac_a, fac_b, n_samp, rn, out_size: int,
-                      kill_b0=None, max_rounds: int = 64, row_chunk: int = 0):
+                      kill_b0=None, max_rounds: int = 64, row_chunk: int = 0,
+                      shards=None):
     """comp_sub over a rank-1 factored probability row, never materializing
     the (N, E*V) joint stage: weighted parents carry
 
@@ -591,20 +711,24 @@ def comp_sub_factored(values, ndiv, fac_a, fac_b, n_samp, rn, out_size: int,
     (:func:`fries_tpu_torch.runtime.emit.emit_factored`) reads the factors.
     Same returns as :func:`comp_sub`."""
     plan, overflow = comp_sub_factored_plan(values, ndiv, fac_a, fac_b, n_samp, rn,
-                                            out_size, kill_b0, max_rounds, row_chunk)
+                                            out_size, kill_b0, max_rounds, row_chunk,
+                                            shards)
     out_val, out_parent, out_sub = emit_mod.emit_factored(**plan)
     return (out_val, out_parent, out_sub,
             plan["total"].clamp_max(out_size), overflow)
 
 
 def comp_sub_piv(values, ndiv, sub_weights, sub_mask, n_samp, key, out_size: int,
-                 max_ndiv: int = 0, max_rounds: int = 64):
+                 max_ndiv: int = 0, max_rounds: int = 64, shards=None):
     """Pivotal variant of :func:`comp_sub`: every sub of the (N, Kp) grid
     (Kp = max(K, max_ndiv); a uniform parent's value split over its first
     ndiv columns) is one item; items above the greedy preservation threshold
     are kept exactly, the rest are selected by :func:`piv_select_tree_2d`
     under ``key`` at the unit norm / remaining budget.  Output slots list the
-    flagged items in row-major order.  Same returns as :func:`comp_sub`."""
+    flagged items in row-major order.  Sharded, the remaining budget is split
+    over the ranks (:func:`piv_budget`) and each rank selects at its own unit
+    under its own key, a selected item carrying the global unit.  Same
+    returns as :func:`comp_sub`."""
     dev = values.device
     n, k = sub_weights.shape
     kp = max(k, max_ndiv)
@@ -622,9 +746,9 @@ def comp_sub_piv(values, ndiv, sub_weights, sub_mask, n_samp, key, out_size: int
     w_flat[:, :k] += torch.where(weighted[:, None] & sub_mask,
                                  values.to(cdtype)[:, None] * sub_weights.to(cdtype),
                                  zero_c)
-    tot_norm0 = w_flat.sum(dtype=F64)
+    tot_norm0 = parallel.gsum(shards, w_flat.sum(dtype=F64))
     w_floor = (1e-14 * tot_norm0).to(cdtype)
-    t_est = _preserve_threshold_seed([(w_flat, w_flat, None)], n_samp, tot_norm0)
+    t_est = _preserve_threshold_seed([(w_flat, w_flat, None)], n_samp, tot_norm0, shards)
 
     def keep_at(thr):
         return (w_flat > w_floor) & (w_flat.to(F64) >= thr)
@@ -633,15 +757,18 @@ def comp_sub_piv(values, ndiv, sub_weights, sub_mask, n_samp, key, out_size: int
         kept = keep_at(thr)
         return torch.where(kept, zero_c, w_flat).sum(dtype=F64), kept.sum()
 
-    keep = keep_at(_threshold_fixpoint(counts_at, t_est, n_samp, max_rounds))
+    keep = keep_at(_threshold_fixpoint(counts_at, t_est, n_samp, max_rounds, shards))
     rem = torch.where(keep, zero_c, w_flat)
     loc_norm = rem.sum(dtype=F64)
-    n_grid = (n_samp - keep.sum()).clamp_min(0)
-    n_grid = torch.where(loc_norm < 1e-9, 0, n_grid)
+    glob_norm, n_kept = parallel.gsum(shards, loc_norm, keep.sum())
+    n_grid = (n_samp - n_kept).clamp_min(0)
+    n_grid = torch.where(glob_norm < 1e-9, 0, n_grid)
     inf = torch.tensor(float("inf"), dtype=F64, device=dev)
-    unit = torch.where(n_grid > 0, loc_norm / n_grid.clamp_min(1), inf)
-    p = (rem.to(F64) / unit).clamp_max(1.0)
-    flagged = keep | (piv_select_tree_2d(key, p) & (n_grid > 0))
+    unit = torch.where(n_grid > 0, glob_norm / n_grid.clamp_min(1), inf)
+    budget, key = _rank_budget(key, loc_norm, n_grid, shards)
+    p = (rem.to(F64) / torch.where(budget > 0, loc_norm / budget.clamp_min(1), inf)
+         ).clamp_max(1.0)
+    flagged = keep | (piv_select_tree_2d(key, p) & (budget > 0))
 
     # slot s holds the (s+1)-th flagged item in row-major order
     cum = torch.cumsum(flagged.reshape(-1), 0)

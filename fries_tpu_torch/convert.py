@@ -4,7 +4,8 @@ Every function takes plain numpy arrays (what ``np.asarray`` gives for the
 reference package's arrays), so this module imports nothing of the reference
 package: a Hamiltonian's integrals, an arena's sorted keys and value rows,
 and the power, FCIQMC and subspace states' scalars map one to one onto the
-port's containers.
+port's containers.  A sharded state of the reference (the stacked layout:
+keys (n*C, W), vals (R, n*C), n_used (n,)) becomes one state per rank.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from fries_tpu_torch import parallel
 from fries_tpu_torch.drivers import fciqmc, power, subspace
 from fries_tpu_torch.ops import molecule as mol
 from fries_tpu_torch.runtime import arena as ar
@@ -77,3 +79,13 @@ def arena_to_numpy(a: ar.Arena):
     """(keys uint32 (C, W), vals (R, C), n_used int) of a port arena."""
     return (a.keys.cpu().numpy().astype(np.uint32), a.vals.cpu().numpy(),
             int(a.n_used.sum()))
+
+
+def sharded_power_state(st: dict, rank: int, seed: int = 0, key=None, device=None
+                        ) -> power.PowerState:
+    """Rank ``rank``'s power state of a reference sharded power state given
+    as a dict of numpy arrays (``keys``, ``vals``, ``n_used``, ``en_shift``,
+    ``last_norm``, ``iterat``); the scalars are replicated."""
+    a = parallel.unstack(st["keys"], st["vals"], np.asarray(st["n_used"]).reshape(-1), rank,
+                         device)
+    return power_state(a, st["en_shift"], st["last_norm"], st["iterat"], seed, key)

@@ -2,7 +2,7 @@
 floating-point variant (fciqmc_fp_mol), with near-uniform or heat-bath
 Power-Pitzer excitation generation.
 
-Counterpart of ``fries_tpu/drivers/fciqmc.py`` (single device).  The
+Counterpart of ``fries_tpu/drivers/fciqmc.py``.  The
 per-walker loops become a statically capped attempt buffer: attempt slot k
 belongs to the determinant whose interval of the running walker counts holds
 k (:func:`_attempt_parents`), and every slot samples one excitation with the
@@ -28,8 +28,12 @@ merge by a stable partition (the reference sorts the whole attempt stream by
 key; the merge sorts anyway, and while the live spawns fit both keep the
 same rows).  On overflow the kept rows may differ from the reference's, and
 the run stops there in both packages.  Not ported: ``attempt_chunk`` (a
-workaround for the TPU's memory), sharding over several devices
-(``axis_name``, ``n_shards``, ``exchange_cap``, ``build_sharded``).
+workaround for the TPU's memory).
+
+Hash sharding (:func:`build_sharded`): each rank draws from its own stream
+(the iteration's node folded with the rank, as the reference seeds each
+rank), sends its spawns to their owners after death and merges what it
+receives; the estimator, the norm and the counts are all-reduced.
 """
 
 from __future__ import annotations
@@ -38,8 +42,8 @@ from dataclasses import dataclass
 
 import torch
 
-from fries_tpu_torch import compress, dets, rng
-from fries_tpu_torch.drivers import frisys
+from fries_tpu_torch import compress, dets, parallel, rng
+from fries_tpu_torch.drivers import frisys, power
 from fries_tpu_torch.ops import heat_bath as hb
 from fries_tpu_torch.ops import molecule as mol
 from fries_tpu_torch.ops import near_uniform as nu
@@ -61,6 +65,9 @@ class FciqmcConfig:
     distribution: str = "NU"   # "NU" | "HB"
     integer_walkers: bool = True
     spawn_cap: int = 0      # rows of the merge's spawn buffer (0 = attempt_cap)
+    axis_name: str | None = None   # the reference's mesh axis (unused here)
+    n_shards: int = 1
+    exchange_cap: int = 0   # see power.PowerConfig.exchange_cap
 
 
 @dataclass
@@ -189,7 +196,7 @@ def _estimate(a, num_keys, num_vals, den_keys, den_vals):
 
 
 def build(ham: mol.MolecularHamiltonian, cfg: FciqmcConfig, seed: int,
-          init_walkers: float = 100.0):
+          init_walkers: float = 100.0, shards=None):
     """FCIQMC on ``ham``'s device.  Returns (step, run_steps, state, aux):
     ``step(state, num_keys, num_vals, den_keys, den_vals, ref_key) ->
     (state, metrics)`` with the reference's eight metrics,
@@ -198,7 +205,8 @@ def build(ham: mol.MolecularHamiltonian, cfg: FciqmcConfig, seed: int,
     ``rng.KeyTree(seed)`` on the device, ``aux`` the estimator vectors,
     ``e_ref``, ``p_doub`` and ``merge_input(state)``: the post-death arena
     and the spawn stream (words, values, initiator flags) that a step from
-    ``state`` merges."""
+    ``state`` merges (before the exchange).  ``shards``: see
+    :func:`build_sharded`."""
     if cfg.distribution not in ("NU", "HB"):
         raise ValueError(f"unknown distribution {cfg.distribution!r}")
     dev = ham.device
@@ -206,6 +214,7 @@ def build(ham: mol.MolecularHamiltonian, cfg: FciqmcConfig, seed: int,
     spawn = make_spawner(ham, cfg, p_doub)
     hf_words, _, hf_en = mol.hf_reference(ham)
     hf_en = float(hf_en)
+    parallel.check_world(cfg.n_shards, shards)
     n_bits, n_elec = ham.n_bits, ham.n_elec
     a_cap, eps = cfg.attempt_cap, cfg.eps
 
@@ -214,6 +223,8 @@ def build(ham: mol.MolecularHamiltonian, cfg: FciqmcConfig, seed: int,
         attempt / spawn buffer overflow, the iteration's key node)."""
         a = state.arena
         key_iter = state.key.fold(state.iterat)
+        if shards is not None:
+            key_iter = key_iter.fold(shards.rank)
         k_split, k_spawn, k_death, k_round = key_iter.split(4)
 
         vals0 = torch.where(a.valid, a.vals[0], 0.0)
@@ -247,6 +258,10 @@ def build(ham: mol.MolecularHamiltonian, cfg: FciqmcConfig, seed: int,
 
     def step(state: FciqmcState, num_keys, num_vals, den_keys, den_vals, ref_key):
         a1, words, spawn_val, ini, overflow, key_iter = merge_input(state)
+        if shards is not None:
+            words, spawn_val, rec, exch_over = power.exchange_spawns(
+                cfg, shards, words, spawn_val, ini=ini)
+            ini, overflow = rec["ini"], overflow | exch_over
         a2, stats = ar.accumulate_best(a1, words, spawn_val, ini, origin_row=0, dest_row=0)
 
         final_v = torch.where(a2.valid, a2.vals[0], 0.0)
@@ -257,8 +272,9 @@ def build(ham: mol.MolecularHamiltonian, cfg: FciqmcConfig, seed: int,
             final_v = torch.where(small_v, torch.sign(final_v) * rv, final_v)
         a2v = ar.Arena(keys=a2.keys, vals=final_v[None], n_used=a2.n_used)
         proj_num, proj_den = _estimate(a2v, num_keys, num_vals, den_keys, den_vals)
-
         glob_norm = final_v.abs().sum()
+        proj_num, proj_den, glob_norm = parallel.gsum(shards, proj_num, proj_den,
+                                                          glob_norm)
         en_shift, last_norm = state.en_shift, state.last_norm
         if (state.iterat + 1) % cfg.shift_interval == 0:
             en_shift, last_norm = compress.adjust_shift(
@@ -267,11 +283,14 @@ def build(ham: mol.MolecularHamiltonian, cfg: FciqmcConfig, seed: int,
 
         is_ref = dets.det_eq(a2v.keys, ref_key[None, :])
         a3 = ar.compact(a2v, (final_v != 0) | is_ref)
+        n_dets, nnonz, sgn_coh, n_over = parallel.gsum(
+            shards, a3.n_used[0], ar.n_nonzero(a3).to(torch.int64),
+            stats["nonini_occ_add"].to(torch.int64),
+            (stats["overflow"] | overflow).to(torch.int64))
         metrics = {
             "proj_num": proj_num, "proj_den": proj_den, "norm": glob_norm,
-            "shift": en_shift, "n_dets": a3.n_used[0], "nnonz": ar.n_nonzero(a3),
-            "sgn_coh": stats["nonini_occ_add"],
-            "overflow": stats["overflow"] | overflow,
+            "shift": en_shift, "n_dets": n_dets, "nnonz": nnonz,
+            "sgn_coh": sgn_coh, "overflow": n_over > 0,
         }
         return FciqmcState(a3, en_shift, last_norm, state.key, state.iterat + 1), metrics
 
@@ -286,8 +305,13 @@ def build(ham: mol.MolecularHamiltonian, cfg: FciqmcConfig, seed: int,
                        for k in traj[0]}
 
     num_keys, num_vals = trial_vectors(ham)
-    a = ar.from_unsorted(ar.make(cfg.capacity, ham.n_words, 1, device=dev),
-                         hf_words[None], torch.tensor([[float(init_walkers)]]))
+    init_rows = torch.tensor([[float(init_walkers)]], dtype=F64)
+    if shards is not None:
+        a = parallel.distribute_rows(hf_words[None].cpu(), init_rows, shards.size,
+                                     cfg.capacity, shards.rank, dev)
+    else:
+        a = ar.from_unsorted(ar.make(cfg.capacity, ham.n_words, 1, device=dev),
+                             hf_words[None], init_rows)
     zero = torch.zeros((), dtype=F64, device=dev)
     state = FciqmcState(arena=a, en_shift=zero, last_norm=zero.clone(),
                         key=rng.KeyTree(seed, dev), iterat=0)
@@ -296,3 +320,11 @@ def build(ham: mol.MolecularHamiltonian, cfg: FciqmcConfig, seed: int,
            "ref_key": hf_words, "p_doub": p_doub,
            "merge_input": lambda st: merge_input(st)[:4]}
     return step, run_steps, state, aux
+
+
+def build_sharded(ham: mol.MolecularHamiltonian, cfg: FciqmcConfig, seed: int, shards,
+                  init_walkers: float = 100.0):
+    """Hash-sharded FCIQMC on this rank (``shards``, ``cfg.n_shards`` ranks):
+    ``cfg.capacity`` and ``attempt_cap`` are per rank.  Returns (step,
+    run_steps, state, aux) as :func:`build` does, for this rank."""
+    return build(ham, cfg, seed, init_walkers, shards=shards)

@@ -1,7 +1,7 @@
 """frisys_mol: FCI-FRI with the heat-bath Power-Pitzer (HB-PP) factorized
 Hamiltonian compression.
 
-Counterpart of ``fries_tpu/drivers/frisys.py`` (single device).  Each
+Counterpart of ``fries_tpu/drivers/frisys.py``.  Each
 iteration's off-diagonal spawn runs three compression rounds over statically
 shaped sample buffers, then finalizes the sampled excitations:
 
@@ -33,8 +33,9 @@ Options: the semistochastic deterministic subspace (``determ_keys``: its
 members are exempt from sampling and their dense H block is applied
 exactly), time reversal (``spin_parity`` +1 / -1: sampled excitations and
 the diagonal fold onto the spin-flip symmetrized basis), a trial vector and
-an initial vector other than HF.  Sharding over several devices is not
-ported and raises.
+an initial vector other than HF.  Hash sharding: :func:`build_sharded` (or
+``build(..., shards=)``) steps this rank's block of the arena; every
+compression round runs over the ranks' joint stage with a global budget.
 """
 
 from __future__ import annotations
@@ -44,7 +45,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from fries_tpu_torch import compress, dets
+from fries_tpu_torch import compress, dets, parallel
 from fries_tpu_torch.drivers import power
 from fries_tpu_torch.ops import heat_bath as hb
 from fries_tpu_torch.ops import molecule as mol
@@ -72,13 +73,11 @@ class FrisysConfig:
     stage_f32: bool = True
     fuse_ab: bool = True
     fuse_cd: bool = True
-    axis_name: str | None = None
+    axis_name: str | None = None   # the reference's mesh axis; the port takes
+                                   # a Shards handle (build_sharded)
     n_shards: int = 1
+    exchange_cap: int = 0   # see power.PowerConfig.exchange_cap
     spawn_rows: int = 0     # see power.PowerConfig.spawn_rows
-
-    def check_ported(self):
-        if self.axis_name or self.n_shards > 1:
-            raise NotImplementedError("frisys option axis_name / n_shards > 1 is not ported")
 
     def power(self) -> power.PowerConfig:
         return power.PowerConfig(
@@ -86,7 +85,8 @@ class FrisysConfig:
             init_thresh=self.init_thresh, target_norm=self.target_norm,
             shift_interval=self.shift_interval,
             shift_damping=self.shift_damping,
-            shift_tracking=self.shift_tracking, spawn_rows=self.spawn_rows)
+            shift_tracking=self.shift_tracking, spawn_rows=self.spawn_rows,
+            n_shards=self.n_shards, exchange_cap=self.exchange_cap)
 
 
 def _rank_to_index(mask, rank):
@@ -106,7 +106,7 @@ def _at(rows, idx):
 
 def make_hbpp_spawner(ham: mol.MolecularHamiltonian, tens: hb.HeatBathTensors,
                       syminfo: mol.SymmInfo, p_doub: float, cfg: FrisysConfig,
-                      e_ref, determ=None):
+                      e_ref, determ=None, shards=None):
     """Stochastically compressed H application conforming to the power core's
     spawn interface ``spawn(keys, vals, h_fac, rand, thresh=None) -> (words,
     amps, ini)``.  ``rand`` is the six uniforms ``rns`` of a systematic
@@ -117,8 +117,10 @@ def make_hbpp_spawner(ham: mol.MolecularHamiltonian, tens: hb.HeatBathTensors,
     ``determ`` (:func:`build_determ_block`): the semistochastic deterministic
     subspace.  Its members are left out of the sampling, whose budget shrinks
     by the block's element count, and the dense block spawns exactly: its
-    rows follow the ``spawn_cap`` sampled ones, all as initiators."""
-    cfg.check_ported()
+    rows follow the ``spawn_cap`` sampled ones, all as initiators.
+
+    ``shards``: every round compresses over the ranks' joint stage with the
+    global budget ``matr_samp`` (each rank spawns from its own arena)."""
     dev = ham.device
     n_orb, n_elec = ham.n_orb, ham.n_elec
     n_bits = 2 * n_orb
@@ -143,9 +145,10 @@ def make_hbpp_spawner(ham: mol.MolecularHamiltonian, tens: hb.HeatBathTensors,
     def stage_comp_sub(level, vals_in, ndiv_in, w_in, rand, max_ndiv):
         if cfg.pivotal:
             return compress.comp_sub_piv(vals_in, ndiv_in, w_in.to(stage), w_in != 0,
-                                         m_samp, rand[level], s_cap, max_ndiv=max_ndiv)
+                                         m_samp, rand[level], s_cap, max_ndiv=max_ndiv,
+                                         shards=shards)
         return compress.comp_sub(vals_in, ndiv_in, w_in.to(stage), w_in != 0,
-                                 m_samp, rand[level], s_cap)
+                                 m_samp, rand[level], s_cap, shards=shards)
 
     def source(keys, occ, det_idx):
         s_keys = keys[det_idx]
@@ -258,7 +261,7 @@ def make_hbpp_spawner(ham: mol.MolecularHamiltonian, tens: hb.HeatBathTensors,
             else:
                 val, parent, sub, _, ovf = compress.comp_sub_factored(
                     val_c, ndiv_c, fac_a, fac_b, m_samp, rand[2], s_cap,
-                    kill_b0=kill_b0, row_chunk=cd_row_chunk)
+                    kill_b0=kill_b0, row_chunk=cd_row_chunk, shards=shards)
             overflow = overflow | ovf
             live = parent >= 0
             pidx = torch.where(live, parent, 0)
@@ -506,7 +509,7 @@ def compute_htrial(ham: mol.MolecularHamiltonian, trial_keys, trial_vals,
 
 def build(ham: mol.MolecularHamiltonian, cfg: FrisysConfig, seed: int,
           init_val: float = 100.0, determ_keys=None, trial=None, init_vec=None,
-          e_ref=None):
+          e_ref=None, shards=None):
     """Assemble the frisys workload on ``ham``'s device: HB-PP spawner + power
     core + the trial vector and its H-trial vector.
 
@@ -519,7 +522,7 @@ def build(ham: mol.MolecularHamiltonian, cfg: FrisysConfig, seed: int,
     as the diagonal's shift.  Returns (step, run_steps, state, aux); ``aux``
     holds the trial / H-trial estimator vectors, ``e_ref``, ``p_doub``,
     ``protected_keys`` (or None), the dense block's ``n_elements`` and the
-    spawner (``aux["spawn"]``)."""
+    spawner (``aux["spawn"]``).  ``shards``: see :func:`build_sharded`."""
     dev = ham.device
     syminfo = mol.SymmInfo.build(ham.symm.cpu().numpy())
     tens = hb.setup(ham)
@@ -528,9 +531,11 @@ def build(ham: mol.MolecularHamiltonian, cfg: FrisysConfig, seed: int,
     hf_en = float(hf_en) if e_ref is None else float(e_ref)
 
     determ = None if determ_keys is None else build_determ_block(ham, determ_keys)
-    spawn = make_hbpp_spawner(ham, tens, syminfo, p_doub, cfg, hf_en, determ=determ)
+    spawn = make_hbpp_spawner(ham, tens, syminfo, p_doub, cfg, hf_en, determ=determ,
+                              shards=shards)
     diag_fn = make_diag_fn(ham, hf_en, cfg.spin_parity)
-    step, run_steps = power.make_stepper(spawn, diag_fn, cfg.power(), estimator="direct")
+    step, run_steps = power.make_stepper(spawn, diag_fn, cfg.power(), estimator="direct",
+                                         shards=shards)
 
     hf_np = hf_words.cpu().numpy()
     if trial is None:
@@ -562,7 +567,24 @@ def build(ham: mol.MolecularHamiltonian, cfg: FrisysConfig, seed: int,
         init_vals = np.concatenate([[init_val], np.zeros(len(others))])
     else:
         init_keys, init_vals = hf_np[None], np.array([init_val])
-    a = ar.from_unsorted(
-        ar.make(cfg.capacity, ham.n_words, 2, device=dev), torch.as_tensor(init_keys),
-        torch.as_tensor(np.stack([init_vals, np.zeros_like(init_vals)])))
+    init_rows = np.stack([init_vals, np.zeros_like(init_vals)])
+    if shards is not None:
+        a = parallel.distribute_rows(init_keys, init_rows, shards.size, cfg.capacity,
+                                     shards.rank, dev)
+    else:
+        a = ar.from_unsorted(ar.make(cfg.capacity, ham.n_words, 2, device=dev),
+                             torch.as_tensor(init_keys), torch.as_tensor(init_rows))
     return step, run_steps, power.fresh_state(a, seed), aux
+
+
+def build_sharded(ham: mol.MolecularHamiltonian, cfg: FrisysConfig, seed: int, shards,
+                  init_val: float = 100.0, trial=None, init_vec=None, e_ref=None,
+                  determ_keys=None):
+    """Hash-sharded frisys on this rank (``shards``, ``cfg.n_shards`` ranks;
+    ``ham`` on the rank's device): ``cfg.capacity`` is per rank, the budgets
+    are global.  The initial vector is distributed by hash, the trial and
+    H-trial vectors and the deterministic space are replicated (each rank
+    protects the members it holds).  Returns (step, run_steps, state, aux)
+    as :func:`build` does, for this rank."""
+    return build(ham, cfg, seed, init_val=init_val, determ_keys=determ_keys, trial=trial,
+                 init_vec=init_vec, e_ref=e_ref, shards=shards)

@@ -1,7 +1,7 @@
 """frisys_hh: systematic FRI with a two-level factorized compression of the
 Hubbard-Holstein Hamiltonian.
 
-Counterpart of ``fries_tpu/drivers/frisys_hh.py`` (single device).  Each
+Counterpart of ``fries_tpu/drivers/frisys_hh.py``.  Each
 step's off-diagonal spawn is two ``comp_sub`` levels (the comp_sub emission
 kernel on the card for both) and a finalization:
 
@@ -18,8 +18,10 @@ kernel on the card for both) and a finalization:
 
 The levels consume the uniforms ``rns[0]`` and ``rns[1]`` of the step.  As
 in the reference, the levels' overflow flags are not reported: each level
-places at most ``matr_samp`` samples in ``spawn_cap`` slots.  Sharding is
-not ported and raises.
+places at most ``matr_samp`` samples in ``spawn_cap`` slots.  With a
+``shards`` handle the two levels compress over the ranks with global
+budgets, as the reference passes ``axis_name`` to them; like the reference,
+this module has no ``build_sharded``.
 """
 
 from __future__ import annotations
@@ -47,34 +49,32 @@ class FrisysHHConfig:
     target_norm: float = 0.0
     shift_interval: int = 10
     shift_damping: float = 0.05
-    axis_name: str | None = None
+    axis_name: str | None = None   # the reference's mesh axis (unused here)
     n_shards: int = 1
-
-    def check_ported(self):
-        if self.axis_name or self.n_shards > 1:
-            raise NotImplementedError("frisys_hh option axis_name / n_shards > 1 is not ported")
+    exchange_cap: int = 0
 
     def power(self) -> power.PowerConfig:
         return power.PowerConfig(
             eps=self.eps, target_nonz=self.vec_nonz, capacity=self.capacity,
             init_thresh=self.init_thresh, target_norm=self.target_norm,
-            shift_interval=self.shift_interval, shift_damping=self.shift_damping)
+            shift_interval=self.shift_interval, shift_damping=self.shift_damping,
+            n_shards=self.n_shards, exchange_cap=self.exchange_cap)
 
 
-def level_one(absv, chan_w, m_samp: int, rn, s_cap: int):
+def level_one(absv, chan_w, m_samp: int, rn, s_cap: int, shards=None):
     """Level 1: each parent's |v| over the (t, g) channel row.  Returns
     (values, parent, is_phonon, live) of the ``s_cap`` slots."""
     c = absv.shape[0]
     dev = absv.device
     val, parent, sub, _, _ = compress.comp_sub(
         absv, torch.zeros(c, dtype=torch.int64, device=dev), chan_w.expand(c, 2),
-        torch.ones((c, 2), dtype=torch.bool, device=dev), m_samp, rn, s_cap)
+        torch.ones((c, 2), dtype=torch.bool, device=dev), m_samp, rn, s_cap, shards=shards)
     live = parent >= 0
     return val, torch.where(live, parent, 0), (sub == 1) & live, live
 
 
 def level_two(n_elec: int, keys, val, det_idx, is_ph, live, from_bit, to_bit, m_samp: int,
-              rn, s_cap: int):
+              rn, s_cap: int, shards=None):
     """Level 2: each slot's value times its branch count, divided
     uniformly over the allowed hops or the 2 n_elec phonon branches.
     Returns (values, determinant index, is_phonon, live, branch)."""
@@ -84,7 +84,8 @@ def level_two(n_elec: int, keys, val, det_idx, is_ph, live, from_bit, to_bit, m_
     val2 = torch.where(live & (is_ph | (n_hops > 0)), val * ndiv2, 0.0)
     val, parent, sub, _, _ = compress.comp_sub(
         val2, ndiv2, torch.zeros((s_cap, 1), dtype=F64, device=dev),
-        torch.zeros((s_cap, 1), dtype=torch.bool, device=dev), m_samp, rn, s_cap)
+        torch.zeros((s_cap, 1), dtype=torch.bool, device=dev), m_samp, rn, s_cap,
+        shards=shards)
     live = parent >= 0
     pidx = torch.where(live, parent, 0)
     return (val, det_idx[pidx], is_ph[pidx] & live, live, torch.where(live, sub, 0))
@@ -121,22 +122,23 @@ def finalize(ham: hub.HubbardHolstein, keys, vals, occ, h_fac, val, det_idx, is_
     return torch.where((amps != 0)[:, None], words, dets.invalid_det(ham.n_words, keys.device)), amps
 
 
-def make_spawner(ham: hub.HubbardHolstein, cfg: FrisysHHConfig, e_ref=None, device=None):
+def make_spawner(ham: hub.HubbardHolstein, cfg: FrisysHHConfig, e_ref=None, device=None,
+                 shards=None):
     """The compressed H application, ``spawn(keys, vals, h_fac, rns) ->
     (words, amps, ini)`` in the power core's interface: :func:`level_one`,
     :func:`level_two`, :func:`finalize`.  ``e_ref`` is unused, as in the
-    reference (the diagonal carries it)."""
-    cfg.check_ported()
+    reference (the diagonal carries it).  ``shards``: the levels compress
+    over these ranks."""
     from_bit, to_bit = hub.hop_tensors(ham.n_sites, torch.device(device or "cpu"))
     chan_w = torch.tensor([[ham.t, ham.g]], dtype=F64, device=device)
 
     def spawn(keys, vals, h_fac, rns):
         occ = hub.occ_list(ham, keys)
         val, det_idx, is_ph, live = level_one(vals.abs(), chan_w, cfg.matr_samp, rns[0],
-                                              cfg.spawn_cap)
+                                              cfg.spawn_cap, shards)
         val, det_idx, is_ph, live, branch = level_two(
             ham.n_elec, keys, val, det_idx, is_ph, live, from_bit, to_bit, cfg.matr_samp,
-            rns[1], cfg.spawn_cap)
+            rns[1], cfg.spawn_cap, shards)
         words, amps = finalize(ham, keys, vals, occ, h_fac, val, det_idx, is_ph, live, branch,
                                from_bit, to_bit)
         return words, amps, vals[det_idx].abs() >= cfg.init_thresh

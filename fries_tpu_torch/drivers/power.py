@@ -1,5 +1,4 @@
-"""FRI power-iteration core shared by the single-vector drivers
-(single-device branch).
+"""FRI power-iteration core shared by the single-vector drivers.
 
 Counterpart of ``fries_tpu/drivers/power.py``.  One step of
 v <- (1 - eps (H - e_ref - S)) v:
@@ -30,8 +29,17 @@ draw nothing).  A keyed stepper (``keyed=True``, the frimulti spawner) draws
 from the state's key node (:mod:`fries_tpu_torch.rng`) instead, as the
 reference's core does: ``split(2)`` of ``key.fold(iterat)`` gives the
 spawner's node and the node of ``rn_vec``.
-Sharding over several devices (``axis_name``, ``exchange_cap``) is not
-ported.
+
+Hash sharding (``shards``, a :class:`fries_tpu_torch.parallel.Shards`
+handle): each rank steps its own block of the arena.  The spawns travel to
+their owners (:func:`fries_tpu_torch.runtime.shard.exchange`, a receive
+buffer of ``exchange_cap`` or 2 S / n_shards rows per sender for S spawns)
+and each rank merges what it receives; the compressions run on global
+budgets and a shared grid, the estimator dots, norms and counts are
+all-reduced, and the chunked spawn is off, as in the reference.  Protected
+(semistochastic) keys are replicated and each rank protects the ones it
+holds.  A world of one rank still runs the exchange (a copy), so it drives
+the collectives of a larger world.
 """
 
 from __future__ import annotations
@@ -41,8 +49,9 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from fries_tpu_torch import compress, dets
+from fries_tpu_torch import compress, dets, parallel
 from fries_tpu_torch.runtime import arena as ar
+from fries_tpu_torch.runtime import shard as sh
 
 F64 = torch.float64
 N_SPAWN_RNS = 6
@@ -71,6 +80,8 @@ class PowerConfig:
     dedup_cap: int = 0      # collapse duplicate targets to at most this many
                             # (key, ini) rows before each chunk's merge
                             # (arena.dedup_spawns).  0 = off
+    n_shards: int = 1       # ranks of a sharded run
+    exchange_cap: int = 0   # exchange rows per sender (0 = 2 S / n_shards)
 
 
 @dataclass
@@ -106,9 +117,21 @@ def _as_f64(x, device):
     return torch.tensor(np.asarray(x, np.float64), device=device)
 
 
+def exchange_spawns(cfg, shards, words, amps, **payload):
+    """Route a spawn stream to its owners.  Returns (words, amps with zeros
+    on the sentinel rows, the other payloads, overflow)."""
+    cap = cfg.exchange_cap or max(1, 2 * amps.shape[0] // cfg.n_shards)
+    received, overflow = sh.exchange(
+        {"keys": words, "amps": amps, **payload}, sh.shard_of_words(words, cfg.n_shards),
+        cfg.n_shards, cap, shards)
+    words = received.pop("keys")
+    amps = torch.where(dets.is_invalid(words), 0.0, received.pop("amps"))
+    return words, amps, received, overflow
+
+
 def make_stepper(spawn_fn, diag_fn, cfg: PowerConfig,
                  estimator: str = "before_after", spawn_chunk_fn=None,
-                 keyed: bool = False):
+                 keyed: bool = False, shards=None):
     """Build (step, run_steps) for one model.
 
     step(state, num_keys, num_vals, den_keys, den_vals, ref_key, rns=None,
@@ -130,9 +153,16 @@ def make_stepper(spawn_fn, diag_fn, cfg: PowerConfig,
 
     ``keyed``: the spawner takes a key node; ``rns`` and ``rn_vec`` are not
     taken, both come from ``state.key``.
+
+    ``shards``: this rank's handle of a sharded run (``cfg.n_shards`` ranks);
+    ``spawn_fn`` must compress over the same ranks, and ``spawn_chunk_fn``
+    is not used.
     """
     if estimator not in ("before_after", "direct"):
         raise ValueError(f"unknown estimator {estimator!r}")
+    parallel.check_world(cfg.n_shards, shards)
+    if shards is not None:
+        spawn_chunk_fn = None
     eps = cfg.eps
 
     def protected_mask(pos, found, c):
@@ -197,6 +227,11 @@ def make_stepper(spawn_fn, diag_fn, cfg: PowerConfig,
                 keep_in = keep_in | protected_mask(*ar.lookup(a, protected_keys), a.capacity)
             flat_words, flat_amps, flat_ini = spawn_fn(s_keys, s_vals, -eps, rns)
             flat_words = torch.where((flat_amps != 0)[:, None], flat_words, sentinel)
+            exch_over = torch.zeros((), dtype=torch.bool, device=dev)
+            if shards is not None:
+                flat_words, flat_amps, rec, exch_over = exchange_spawns(
+                    cfg, shards, flat_words, flat_amps, ini=flat_ini)
+                flat_ini = rec["ini"]
             a2, st = ar.accumulate_best(a, flat_words, flat_amps, flat_ini,
                                         origin_row=0, dest_row=1, keep_mask=keep_in)
             overflow = st["overflow"] | spawn_over
@@ -221,12 +256,9 @@ def make_stepper(spawn_fn, diag_fn, cfg: PowerConfig,
         den_after = (gathered[den_sl] * den_vals.to(F64)).sum()
         if estimator == "before_after":
             gathered0 = torch.where(qfound, a2.vals[0][qpos], 0.0)
-            den_before = (gathered0[den_sl] * den_vals.to(F64)).sum()
-            proj_num = ((1 + eps * state.en_shift) * den_before - den_after) / eps
-            proj_den = den_before
+            den_other = (gathered0[den_sl] * den_vals.to(F64)).sum()
         else:
-            proj_num = (gathered[:n_num] * num_vals.to(F64)).sum()
-            proj_den = den_after
+            den_other = (gathered[:n_num] * num_vals.to(F64)).sum()
 
         if protected_keys is not None:
             prot = protected_mask(qpos[n_num + n_den:], qfound[n_num + n_den:],
@@ -235,9 +267,17 @@ def make_stepper(spawn_fn, diag_fn, cfg: PowerConfig,
             prot = torch.zeros(a2.capacity, dtype=torch.bool, device=dev)
         stoch_v = torch.where(prot, 0.0, new_v)
 
-        keep, n_left, loc_norm = compress.find_preserve(stoch_v.abs(), cfg.target_nonz)
+        keep, n_left, loc_norm = compress.find_preserve(stoch_v.abs(), cfg.target_nonz,
+                                                        shards=shards)
         glob_norm = (loc_norm + torch.where(keep, stoch_v.abs(), 0.0).sum()
                      + torch.where(prot, new_v.abs(), 0.0).sum())
+        den_after, den_other, glob_norm = parallel.gsum(shards, den_after, den_other,
+                                                      glob_norm)
+        if estimator == "before_after":
+            proj_num = ((1 + eps * state.en_shift) * den_other - den_after) / eps
+            proj_den = den_other
+        else:
+            proj_num, proj_den = den_other, den_after
 
         do_shift = (state.iterat + 1) % cfg.shift_interval == 0
         en_shift, last_norm = state.en_shift, state.last_norm
@@ -250,7 +290,7 @@ def make_stepper(spawn_fn, diag_fn, cfg: PowerConfig,
                                       ) * torch.log(glob_norm / cfg.target_norm)
                 en_shift = torch.where(state.last_norm != 0, tracked, en_shift)
 
-        comp_v = compress.sys_comp(stoch_v, keep, n_left, rn_vec, loc_norm)
+        comp_v = compress.sys_comp(stoch_v, keep, n_left, rn_vec, loc_norm, shards)
         comp_v = torch.where(prot, new_v, comp_v)
         a3 = ar.Arena(keys=a2.keys, vals=torch.stack([comp_v, torch.zeros_like(comp_v)]),
                       n_used=a2.n_used)
@@ -262,6 +302,13 @@ def make_stepper(spawn_fn, diag_fn, cfg: PowerConfig,
             n_dets = a3.n_used[0]
         else:
             n_dets = live.sum()
+        n_ini = ((comp_v.abs() >= cfg.init_thresh) & (comp_v != 0)).sum()
+        nnonz = (comp_v != 0).sum()
+        if shards is not None:
+            n_dets, n_ini, nnonz, nonini, n_over = parallel.gsum(
+                shards, n_dets, n_ini, nnonz, nonini.to(torch.int64),
+                overflow.to(torch.int64))
+            overflow = (n_over > 0) | exch_over
 
         metrics = {
             "proj_num": proj_num,
@@ -270,8 +317,8 @@ def make_stepper(spawn_fn, diag_fn, cfg: PowerConfig,
             "shift": en_shift,
             "n_dets": n_dets,
             "nkept": cfg.target_nonz - n_left,
-            "n_ini": ((comp_v.abs() >= cfg.init_thresh) & (comp_v != 0)).sum(),
-            "nnonz": (comp_v != 0).sum(),
+            "n_ini": n_ini,
+            "nnonz": nnonz,
             "sgn_coh": nonini,
             "overflow": overflow,
         }

@@ -1,4 +1,4 @@
-"""Multi-state subspace iteration (subsp_mol), single device.
+"""Multi-state subspace iteration (subsp_mol).
 
 Counterpart of ``fries_tpu/drivers/subspace.py``.  n_trial vectors share one
 sorted arena (one value row each) and are multiplied by 1 - eps (H - e_ref)
@@ -48,7 +48,12 @@ Modes:
 * ``compress_mode="multi"``: multinomial vector compression
   (:func:`fries_tpu_torch.compress.multi_comp`) after ``find_preserve``.
 
-Sharding is not ported and raises.
+Hash sharding (:func:`build_sharded`, or ``build(..., shards=)``): each rank
+holds its block of the arena; the norms, the h / d projections and the
+restart's norms are all-reduced, every compression runs on global budgets,
+and the spawns (every chunk's, in ``exact_h``; the ranks run the largest
+rank's number of chunks) travel to their owners with their destination rows
+before the multi-row merge.
 """
 
 from __future__ import annotations
@@ -58,8 +63,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from fries_tpu_torch import compress, dets, linalg, rng
-from fries_tpu_torch.drivers import frisys
+from fries_tpu_torch import compress, dets, linalg, parallel, rng
+from fries_tpu_torch.drivers import frisys, power
 from fries_tpu_torch.ops import heat_bath as hb
 from fries_tpu_torch.ops import molecule as mol
 from fries_tpu_torch.ops import time_reversal as tr_mod
@@ -87,12 +92,11 @@ class SubspaceConfig:
     lowmem: bool = False
     spin_parity: int = 0
     batch: int = 1024       # exact_h: arena rows per spawn-and-merge chunk
-    axis_name: str | None = None
+    axis_name: str | None = None   # the reference's mesh axis (unused here)
     n_shards: int = 1
+    exchange_cap: int = 0   # see power.PowerConfig.exchange_cap
 
-    def check_ported(self):
-        if self.axis_name or self.n_shards > 1:
-            raise NotImplementedError("subspace option axis_name / n_shards > 1 is not ported")
+    def check(self):
         if self.compress_mode not in ("piv", "sys", "multi"):
             raise ValueError(f"unknown compress_mode {self.compress_mode!r}")
         if self.exact_h and self.batch < 1:
@@ -158,14 +162,16 @@ def lowmem_h_mat(ham: mol.MolecularHamiltonian, tmpl: mol.ExcitationTemplate, tr
 
 
 def build(ham: mol.MolecularHamiltonian, cfg: SubspaceConfig, trial_keys,
-          trial_vals, seed: int, e_ref=None):
+          trial_vals, seed: int, e_ref=None, shards=None):
     """trial_keys (T, Nt, W) sentinel-padded determinant words and
     trial_vals (T, Nt); the iterates start as the trial vectors.  ``e_ref``
     overrides the HF diagonal energy as the diagonal's shift.  Returns
     (step, run_steps, state, aux); ``aux`` holds ``e_ref`` and the padded
-    trial and H * trial vectors."""
-    cfg.check_ported()
+    trial and H * trial vectors.  ``shards``: see :func:`build_sharded`."""
+    cfg.check()
+    parallel.check_world(cfg.n_shards, shards)
     dev = ham.device
+    gsum = lambda x: parallel.gsum(shards, x)
     t, n_words = cfg.n_trial, ham.n_words
     trial_keys = np.asarray(trial_keys).astype(np.int64).reshape(t, -1, n_words)
     trial_vals = np.asarray(trial_vals, np.float64).reshape(t, -1)
@@ -184,7 +190,8 @@ def build(ham: mol.MolecularHamiltonian, cfg: SubspaceConfig, trial_keys,
             capacity=cfg.capacity, spawn_cap=cfg.spawn_cap, unnorm=cfg.unnorm,
             pivotal=cfg.pivotal_h, spin_parity=cfg.spin_parity)
         spawn = frisys.make_hbpp_spawner(ham, hb.setup(ham), syminfo,
-                                         frisys.hf_p_doub(ham, syminfo), fcfg, hf_en)
+                                         frisys.hf_p_doub(ham, syminfo), fcfg, hf_en,
+                                         shards=shards)
 
     est = {name: torch.as_tensor(x, device=dev) for name, x in (
         ("trial_keys", trial_keys), ("trial_vals", trial_vals))}
@@ -213,9 +220,13 @@ def build(ham: mol.MolecularHamiltonian, cfg: SubspaceConfig, trial_keys,
         for kk, v in zip(map(tuple, trial_keys[j]), trial_vals[j]):
             if kk in uniq:
                 init_vals[j, uniq[kk]] += v
-    a = ar.from_unsorted(ar.make(cfg.capacity, n_words, t, device=dev),
-                         torch.as_tensor(np.asarray(list(uniq), np.int64)),
-                         torch.as_tensor(init_vals))
+    init_keys = np.asarray(list(uniq), np.int64).reshape(-1, n_words)
+    if shards is not None:
+        a = parallel.distribute_rows(init_keys, init_vals, shards.size, cfg.capacity,
+                                     shards.rank, dev)
+    else:
+        a = ar.from_unsorted(ar.make(cfg.capacity, n_words, t, device=dev),
+                             torch.as_tensor(init_keys), torch.as_tensor(init_vals))
     state = SubspaceState(
         arena=a, norm_factors=torch.ones(t, dtype=F64, device=dev),
         last_norms=torch.as_tensor(np.abs(init_vals).sum(1), device=dev),
@@ -225,23 +236,33 @@ def build(ham: mol.MolecularHamiltonian, cfg: SubspaceConfig, trial_keys,
         """(T_query, T_vec) overlaps of the query rows with the arena rows."""
         pos, found = dets.lookup_dets(keys, qkeys.reshape(-1, n_words))
         g = torch.where(found[None], vals[:, pos], 0.0).reshape(t, *qvals.shape)
-        return (g * qvals[None]).sum(-1).T
+        return gsum((g * qvals[None]).sum(-1).T)
 
     def restart(vals, d_mat, h_mat):
         rinv = linalg.inv_r_factor((d_mat - cfg.eps * h_mat).cpu().numpy())
         new_vals = torch.as_tensor(rinv, device=dev).T @ vals
-        scale = vals.abs().sum(1) / new_vals.abs().sum(1).clamp_min(1e-300)
+        scale = gsum(vals.abs().sum(1)) / gsum(new_vals.abs().sum(1)).clamp_min(1e-300)
         return new_vals * scale[:, None]
 
     diag_fn = frisys.make_diag_fn(ham, hf_en, cfg.spin_parity)
 
     def compress_row(key, v):
         if cfg.compress_mode == "piv":
-            return compress.piv_comp(key, v, cfg.vec_nonz)
-        keep, n_left, loc_norm = compress.find_preserve(v.abs(), cfg.vec_nonz)
+            return compress.piv_comp(key, v, cfg.vec_nonz, shards)
+        keep, n_left, loc_norm = compress.find_preserve(v.abs(), cfg.vec_nonz, shards=shards)
         if cfg.compress_mode == "multi":
-            return compress.multi_comp(key, v, keep, n_left, loc_norm)
-        return compress.sys_comp(v, keep, n_left, key.uniform(()).to(dev), loc_norm)
+            return compress.multi_comp(key, v, keep, n_left, loc_norm, shards)
+        return compress.sys_comp(v, keep, n_left, key.uniform(()).to(dev), loc_norm, shards)
+
+    def route(words, amps, rows, ini):
+        """The spawns' stream at their owners (unchanged on one device), and
+        the exchange's overflow."""
+        if shards is None:
+            return words, amps, rows, ini, torch.zeros((), dtype=torch.bool, device=dev)
+        words = torch.where((amps != 0)[:, None], words, dets.invalid_det(n_words, dev))
+        words, amps, rec, over = power.exchange_spawns(cfg, shards, words, amps, rows=rows,
+                                                       ini=ini)
+        return words, amps, rec["rows"], rec["ini"], over
 
     def merge_exact(a, dvals, vrows):
         """The exact spawn of ``a``'s rows (values ``vrows``) merged chunk by
@@ -250,23 +271,27 @@ def build(ham: mol.MolecularHamiltonian, cfg: SubspaceConfig, trial_keys,
         a2 = ar.Arena(a.keys, dvals, a.n_used)
         overflow = torch.zeros((), dtype=torch.bool, device=dev)
         n_rows = int(a.n_used[0])
-        for s in range(0, n_rows, cfg.batch):
-            rows = slice(s, s + cfg.batch)
+        n_chunks = -(-n_rows // cfg.batch)
+        if shards is not None:
+            n_chunks = int(shards.max(torch.tensor(n_chunks)))
+        for i in range(n_chunks):
+            rows = slice(i * cfg.batch, (i + 1) * cfg.batch)
             words, amps = zip(*(exact_spawn(ham, tmpl, a.keys[rows], vrows[j, rows],
                                             -cfg.eps, cfg.spin_parity) for j in range(t)))
             dest = torch.arange(t, device=dev).repeat_interleave(amps[0].shape[0])
-            a2, st = ar.accumulate_multi_best(
-                a2, torch.cat(words), torch.cat(amps), dest,
+            words, amps, dest, ini, over = route(
+                torch.cat(words), torch.cat(amps), dest,
                 torch.ones(dest.shape[0], dtype=torch.bool, device=dev))
-            overflow = overflow | st["overflow"]
-        return a2, overflow, n_rows, -(-n_rows // cfg.batch)
+            a2, st = ar.accumulate_multi_best(a2, words, amps, dest, ini)
+            overflow = overflow | st["overflow"] | over
+        return a2, overflow, n_rows, n_chunks
 
     def step(state: SubspaceState):
         a = state.arena
         key_iter = state.key.fold(state.iterat)
 
         # 1. normalize by the norm-factor controller
-        norms = torch.where(a.valid[None], a.vals, 0.0).abs().sum(1)
+        norms = gsum(torch.where(a.valid[None], a.vals, 0.0).abs().sum(1))
         norm_factors, last_norms = state.norm_factors, state.last_norms
         if (state.iterat + 1) % cfg.shift_interval == 0:
             norm_factors, last_norms = compress.adjust_shift2(
@@ -278,6 +303,8 @@ def build(ham: mol.MolecularHamiltonian, cfg: SubspaceConfig, trial_keys,
         h_mat = (lowmem_h_mat(ham, tmpl, est["trial_keys"], est["trial_vals"], t_diag,
                               cfg.spin_parity, a.keys, vals) if cfg.lowmem
                  else dots(a.keys, vals, est["htrial_keys"], est["htrial_vals"]))
+        if cfg.lowmem:
+            h_mat = gsum(h_mat)
         if (state.iterat + 1) % cfg.restart_int == 0:
             vals = restart(vals, d_mat, h_mat)
 
@@ -290,8 +317,8 @@ def build(ham: mol.MolecularHamiltonian, cfg: SubspaceConfig, trial_keys,
         # 5. per-row spawn, death, multi-row merge
         valid = a.valid
         vrows = torch.where(valid[None], a.vals, 0.0)
-        thr_rows = cfg.init_thresh * vrows.abs().sum(1) / cfg.matr_samp
-        n_ini = ((vrows.abs() >= thr_rows[:, None]) & (vrows != 0)).sum(1)
+        thr_rows = cfg.init_thresh * gsum(vrows.abs().sum(1)) / cfg.matr_samp
+        n_ini = gsum(((vrows.abs() >= thr_rows[:, None]) & (vrows != 0)).sum(1))
         death = 1 - cfg.eps * diag_fn(a.keys)
         dvals = torch.where(valid[None], a.vals * death[None], 0.0)
         exact = {}
@@ -307,14 +334,20 @@ def build(ham: mol.MolecularHamiltonian, cfg: SubspaceConfig, trial_keys,
                                      thresh=thr_rows[j]))
             words, amps, ini = zip(*spawned)
             rows = torch.arange(t, device=dev).repeat_interleave(amps[0].shape[0])
+            words, amps, rows, ini, over = route(torch.cat(words), torch.cat(amps), rows,
+                                                 torch.cat(ini))
             a2, stats = ar.accumulate_multi_best(
-                ar.Arena(a.keys, dvals, a.n_used), torch.cat(words), torch.cat(amps),
-                rows, torch.cat(ini))
-            overflow = stats["overflow"]
+                ar.Arena(a.keys, dvals, a.n_used), words, amps, rows, ini)
+            overflow = stats["overflow"] | over
+        n_dets = a2.n_used
+        if shards is not None:
+            n_dets, n_over = parallel.gsum(shards, a2.n_used[0],
+                                               overflow.to(torch.int64))
+            n_dets, overflow = n_dets.reshape(1), n_over > 0
 
         metrics = {
             "h_mat": h_mat, "d_mat": d_mat, "norms": norms,
-            "norm_factors": norm_factors, "n_ini": n_ini, "n_dets": a2.n_used,
+            "norm_factors": norm_factors, "n_ini": n_ini, "n_dets": n_dets,
             "overflow": overflow, **exact,
         }
         return (SubspaceState(a2, norm_factors, last_norms, state.key,
@@ -331,3 +364,12 @@ def build(ham: mol.MolecularHamiltonian, cfg: SubspaceConfig, trial_keys,
 
     aux = {"e_ref": hf_en, "spawn": spawn, **est}
     return step, run_steps, state, aux
+
+
+def build_sharded(ham: mol.MolecularHamiltonian, cfg: SubspaceConfig, trial_keys,
+                  trial_vals, seed: int, shards, e_ref=None):
+    """Hash-sharded subspace iteration on this rank (``shards``,
+    ``cfg.n_shards`` ranks): ``cfg.capacity`` is per rank, the budgets are
+    global, and the key tree is the same on every rank.  Returns (step,
+    run_steps, state, aux) as :func:`build` does, for this rank."""
+    return build(ham, cfg, trial_keys, trial_vals, seed, e_ref=e_ref, shards=shards)

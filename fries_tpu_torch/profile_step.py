@@ -13,7 +13,11 @@ rung with its five comp_sub rounds; the four-word configurations on real
 Ne/cc-pVQZ ``ne_qz``, ``ne_qz_unnorm`` and ``ne_qz_subsp``; or the other
 real molecules ``rung_real`` (the 1e6 rung on N2/cc-pVDZ),
 ``semistoch_cisd`` (with the 150-determinant CISD space), ``frifull_real``
-(H2O/cc-pVDZ's (10e, 12o)) and ``fciqmc_real`` (stretched N2)), runs
+(H2O/cc-pVDZ's (10e, 12o)) and ``fciqmc_real`` (stretched N2); the
+hash-sharded ``rung_real_sharded`` and ``subsp_sharded``, each in a
+one-rank NCCL world, where the exchange shows as four phases: ``exchange:
+bucket build``, ``exchange: count all-gather``, ``exchange: host read`` and
+``exchange: payload``), runs
 warm-up steps (frifull, subspfull and frisys_hh: until the vectors hold
 their budgets of nonzeros; fciqmc and fciqmc_real: bench.py's 60; the
 observables: the 6 of their burn-in; the others 3), then
@@ -80,7 +84,7 @@ def install_labels():
     from fries_tpu_torch import compress
     from fries_tpu_torch.drivers import fciqmc, frimulti, frisys, frisys_hh, observables, subspace
     from fries_tpu_torch.ops import heat_bath, hubbard, molecule, near_uniform
-    from fries_tpu_torch.runtime import arena, emit, merge, merge_multi
+    from fries_tpu_torch.runtime import arena, emit, merge, merge_multi, shard
 
     phases = (
         (compress, "comp_sub", "comp_sub (A+B, E)"),
@@ -122,7 +126,11 @@ def install_labels():
         (frisys_hh, "finalize", "frisys_hh finalize"),
         (subspace, "lowmem_h_mat", "lowmem h_row"),
         (compress, "multi_comp", "multi_comp"),
-        (observables, "apply_one_elec", "one_elec"))
+        (observables, "apply_one_elec", "one_elec"),
+        (shard, "bucket_rows", "exchange: bucket build"),
+        (shard, "gather_counts", "exchange: count all-gather"),
+        (shard, "read_counts", "exchange: host read"),
+        (shard, "payload", "exchange: payload"))
     phases = [(mod, name, label) for mod, name, label in phases if hasattr(mod, name)]
     for mod, name, label in phases:
         setattr(mod, name, _labelled(label, getattr(mod, name)))
@@ -191,7 +199,8 @@ def main(argv=None):
         "frisys", "semistoch", "frifull", "subsp", "subsp_lowmem", "subsp_multi", "subspfull",
         "fciqmc", "frimulti", "frifull_hh", "frisys_hh", "observables", "obs_repl",
         "unfused", "ne_qz", "ne_qz_unnorm", "ne_qz_subsp", "rung_real", "semistoch_cisd",
-        "frifull_real", "fciqmc_real"], default="frisys")
+        "frifull_real", "fciqmc_real", "rung_real_sharded", "subsp_sharded"],
+        default="frisys")
     parser.add_argument("--dedup_cap", type=int, default=0,
                         help="frifull: collapse each chunk's stream to this many rows")
     parser.add_argument("--steps", type=int, default=3)
@@ -220,6 +229,15 @@ def main(argv=None):
         step, state, est, _ = rung.build_fciqmc(dev)
     elif args.workload == "rung_real":
         step, state, est, _ = rung.build_real(dev)
+    elif args.workload == "rung_real_sharded":
+        from fries_tpu_torch import parallel
+
+        step, state, est, _ = rung.build_real_sharded(parallel.init_world(0, 1, "nccl", dev))
+    elif args.workload == "subsp_sharded":
+        from fries_tpu_torch import parallel
+
+        step, state, _ = rung.build_subsp_sharded(parallel.init_world(0, 1, "nccl", dev))
+        est = ()
     elif args.workload == "semistoch_cisd":
         step, state, est, aux = rung.build_semistoch_cisd(dev)
         kw = {"protected_keys": aux["protected_keys"]}
@@ -304,6 +322,10 @@ def main(argv=None):
         "top_kernels_ms_per_step": top,
     }
     print(json.dumps(report, indent=1))
+    if args.workload.endswith("_sharded"):
+        from fries_tpu_torch import parallel
+
+        parallel.close_world()
     return report
 
 

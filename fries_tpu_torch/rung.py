@@ -131,11 +131,26 @@ The real molecules of bench.py's default branches, built by
   20th iteration and held 706,595 determinants at the 65th), which
   ``chip_smoke.py`` checks each run.
 
+The hash-sharded configurations (one rank per card, or several ranks on
+one card; each rank's capacity as below, budgets global, as the reference
+defines a sharded run):
+
+* ``rung_real_sharded``: ``rung_real`` on ``n`` ranks (:func:`config` with
+  ``n_shards``; capacity 2^21 per rank; the exchange buffer the reference's
+  default, 2 S / n rows per sender for S spawns).
+* ``subsp_sharded``: bench.py's ``bench_subsp_sharded`` on real
+  Ne/cc-pVQZ (its default system): T = 2 (HF and bench.py's real-system
+  single), eps 0.02, vec_nonz 100,000, matr_samp 200,000, spawn_cap
+  300,000, exchange_cap 600,000, restart_int 10, capacity 2^20 per rank
+  (bench.py's 2^19 overflows, as for ``subsp``).
+
 ``chip_smoke.py`` times them and :mod:`fries_tpu_torch.profile_step`
 profiles them.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -494,3 +509,36 @@ def build_fciqmc_real(device, seed: int = 0, ham=None, bench_values: bool = Fals
     step, _, state, aux = fciqmc.build(ham, fciqmc_config(bench_values), seed=seed,
                                        init_walkers=FCIQMC_INIT_WALKERS)
     return step, state, estimator_args(aux), aux
+
+
+# ---------------------------------------------------------------------------
+# hash-sharded configurations
+# ---------------------------------------------------------------------------
+
+SUBSP_EXCHANGE_CAP = 600_000
+
+
+def build_real_sharded(shards, seed: int = 0, ham=None):
+    """``rung_real_sharded`` on this rank (``shards``; ``ham``: real
+    N2/cc-pVDZ on the rank's device, when already built).  Returns (step,
+    state, est, aux) as :func:`build` does."""
+    ham = real_systems.n2_ccpvdz(shards.device) if ham is None else ham
+    cfg = dataclasses.replace(config(), n_shards=shards.size)
+    step, _, state, aux = frisys.build_sharded(ham, cfg, seed, shards)
+    return step, state, estimator_args(aux), aux
+
+
+def subsp_sharded_config(n_shards: int) -> subspace.SubspaceConfig:
+    return dataclasses.replace(subspace_config(), n_shards=n_shards,
+                               exchange_cap=SUBSP_EXCHANGE_CAP)
+
+
+def build_subsp_sharded(shards, seed: int = 0, ham=None):
+    """``subsp_sharded`` on this rank (``ham``: real Ne/cc-pVQZ on the
+    rank's device, when already built).  Returns (step, state, aux) as
+    :func:`build_subspace` does."""
+    ham = ne_qz_system(shards.device) if ham is None else ham
+    step, _, state, aux = subspace.build_sharded(
+        ham, subsp_sharded_config(shards.size), hf_and_single(ham, *ne_qz_single(ham)),
+        [[1.0], [1.0]], seed, shards)
+    return step, state, aux

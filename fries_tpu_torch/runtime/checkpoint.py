@@ -21,6 +21,11 @@ of the reference's JAX key (``key``):
 :func:`restore` puts a file's arena (every row), scalars and random state
 into a fresh state of the same driver and raises when the file lacks a
 field the state draws from: a run never reseeds silently.
+
+A sharded run (``shards``) saves the reference's stacked layout: rank 0
+gathers every rank's arena into keys (n*C, W), vals (R, n*C) and n_used
+(n,) and writes the file with the replicated scalars and random state; a
+resume takes rank r's block back, onto a world of the same size.
 """
 
 from __future__ import annotations
@@ -30,7 +35,7 @@ from dataclasses import fields, replace
 import numpy as np
 import torch
 
-from fries_tpu_torch import dets, rng
+from fries_tpu_torch import dets, parallel, rng
 from fries_tpu_torch.runtime import arena as ar
 
 FORMAT_VERSION = 2
@@ -39,15 +44,27 @@ GENERATOR = "torch_generator"
 KEY_TREE = "key_tree"
 
 
-def save_state(path, state):
+def save_state(path, state, shards=None):
     """Save a driver state (a dataclass with an ``arena`` and scalar fields)
-    to ``path`` (.npz)."""
+    to ``path`` (.npz).  Sharded, every rank calls it and rank 0 writes the
+    stacked arenas, gathered to it alone."""
     a = state.arena
+    if shards is None:
+        keys, vals = a.keys.cpu().numpy().astype(np.uint32), a.vals.cpu().numpy()
+        n_used = a.n_used.cpu().numpy().astype(np.int32).reshape(1)
+    else:
+        g_keys, g_vals, g_used = (shards.gather_to_root(x)
+                                  for x in (a.keys, a.vals, a.n_used.reshape(1)))
+        if shards.rank != 0:
+            return
+        keys = g_keys.cpu().numpy().reshape(-1, a.n_words).astype(np.uint32)
+        vals = g_vals.cpu().numpy().transpose(1, 0, 2).reshape(a.vals.shape[0], -1)
+        n_used = g_used.cpu().numpy().astype(np.int32).reshape(-1)
     payload = {
         "version": FORMAT_VERSION,
-        "keys": a.keys.cpu().numpy().astype(np.uint32),
-        "vals": a.vals.cpu().numpy(),
-        "n_used": a.n_used.cpu().numpy().astype(np.int32).reshape(1),
+        "keys": keys,
+        "vals": vals,
+        "n_used": n_used,
         "iterat": np.int32(state.iterat),
     }
     for name in SCALARS:
@@ -76,17 +93,28 @@ def load_scalars(path) -> dict:
         return {k: z[k] for k in z.files if k not in ("keys", "vals", "occ", "diag")}
 
 
-def restore(path, state):
+def restore(path, state, shards=None):
     """``state`` (a fresh state of the workload that wrote ``path``) with the
     snapshot's iteration count, scalars, random state and arena, every row
     of it (so that a resumed run is the uninterrupted one exactly, on a
-    card whose reductions depend on the rows' positions).  Raises
-    ``ValueError`` naming the missing field when the file lacks the random
-    state that ``state`` draws from."""
+    card whose reductions depend on the rows' positions).  Sharded, this
+    rank's block of the stacked file, whose world must have had the same
+    size.  Raises ``ValueError`` naming the missing field when the file
+    lacks the random state that ``state`` draws from, or when its world size
+    differs."""
     scal = load_scalars(path)
     dev = state.arena.device
     names = {f.name for f in fields(state)}
-    new = {"arena": load_arena(path, 0.0, dev), "iterat": int(scal["iterat"])}
+    n_file = np.asarray(scal["n_used"]).reshape(-1).shape[0]
+    if n_file != (1 if shards is None else shards.size):
+        raise ValueError(f"{path} holds a run of {n_file} ranks; resume it on as many "
+                         "(--n_chips)")
+    if shards is None:
+        arena = load_arena(path, 0.0, dev)
+    else:
+        with np.load(path) as z:
+            arena = parallel.unstack(z["keys"], z["vals"], z["n_used"], shards.rank, dev)
+    new = {"arena": arena, "iterat": int(scal["iterat"])}
     for name in SCALARS:
         if name in names and name in scal:
             new[name] = torch.as_tensor(scal[name], dtype=torch.float64, device=dev)

@@ -222,7 +222,7 @@ def test_frisys_energy_matches_dense_fci():
 def test_unported_options_raise():
     j, t = system()
     base = dict(eps=0.02, vec_nonz=60, matr_samp=150, capacity=64, spawn_cap=200)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="Shards handle"):   # sharded runs take build_sharded
         tfs.build(t, tfs.FrisysConfig(**base, axis_name="x", n_shards=2), seed=0)
     with pytest.raises(ValueError, match="matr_samp"):   # the dense block eats the budget
         tfs.build(t, tfs.FrisysConfig(**dict(base, matr_samp=20)), seed=0,
@@ -279,8 +279,8 @@ def test_cli_frisys_mol(tmp_path):
         assert np.loadtxt(out / name).shape == (30,), name
     assert (out / "params.txt").exists()
     assert len((out / "arena_occ.txt").read_text().splitlines()) == 3
-    with pytest.raises(NotImplementedError):
-        cli.main(["frisys_mol", "--fcidump_path", str(fcidump), "--epsilon", "0.02",
+    with pytest.raises(NotImplementedError):   # only frisys_mol runs sharded
+        cli.main(["frimulti_mol", "--fcidump_path", str(fcidump), "--epsilon", "0.02",
                   "--vec_nonz", "40", "--mat_nonz", "100", "--max_dets", "256",
                   "--n_chips", "2"])
 

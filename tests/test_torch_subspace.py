@@ -256,7 +256,7 @@ def test_unported_options_raise(tmp_path):
     tk, tv = hf[None, None].numpy(), np.ones((1, 1))
     base = dict(eps=0.02, n_trial=1, vec_nonz=40, matr_samp=100, capacity=64,
                 spawn_cap=128)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="Shards handle"):   # sharded runs take build_sharded
         tsub.build(t, tsub.SubspaceConfig(**base, axis_name="x", n_shards=2), tk, tv, seed=0)
     for opt in (dict(compress_mode="pivot"), dict(exact_h=True, batch=0)):
         with pytest.raises(ValueError):
