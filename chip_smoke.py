@@ -216,6 +216,7 @@ Usage: ``python3 chip_smoke.py``.
 """
 
 import contextlib
+import gc
 import json
 import subprocess
 import sys
@@ -338,8 +339,10 @@ def phase_probe_copy(dev):
 def wide_universe(gen, dev, n, n_words):
     """About ``n`` distinct rows of ``n_words`` > 2 words (the last below
     2^24): random rows and as many copies of them with one word redrawn, so
-    that many pairs differ in one word only, the low word or one above the
-    64-bit boundary; in the arena's order."""
+    that many pairs differ in one word only, the low word, the top word (at
+    odd W alone in its 64-bit limb) or one above a 64-bit boundary; past
+    four words half the copies instead redraw the two words around a limb
+    boundary (2j + 1 and 2j + 2).  In the arena's order."""
     import torch
     from fries_tpu_torch import dets
 
@@ -347,9 +350,17 @@ def wide_universe(gen, dev, n, n_words):
     base = torch.randint(0, 1 << 32, (half, n_words), generator=gen, device=dev)
     base[:, -1] &= (1 << 24) - 1
     variant = base.clone()
+    rows = torch.arange(half, device=dev)
     word = torch.randint(0, n_words, (half,), generator=gen, device=dev)
-    variant[torch.arange(half, device=dev), word] = torch.randint(
-        0, 1 << 24, (half,), generator=gen, device=dev)
+    variant[rows, word] = torch.randint(0, 1 << 24, (half,), generator=gen, device=dev)
+    if n_words > 4:
+        pair = rows[half // 2:]
+        low = 2 * torch.randint(0, (n_words - 1) // 2, (pair.shape[0],), generator=gen,
+                                device=dev) + 1
+        variant[pair] = base[pair]
+        for w in (low, low + 1):
+            variant[pair, w] = torch.randint(0, 1 << 24, (pair.shape[0],), generator=gen,
+                                             device=dev)
     uni = torch.cat([base, variant])
     uni = uni[dets.sort_dets(uni)]
     first = torch.ones(uni.shape[0], dtype=torch.bool, device=dev)
@@ -645,63 +656,95 @@ def ne_qz_subsp_multi_case(gen, dev, n_words=4, invalid_frac=0.1):
                         invalid_frac=invalid_frac)
 
 
-def phase_merge_wide(dev):
-    """Kernels A and C on 128-bit keys, W = 3 and 4, against their plain
-    versions: made-up streams at ne_qz's shapes (kernel A, layouts (2, 0, 1)
-    with a keep mask and (1, 0, 0)) and ne_qz_subsp's (kernel C), each also
-    with 200,000 spawns on one key and with 90% of the stream sentinel rows;
-    keys differing only in the low word or only above the 64-bit boundary
-    (:func:`wide_universe`); and the overflow, empty-arena and empty-spawn
-    cases.  Kernel A's first case also runs at W = 2, the width it is timed
-    against (:func:`phase_timings`, the same seeds).  Returns the checks at
-    the main paths' shapes."""
+def check_merges_at_width(gen, dev, w, res):
+    """Kernels A and C at ``w`` words against their plain versions: made-up
+    streams at ne_qz's shapes (kernel A, layouts (2, 0, 1) with a keep mask
+    and (1, 0, 0)) and ne_qz_subsp's (kernel C), each also with 200,000
+    spawns on one key and with 90% of the stream sentinel rows; and the
+    overflow, empty-arena and empty-spawn cases.  Adds the checks at the
+    main paths' shapes to ``res``."""
     import torch
     from fries_tpu_torch.runtime import arena as ar
 
+    a, sk, sv, si, keep = ne_qz_merge_case(gen, dev, w)
+    shapes = f"W={w}, ne_qz shapes (C={a.capacity}, S={sk.shape[0]})"
+    res[f"merge W={w}"] = check_merge(f"{shapes} (2,0,1) + keep_mask", a, sk, sv, si,
+                                      (2, 0, 1), keep)
+    check_merge(f"{shapes} (1,0,0)", a, sk, sv, si, (1, 0, 0), None)
+    check_merge(f"{shapes}, 200,000 spawns on one key", a, one_key_stress(a, sk), sv, si,
+                (2, 0, 1), keep)
+    check_merge(f"{shapes}, 90% sentinel spawns",
+                *ne_qz_merge_case(gen, dev, w, invalid_frac=0.9)[:4], (2, 0, 1), None)
+    a, sk, sv, si, keep = merge_inputs(gen, dev, 128, 40, 32, 64, n_words=w,
+                                       invalid_frac=1.0)
+    check_merge(f"W={w} empty spawns", a, sk, sv, si, (2, 0, 1), keep)
+    a, sk, sv, si, _ = merge_inputs(gen, dev, 128, 40, 64, 128, n_words=w)
+    check_merge(f"W={w} empty arena", ar.make(128, w, 1, device=dev), sk, sv,
+                torch.ones_like(si), (1, 0, 0), None)
+    a, sk, sv, si, keep = merge_inputs(gen, dev, 64, 60, 200, 400, n_words=w,
+                                       ini_frac=1.0, invalid_frac=0.0)
+    if not check_merge(f"W={w} overflow", a, sk, sv, si, (2, 0, 1), keep)["overflow"]:
+        raise AssertionError(f"merge W={w} overflow case did not overflow")
+
+    ma, msk, msv, msr, msi = ne_qz_subsp_multi_case(gen, dev, w)
+    shapes = f"W={w}, ne_qz_subsp shapes (C={ma.capacity}, R=2, S={msk.shape[0]})"
+    res[f"merge_multi W={w}"] = check_merge_multi(shapes, ma, msk, msv, msr, msi)
+    check_merge_multi(f"{shapes}, 200,000 spawns on one key", ma, one_key_stress(ma, msk),
+                      msv, msr, msi)
+    check_merge_multi(f"{shapes}, 90% sentinel spawns",
+                      *ne_qz_subsp_multi_case(gen, dev, w, invalid_frac=0.9))
+    check_merge_multi(f"W={w} empty spawns",
+                      *multi_inputs(gen, dev, 128, 40, 32, 64, 2, n_words=w,
+                                    invalid_frac=1.0))
+    _, esk, esv, esr, esi = multi_inputs(gen, dev, 128, 40, 64, 128, 2, n_words=w)
+    check_merge_multi(f"W={w} empty arena", ar.make(128, w, 2, device=dev), esk, esv, esr,
+                      torch.ones_like(esi))
+    o = check_merge_multi(f"W={w} overflow",
+                          *multi_inputs(gen, dev, 64, 60, 200, 400, 3, n_words=w,
+                                        ini_frac=1.0, invalid_frac=0.0))
+    if not o["overflow"]:
+        raise AssertionError(f"merge_multi W={w} overflow case did not overflow")
+
+
+def phase_merge_wide(dev):
+    """Kernels A and C on 128-bit keys, W = 3 and 4, against their plain
+    versions (:func:`check_merges_at_width`; keys differing only in the low
+    word or only above the 64-bit boundary, :func:`wide_universe`).  Kernel
+    A's first case also runs at W = 2, the width it is timed against
+    (:func:`phase_timings`, the same seeds).  Returns the checks at the
+    main paths' shapes."""
+    import torch
+
     gen = torch.Generator(device=dev)
     res = {}
-    for w in (2, 3, 4):
+    gen.manual_seed(92)
+    a, sk, sv, si, keep = ne_qz_merge_case(gen, dev, 2)
+    res["merge W=2"] = check_merge(f"W=2, ne_qz shapes (C={a.capacity}, S={sk.shape[0]}) "
+                                   "(2,0,1) + keep_mask", a, sk, sv, si, (2, 0, 1), keep)
+    for w in (3, 4):
         gen.manual_seed(90 + w)
-        a, sk, sv, si, keep = ne_qz_merge_case(gen, dev, w)
-        shapes = f"W={w}, ne_qz shapes (C={a.capacity}, S={sk.shape[0]})"
-        res[f"merge W={w}"] = check_merge(f"{shapes} (2,0,1) + keep_mask", a, sk, sv, si,
-                                          (2, 0, 1), keep)
-        if w == 2:      # its other cases are phase_merge's
-            continue
-        check_merge(f"{shapes} (1,0,0)", a, sk, sv, si, (1, 0, 0), None)
-        check_merge(f"{shapes}, 200,000 spawns on one key", a, one_key_stress(a, sk), sv, si,
-                    (2, 0, 1), keep)
-        check_merge(f"{shapes}, 90% sentinel spawns",
-                    *ne_qz_merge_case(gen, dev, w, invalid_frac=0.9)[:4], (2, 0, 1), None)
-        a, sk, sv, si, keep = merge_inputs(gen, dev, 128, 40, 32, 64, n_words=w,
-                                           invalid_frac=1.0)
-        check_merge(f"W={w} empty spawns", a, sk, sv, si, (2, 0, 1), keep)
-        a, sk, sv, si, _ = merge_inputs(gen, dev, 128, 40, 64, 128, n_words=w)
-        check_merge(f"W={w} empty arena", ar.make(128, w, 1, device=dev), sk, sv,
-                    torch.ones_like(si), (1, 0, 0), None)
-        a, sk, sv, si, keep = merge_inputs(gen, dev, 64, 60, 200, 400, n_words=w,
-                                           ini_frac=1.0, invalid_frac=0.0)
-        if not check_merge(f"W={w} overflow", a, sk, sv, si, (2, 0, 1), keep)["overflow"]:
-            raise AssertionError(f"merge W={w} overflow case did not overflow")
+        check_merges_at_width(gen, dev, w, res)
+    return res
 
-        ma, msk, msv, msr, msi = ne_qz_subsp_multi_case(gen, dev, w)
-        shapes = f"W={w}, ne_qz_subsp shapes (C={ma.capacity}, R=2, S={msk.shape[0]})"
-        res[f"merge_multi W={w}"] = check_merge_multi(shapes, ma, msk, msv, msr, msi)
-        check_merge_multi(f"{shapes}, 200,000 spawns on one key", ma, one_key_stress(ma, msk),
-                          msv, msr, msi)
-        check_merge_multi(f"{shapes}, 90% sentinel spawns",
-                          *ne_qz_subsp_multi_case(gen, dev, w, invalid_frac=0.9))
-        check_merge_multi(f"W={w} empty spawns",
-                          *multi_inputs(gen, dev, 128, 40, 32, 64, 2, n_words=w,
-                                        invalid_frac=1.0))
-        _, esk, esv, esr, esi = multi_inputs(gen, dev, 128, 40, 64, 128, 2, n_words=w)
-        check_merge_multi(f"W={w} empty arena", ar.make(128, w, 2, device=dev), esk, esv, esr,
-                          torch.ones_like(esi))
-        o = check_merge_multi(f"W={w} overflow",
-                              *multi_inputs(gen, dev, 64, 60, 200, 400, 3, n_words=w,
-                                            ini_frac=1.0, invalid_frac=0.0))
-        if not o["overflow"]:
-            raise AssertionError(f"merge_multi W={w} overflow case did not overflow")
+
+WIDER_WORDS = (5, 6, 7, 8, 16)
+WIDER_MULTI_TIMED = (7, 16)
+
+
+def phase_merge_wider(dev):
+    """Kernels A and C on 64-bit limb keys, W = 5, 6, 7, 8 and 16 (L = 3, 3,
+    4, 4 and 8 limbs), against their plain versions
+    (:func:`check_merges_at_width`; keys differing only in the low word,
+    only in the top word, alone in its limb at odd W, or only in the two
+    words around a limb boundary).  Returns the checks at the main paths'
+    shapes."""
+    import torch
+
+    gen = torch.Generator(device=dev)
+    res = {}
+    for w in WIDER_WORDS:
+        gen.manual_seed(90 + w)
+        check_merges_at_width(gen, dev, w, res)
     return res
 
 
@@ -1212,82 +1255,88 @@ def phase_small_wide(dev):
                          system=wide_small_system)
 
 
+def frisys_real_run(name, dev, built, cfg, n_timed, system, words):
+    """``built`` = (step, state, est, aux) of a frisys configuration on a
+    real system: 2 warm-up and ``n_timed`` timed steps with exactly 1 kernel
+    A and 3 kernel B launches per step asserted (counts reset just before
+    the timed steps); then a real step's merge input through kernel A and
+    its plain version.  Returns the results and that input."""
+    import torch
+    from fries_tpu_torch.runtime import emit, merge
+
+    step, state, args, aux = built
+    state, _, _ = timed_block(step, state, args, N_WARM, f"{name} warm-up")
+    torch.cuda.reset_peak_memory_stats()
+    merge.LAUNCHES = emit.LAUNCHES = 0
+    state, metrics, s_per_step = timed_block(step, state, args, n_timed, name)
+    launches = {"merge": merge.LAUNCHES, "emit": emit.LAUNCHES}
+    if launches != {"merge": n_timed, "emit": 3 * n_timed}:
+        raise AssertionError(f"{name}: launches {launches} in {n_timed} steps, not 1 "
+                             "kernel A and 3 kernel B per step")
+    last = metrics[-1]
+    r = {"config": name, "ms_per_step": 1e3 * s_per_step,
+         "sampled_nonzeros_per_s": cfg.matr_samp / s_per_step,
+         "peak_mem_bytes": torch.cuda.max_memory_allocated(), "launches": launches,
+         "n_dets_timed_steps": [int(m["n_dets"]) for m in metrics],
+         "arena_rows": int(state.arena.n_used[0]), "norm": float(last["norm"]),
+         "e_corr_est": float(last["proj_num"]) / float(last["proj_den"])}
+    log(f"{name}: {json.dumps(r)}")
+    rns = torch.rand(6, dtype=torch.float64, generator=state.generator).to(dev)
+    case = power_merge_input(state, aux, cfg.eps, rns)
+    r["real_step"] = {**merge_stream_stats(case[0], case[1]),
+                      **check_merge(f"{name}, a real step's stream (W={words}, {system}), "
+                                    "(2,0,1) + keep_mask", *case[:4], None, case[4])}
+    log(f"{name} real step: {json.dumps(r['real_step'])}")
+    return r, case
+
+
 def phase_ne_qz(dev, ham):
     """The ``ne_qz`` configuration on real Ne/cc-pVQZ (``ham``, built on the
-    card; 54 orbitals, four-word keys): 2 warm-up
-    and 5 timed steps with exactly 1 kernel A and 3 kernel B launches per
-    step asserted, then a real step's merge input through kernel A and its
-    plain version; then the unnormalized run, 2 + 2 steps.  Returns the
-    results and that merge input."""
+    card; 54 orbitals, four-word keys): 2 warm-up and 5 timed steps
+    (:func:`frisys_real_run`) and its real merge checked; then the
+    unnormalized run, 2 + 2 steps.  Returns the results and the merge
+    input."""
     import torch
     from fries_tpu_torch import rung
-    from fries_tpu_torch.runtime import emit, merge
 
     cfg = rung.ne_qz_config()
     res = {}
     for unnorm, n_timed in ((False, N_TIMED), (True, 2)):
         name = "ne_qz unnorm" if unnorm else "ne_qz"
         t0 = time.perf_counter()
-        step, state, args, aux = rung.build_ne_qz(dev, unnorm=unnorm, ham=ham)
+        built = rung.build_ne_qz(dev, unnorm=unnorm, ham=ham)
         torch.cuda.synchronize()
         log(f"{name}: built in {time.perf_counter() - t0:.1f} s (real Ne/cc-pVQZ, 54 orbitals, "
-            "8 electrons, "
-            f"{aux['ref_key'].shape[0]} words, capacity {cfg.capacity}, spawn_cap "
-            f"{cfg.spawn_cap})")
-        state, _, _ = timed_block(step, state, args, N_WARM, f"{name} warm-up")
-        torch.cuda.reset_peak_memory_stats()
-        merge.LAUNCHES = emit.LAUNCHES = 0
-        state, metrics, s_per_step = timed_block(step, state, args, n_timed, name)
-        launches = {"merge": merge.LAUNCHES, "emit": emit.LAUNCHES}
-        if launches != {"merge": n_timed, "emit": 3 * n_timed}:
-            raise AssertionError(f"{name}: launches {launches} in {n_timed} steps, not 1 "
-                                 "kernel A and 3 kernel B per step")
-        last = metrics[-1]
-        r = {"config": name, "ms_per_step": 1e3 * s_per_step,
-             "sampled_nonzeros_per_s": cfg.matr_samp / s_per_step,
-             "peak_mem_bytes": torch.cuda.max_memory_allocated(), "launches": launches,
-             "n_dets_timed_steps": [int(m["n_dets"]) for m in metrics],
-             "arena_rows": int(state.arena.n_used[0]), "norm": float(last["norm"]),
-             "e_corr_est": float(last["proj_num"]) / float(last["proj_den"])}
-        log(f"{name}: {json.dumps(r)}")
-        res[name] = r
+            f"8 electrons, {built[3]['ref_key'].shape[0]} words, capacity {cfg.capacity}, "
+            f"spawn_cap {cfg.spawn_cap})")
+        res[name], c = frisys_real_run(name, dev, built, cfg, n_timed, "real Ne/cc-pVQZ", 4)
         if not unnorm:
-            rns = torch.rand(6, dtype=torch.float64, generator=state.generator).to(dev)
-            case = power_merge_input(state, aux, cfg.eps, rns)
-            r["real_step"] = {**merge_stream_stats(case[0], case[1]),
-                              **check_merge("ne_qz, a real step's stream (W=4), (2,0,1) "
-                                            "+ keep_mask", *case[:4], None, case[4])}
-            log(f"ne_qz real step: {json.dumps(r['real_step'])}")
-        del step, state
+            case = c
+        del built, c
     return res, case
 
 
-def phase_ne_qz_subsp(dev, ham):
-    """The ``ne_qz_subsp`` configuration on real Ne/cc-pVQZ (``ham``): 2
-    warm-up and 5 timed iterations,
-    one kernel C launch per iteration asserted; then a real iteration's
-    merge input through kernel C and its plain version.  Returns the
-    results and that input."""
-    import torch
+def subsp_real_run(name, dev, built, ham, words, system):
+    """``built`` = (step, state, aux) of bench.py's subsp configuration on a
+    real system (``ham``): 2 warm-up and 5 timed iterations, one kernel C
+    launch per iteration asserted; then a real iteration's merge input
+    through kernel C and its plain version.  Returns the results and that
+    input."""
     from fries_tpu_torch import linalg, rung
     from fries_tpu_torch.runtime import arena as ar
 
     cfg = rung.subspace_config()
-    t0 = time.perf_counter()
-    step, state, aux = rung.build_ne_qz_subsp(dev, ham=ham)
-    torch.cuda.synchronize()
-    log(f"ne_qz_subsp: built in {time.perf_counter() - t0:.1f} s (real Ne/cc-pVQZ, 54 "
-        f"orbitals, 8 electrons, trial vectors HF and the single {rung.ne_qz_single(ham)}, "
-        f"capacity {cfg.capacity}, spawn_cap {cfg.spawn_cap} per state)")
-    state, r = subspace_run("ne_qz_subsp", step, state, N_WARM, N_TIMED)
+    step, state, aux = built
+    state, r = subspace_run(name, step, state, N_WARM, N_TIMED)
     if r["launches"]["merge_multi"] != N_TIMED:
-        raise AssertionError(f"ne_qz_subsp: {r['launches']} in {N_TIMED} iterations")
+        raise AssertionError(f"{name}: {r['launches']} in {N_TIMED} iterations")
     last = r.pop("metrics")[-1]
     evals, _ = linalg.gen_eig(last["h_mat"].cpu().numpy(), last["d_mat"].cpu().numpy())
-    r.update(config="ne_qz_subsp",
+    r.update(config=name,
              sampled_nonzeros_per_s=cfg.n_trial * cfg.matr_samp / r.pop("s_per_step"),
-             eigenvalues_last_step=sorted(float(x) for x in evals.real), e_ref=aux["e_ref"])
-    log(f"ne_qz_subsp: {json.dumps(r)}")
+             eigenvalues_last_step=sorted(float(x) for x in evals.real), e_ref=aux["e_ref"],
+             single=list(rung.ne_qz_single(ham)))
+    log(f"{name}: {json.dumps(r)}")
     captured, orig = [], ar.accumulate_multi_best
 
     def recording(*args):
@@ -1301,10 +1350,118 @@ def phase_ne_qz_subsp(dev, ham):
         ar.accumulate_multi_best = orig
     case = captured[0]
     r["real_step"] = {**merge_stream_stats(case[0], case[1]),
-                      **check_merge_multi("ne_qz_subsp, a real iteration's T streams (W=4)",
-                                          *case)}
-    log(f"ne_qz_subsp real step: {json.dumps(r['real_step'])}")
+                      **check_merge_multi(f"{name}, a real iteration's T streams (W={words}, "
+                                          f"{system})", *case)}
+    log(f"{name} real step: {json.dumps(r['real_step'])}")
     return r, case
+
+
+def phase_ne_qz_subsp(dev, ham):
+    """The ``ne_qz_subsp`` configuration on real Ne/cc-pVQZ (``ham``)
+    (:func:`subsp_real_run`).  Returns the results and its real merge
+    input."""
+    import torch
+    from fries_tpu_torch import rung
+
+    cfg = rung.subspace_config()
+    t0 = time.perf_counter()
+    built = rung.build_ne_qz_subsp(dev, ham=ham)
+    torch.cuda.synchronize()
+    log(f"ne_qz_subsp: built in {time.perf_counter() - t0:.1f} s (real Ne/cc-pVQZ, 54 "
+        f"orbitals, 8 electrons, trial vectors HF and the single {rung.ne_qz_single(ham)}, "
+        f"capacity {cfg.capacity}, spawn_cap {cfg.spawn_cap} per state)")
+    return subsp_real_run("ne_qz_subsp", dev, built, ham, 4, "real Ne/cc-pVQZ")
+
+
+NE2_E_HF_REPEAT = 1e-9     # Ha: two builds on the card
+NE2_MO_ENERGY_REPEAT = 1e-8
+NE2_E_HF_DIMER = 1e-3      # Ha: |E_HF(Ne2) - 2 E_HF(Ne)| at 5.84 a0
+
+
+def phase_ne2_qz(dev, e_ne):
+    """Ne2/cc-pVQZ at full width (108 orbitals, 16 electrons, seven-word
+    keys): built on the card twice, each stage timed with
+    :class:`fries_tpu_torch.profiling.Timer` and the build's own seconds
+    (one-electron, ERIs, SCF, MO transform), and the heat-bath setup (host
+    numpy) timed inside each configuration's build.  The repeat against
+    the first build: E_HF within 1e-9 Ha, orbital energies within 1e-8,
+    irreps equal, and the MO integrals' rotation invariants (the Frobenius
+    norms of hcore and of the ERIs over all orbitals) within rtol 1e-12;
+    the integrals themselves after the gauge alignment are logged, not
+    held: at 5.84 a0 the two atoms' d, f and g shells leave same-irrep
+    orbitals 1e-7-1e-5 Ha apart, whose mixing the SCF's convergence fixes
+    only to ~1e-7.  E_HF within 1e-3 Ha of twice Ne's ``e_ne``.  Then
+    ``ne2_qz`` (:func:`frisys_real_run`, 2 + 5 steps) and ``ne2_qz_subsp``
+    (:func:`subsp_real_run`, 2 + 5 iterations), each with its real W = 7
+    merge through kernel A or C and its plain version.  Returns (results,
+    ne2_qz's merge input, ne2_qz_subsp's)."""
+    import torch
+    from fries_tpu_torch import profiling, rung, scf
+    from fries_tpu_torch.ops import heat_bath
+
+    timer = profiling.Timer()
+    builds = []
+    for i in range(2):
+        with timer.block(f"build {i}", sync=torch.zeros(1, device=dev)):
+            builds.append(rung.ne2_qz_molecule(dev))
+    (ham, info), (ham2, info2) = builds
+    if ham.n_words != 7 or (ham.n_orb, ham.n_elec) != (108, 16):
+        raise AssertionError(f"ne2_qz: {ham.n_orb} orbitals, {ham.n_elec} electrons, "
+                             f"{ham.n_words} words")
+    rel = lambda x, y: abs(float(torch.linalg.norm(x) / torch.linalg.norm(y)) - 1.0)
+    repeat = {"e_hf": abs(info2["e_hf_total"] - info["e_hf_total"]),
+              "mo_energy": float((info2["mo_energy"] - info["mo_energy"]).abs().max()),
+              "irreps_equal": bool((info2["irreps"] == info["irreps"]).all()),
+              "hcore_norm": rel(ham2.hcore, ham.hcore), "eris_norm": rel(ham2.eris, ham.eris)}
+    o, repeat["aligned_off_block"] = scf.gauge_alignment(
+        info2["C"], info["C"], info["S"], info["mo_energy"], info["irreps"])
+    hcore, eris = scf.rotate_mo_integrals(ham2.hcore, ham2.eris, o)
+    repeat["aligned_hcore"] = float((hcore - ham.hcore).abs().max())
+    repeat["aligned_eris"] = float((eris - ham.eris).abs().max())
+    del builds, ham2, info2, hcore, eris
+    e_dimer = info["e_hf_total"] - 2 * e_ne
+    if not (repeat["e_hf"] < NE2_E_HF_REPEAT and repeat["mo_energy"] < NE2_MO_ENERGY_REPEAT
+            and repeat["irreps_equal"] and repeat["hcore_norm"] < 1e-12
+            and repeat["eris_norm"] < 1e-12 and abs(e_dimer) < NE2_E_HF_DIMER
+            and torch.isfinite(ham.eris).all()):
+        raise AssertionError(f"ne2_qz: repeat {repeat}; E_HF - 2 E_HF(Ne) = {e_dimer}")
+    hb_orig = heat_bath.setup
+
+    def timed_setup(h):
+        with timer.block("heat-bath setup"):
+            return hb_orig(h)
+
+    res = {"system": {
+        "n_ao": int(info["C"].shape[0]), "n_orb": ham.n_orb, "n_elec": ham.n_elec,
+        "n_words": ham.n_words, "e_hf_total": info["e_hf_total"],
+        "e_hf_minus_twice_ne": e_dimer, "repeat": repeat,
+        "seconds": dict(info["seconds"])}}
+    heat_bath.setup = timed_setup
+    try:
+        cfg = rung.ne_qz_config()
+        t0 = time.perf_counter()
+        built = rung.build_ne2_qz(dev, ham=ham)
+        torch.cuda.synchronize()
+        log(f"ne2_qz: built in {time.perf_counter() - t0:.1f} s (Ne2/cc-pVQZ, 108 orbitals, "
+            f"16 electrons, 7 words, capacity {cfg.capacity}, spawn_cap {cfg.spawn_cap})")
+        res["ne2_qz"], case = frisys_real_run("ne2_qz", dev, built, cfg, N_TIMED,
+                                              "Ne2/cc-pVQZ", 7)
+        del built
+        t0 = time.perf_counter()
+        built = rung.build_ne2_qz_subsp(dev, ham=ham)
+        torch.cuda.synchronize()
+        log(f"ne2_qz_subsp: built in {time.perf_counter() - t0:.1f} s (trial vectors HF and "
+            f"the single {rung.ne_qz_single(ham)})")
+        res["ne2_qz_subsp"], sub_case = subsp_real_run("ne2_qz_subsp", dev, built, ham, 7,
+                                                       "Ne2/cc-pVQZ")
+        del built
+    finally:
+        heat_bath.setup = hb_orig
+    res["system"]["timer"] = {k: {"s": timer.totals[k], "calls": timer.counts[k]}
+                              for k in timer.totals}
+    log(f"ne2_qz system: {json.dumps(res['system'])}")
+    log("ne2_qz timer:\n" + timer.report())
+    return res, case, sub_case
 
 
 def check_power_metrics(label, metrics):
@@ -1822,39 +1979,50 @@ def capture_emissions(spawn, *args):
 
 
 def phase_frisys_hh(dev):
-    """The ``frisys_hh`` configuration: warm-up until the vector holds its
+    """The ``frisys_hh`` configuration (:func:`frisys_hh_run`, 12 sites,
+    two-word keys); returns the results, the merge input and the plans."""
+    from fries_tpu_torch import rung
+
+    return frisys_hh_run(dev, "frisys_hh", rung.frisys_hh_system(), rung.build_frisys_hh,
+                         "hh")
+
+
+def frisys_hh_run(dev, name, ham, build, plan_prefix):
+    """A frisys_hh configuration (``build(dev)`` gives its step on ``ham``,
+    with :func:`rung.frisys_hh_config`): warm-up until the vector holds its
     budget (at most 40 steps, each logged), 5 timed steps with 2 emissions
     and 1 kernel A launch per step asserted, then a real step's two
     emission plans through kernel B and its merge input through kernel A,
     each against its plain version; returns the results, the merge input
-    and the plans."""
+    and the plans (``plan_prefix level 1`` and ``level 2``)."""
     import torch
     from fries_tpu_torch import rung
     from fries_tpu_torch.runtime import emit, merge
 
-    cfg, ham = rung.frisys_hh_config(), rung.frisys_hh_system()
+    cfg = rung.frisys_hh_config()
     t0 = time.perf_counter()
-    step, state, args, aux = rung.build_frisys_hh(dev)
+    step, state, args, aux = build(dev)
     torch.cuda.synchronize()
-    log(f"frisys_hh: built in {time.perf_counter() - t0:.1f} s ({ham.n_sites} sites, "
+    log(f"{name}: built in {time.perf_counter() - t0:.1f} s ({ham.n_sites} sites, "
         f"ph_bits {ham.ph_bits}, {ham.n_bits} bits in {ham.n_words} words, capacity "
         f"{cfg.capacity}, matr_samp {cfg.matr_samp}, spawn_cap {cfg.spawn_cap})")
     n_warm, nnonz, warm = 0, 0, []
     while nnonz < cfg.vec_nonz and n_warm < 40:
-        state, ms, _ = timed_block(step, state, args, 1, "frisys_hh warm-up")
+        state, ms, _ = timed_block(step, state, args, 1, f"{name} warm-up")
         n_warm += 1
         nnonz = int(ms[0]["nnonz"])
         warm.append([int(ms[0]["n_dets"]), nnonz])
-    log(f"frisys_hh warm-up: {n_warm} steps, n_dets / nnonz per step {warm}")
+    log(f"{name} warm-up: {n_warm} steps, n_dets / nnonz per step {warm}")
     torch.cuda.reset_peak_memory_stats()
     merge.LAUNCHES = 0
     emit.LAUNCHES = 0
-    state, metrics, s_per_step = timed_block(step, state, args, N_TIMED, "frisys_hh")
+    state, metrics, s_per_step = timed_block(step, state, args, N_TIMED, name)
     launches = {"merge": merge.LAUNCHES, "emit": emit.LAUNCHES}
     if launches != {"merge": N_TIMED, "emit": 2 * N_TIMED}:
-        raise AssertionError(f"frisys_hh: launches {launches} in {N_TIMED} steps")
+        raise AssertionError(f"{name}: launches {launches} in {N_TIMED} steps")
     last = metrics[-1]
-    res = {"config": f"frisys_hh ({ham.n_sites} sites, ph_bits {ham.ph_bits})",
+    res = {"config": f"{name} ({ham.n_sites} sites, ph_bits {ham.ph_bits}, "
+                     f"{ham.n_bits} bits, W={ham.n_words})",
            "ms_per_step": 1e3 * s_per_step,
            "sampled_nonzeros_per_s": cfg.matr_samp / s_per_step,
            "peak_mem_bytes": torch.cuda.max_memory_allocated(), "launches": launches,
@@ -1862,24 +2030,47 @@ def phase_frisys_hh(dev):
            "n_dets_nnonz_timed_steps": [[int(m["n_dets"]), int(m["nnonz"])] for m in metrics],
            "norm": float(last["norm"]),
            "e_est": float(last["proj_num"]) / float(last["proj_den"])}
-    log(f"frisys_hh: {json.dumps(res)}")
+    log(f"{name}: {json.dumps(res)}")
     gen = torch.Generator(device="cpu")
     gen.manual_seed(12)
     rns = torch.rand(2, dtype=torch.float64, generator=gen).to(dev)
     case, plans = capture_emissions(power_merge_input, state, aux, cfg.eps, rns)
     if len(plans) != 2:
-        raise AssertionError(f"frisys_hh: {len(plans)} emissions in one spawn")
+        raise AssertionError(f"{name}: {len(plans)} emissions in one spawn")
+    levels = (f"{plan_prefix} level 1", f"{plan_prefix} level 2")
     res["emit_checks"] = {
-        name: check_emit(f"frisys_hh {name} (N={plan['offsets'].shape[0]}, "
-                         f"K={plan['w_sub'].shape[1]}), a real step's plan", plan,
-                         need_kept=False)
-        for name, plan in zip(("hh level 1", "hh level 2"), plans)}
+        level: check_emit(f"{name} {level} (N={plan['offsets'].shape[0]}, "
+                          f"K={plan['w_sub'].shape[1]}), a real step's plan", plan,
+                          need_kept=False)
+        for level, plan in zip(levels, plans)}
     res["real_step"] = {
         **merge_stream_stats(case[0], case[1]),
-        **check_merge("frisys_hh, a real step's stream (two words, phonon bits), (2,0,1) "
+        **check_merge(f"{name}, a real step's stream (W={ham.n_words}, phonon bits), (2,0,1) "
                       "+ keep mask", *case[:4], None, case[4])}
-    log(f"frisys_hh real step: {json.dumps(res['real_step'])}")
-    return res, case, dict(zip(("hh level 1", "hh level 2"), plans))
+    log(f"{name} real step: {json.dumps(res['real_step'])}")
+    return res, case, dict(zip(levels, plans))
+
+
+def phase_frisys_hh_wide(dev):
+    """Hubbard-Holstein rows past 64 bits: a small 65-bit frisys_hh system
+    (13 sites, ph_bits 3, three words) stepped on the card and on the CPU
+    from one state, then the ``frisys_hh_wide`` configuration (16 sites, 80
+    bits: kernel A on 128-bit phonon keys, kernel B at K = 2 and 1;
+    :func:`frisys_hh_run`).  Returns the results, the merge input and the
+    plans."""
+    from fries_tpu_torch import rung
+    from fries_tpu_torch.drivers import frisys_hh
+    from fries_tpu_torch.ops import hubbard
+    from fries_tpu_torch.runtime import emit, merge
+
+    ham = hubbard.HubbardHolstein(n_sites=13, n_elec=13, ph_bits=3, u=1.5, omega=0.7, g=0.4)
+    cfg = frisys_hh.FrisysHHConfig(eps=0.02, vec_nonz=60, matr_samp=200, capacity=1024,
+                                   spawn_cap=320, target_norm=400.0, shift_interval=2)
+    small_steps_match(f"small frisys_hh, {ham.n_bits} bits", dev,
+                      lambda d: frisys_hh.build(ham, 0.1, cfg, seed=3, device=d), 6, 4,
+                      {merge: 1, emit: 2})
+    return frisys_hh_run(dev, "frisys_hh_wide", rung.frisys_hh_wide_system(),
+                         rung.build_frisys_hh_wide, "hh_wide")
 
 
 def subspace_run(label, step, state, n_warm, n_timed):
@@ -2277,6 +2468,7 @@ def phase_cli_resume(dev):
     from fries_tpu_torch import io as tio
 
     res = {}
+    reads = dict(tio.READS)
     with tempfile.TemporaryDirectory() as tmp:
         tio.write_fcidump(small_system(), os.path.join(tmp, "FCIDUMP"), point_group="D2h")
         hf = dets.hf_det(8, 4)
@@ -2305,6 +2497,109 @@ def phase_cli_resume(dev):
             res[cmd] = {"streams": names, "lines": lines}
             log(f"cli resume {cmd}: 6 + 6 iterations on the card equal 12 straight ones "
                 f"exactly ({len(names)} streams)")
+    read = {k: tio.READS[k] - reads[k] for k in reads}
+    if read["python"] or not read["native"]:
+        raise AssertionError(f"cli resume: the command line's reads went {read}, not all "
+                             "through the native reader")
+    res["reads"] = read
+    return res
+
+
+def phase_native_reader(ham):
+    """The native FCIDUMP and vector-file reader (built with g++ from
+    ``fries_tpu_torch/native/fries_io.cpp``; ``native=True`` throughout, so a
+    failed build fails the run) against the Python path on the same files,
+    equal bit for bit, each read timed (median of 3 on the host's clock):
+    ``ham``'s FCIDUMP (real Ne/cc-pVQZ, 54 orbitals), a file of 200,000
+    two-word determinant masks and its values."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+    from fries_tpu_torch import io as tio
+    from fries_tpu_torch import native
+
+    def median_s(fn):
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            out = fn()
+            times.append(time.perf_counter() - t0)
+        return out, sorted(times)[1]
+
+    t0 = time.perf_counter()
+    native.lib.cache_clear()
+    so, why = native.lib()
+    if so is None:
+        raise AssertionError(f"native reader: not built ({why})")
+    res = {"build_s": time.perf_counter() - t0}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "FCIDUMP")
+        t0 = time.perf_counter()
+        tio.write_fcidump(ham, path, point_group="D2h", core_energy=-1.5)
+        res["fcidump_bytes"], res["write_s"] = os.path.getsize(path), time.perf_counter() - t0
+        (hn, cn), res["fcidump_native_s"] = median_s(
+            lambda: tio.parse_fcidump(path, "D2h", native=True))
+        (hp, cp), res["fcidump_python_s"] = median_s(
+            lambda: tio.parse_fcidump(path, "D2h", native=False))
+        for k in ("hcore", "eris", "symm"):
+            if not torch.equal(getattr(hn, k), getattr(hp, k)):
+                raise AssertionError(f"native reader: FCIDUMP {k} differs from the Python path")
+        if cn != cp or (hn.n_orb, hn.n_elec) != (hp.n_orb, hp.n_elec):
+            raise AssertionError("native reader: FCIDUMP header or core energy differs")
+        gen = np.random.default_rng(5)
+        keys = gen.integers(0, 2**32, size=(200_000, 2), dtype=np.uint64).astype(np.uint32)
+        keys[:, 1] &= np.uint32((1 << 20) - 1)
+        vals = gen.standard_normal(200_000)
+        prefix = os.path.join(tmp, "vec")
+        tio.save_vec_txt(prefix, keys, vals, 52)
+        (kn, vn), res["vector_native_s"] = median_s(
+            lambda: tio.load_vec_txt(prefix, 52, native=True))
+        (kp, vp), res["vector_python_s"] = median_s(
+            lambda: tio.load_vec_txt(prefix, 52, native=False))
+        if not (np.array_equal(kn, kp) and np.array_equal(kn, keys)
+                and np.array_equal(vn.view(np.int64), vp.view(np.int64))
+                and np.array_equal(vn, vals)):
+            raise AssertionError("native reader: vector files differ from the Python path")
+    res["fcidump_speedup"] = res["fcidump_python_s"] / res["fcidump_native_s"]
+    res["vector_speedup"] = res["vector_python_s"] / res["vector_native_s"]
+    log(f"native reader: equal to the Python path bit for bit ({json.dumps(res)})")
+    return res
+
+
+def phase_trace(dev):
+    """``fries_tpu_torch.profiling.trace`` and ``annotate`` around three
+    steps of the 65-bit frisys_hh system on the card (last: a profiler slows
+    its process's later launches): the Chrome trace names the region and
+    holds kernel A's and B's device work."""
+    import torch
+    from fries_tpu_torch import _build, profiling
+    from fries_tpu_torch.drivers import frisys_hh
+    from fries_tpu_torch.ops import hubbard
+
+    ham = hubbard.HubbardHolstein(n_sites=13, n_elec=13, ph_bits=3, u=1.5, omega=0.7, g=0.4)
+    cfg = frisys_hh.FrisysHHConfig(eps=0.02, vec_nonz=60, matr_samp=200, capacity=1024,
+                                   spawn_cap=320, target_norm=400.0, shift_interval=2)
+    step, run_steps, state, aux = frisys_hh.build(ham, 0.1, cfg, seed=3, device=dev)
+    args = [aux[k] for k in ("num_keys", "num_vals", "den_keys", "den_vals", "ref_key")]
+    logdir = _build.BUILD_DIR / "profiling_trace"
+    t0 = time.perf_counter()
+    with profiling.trace(logdir):
+        with profiling.annotate("frisys_hh 65 bits"):
+            state, _ = run_steps(state, *args, 3)
+            torch.cuda.synchronize()
+    path = logdir / profiling.TRACE_NAME
+    events = json.loads(path.read_text())["traceEvents"]
+    names = [e.get("name", "") for e in events]
+    kernels = {n for e, n in zip(events, names) if e.get("cat") == "kernel"}
+    res = {"seconds": time.perf_counter() - t0, "trace_bytes": path.stat().st_size,
+           "events": len(events),
+           "merge_kernels": sorted(n for n in kernels if "merge_tiles" in n)[:2],
+           "emit_kernels": sorted(n for n in kernels if "emit" in n)[:2]}
+    if "frisys_hh 65 bits" not in names or not res["merge_kernels"] or not res["emit_kernels"]:
+        raise AssertionError(f"profiling trace: region or kernels missing ({res})")
+    log(f"profiling trace: {json.dumps(res)}")
     return res
 
 
@@ -2595,7 +2890,8 @@ def phase_fciqmc_real(dev, ham):
 
 
 REAL_PROFILES = ("rung_real", "semistoch_cisd", "ne_qz", "ne_qz_unnorm", "ne_qz_subsp",
-                 "frifull_real", "fciqmc_real", "rung_real_sharded", "subsp_sharded")
+                 "frifull_real", "fciqmc_real", "rung_real_sharded", "subsp_sharded",
+                 "ne2_qz", "ne2_qz_subsp", "frisys_hh_wide")
 
 
 def phase_real_profiles(dev):
@@ -2603,7 +2899,6 @@ def phase_real_profiles(dev):
     configuration, one child process each (a profiler slows every later
     launch of its process, so none runs in this one): device busy ms and
     idle share per step, host synchronizations, the largest phases."""
-    import gc
     import os
 
     import torch
@@ -3192,6 +3487,7 @@ def phase_sharding(dev, hams, stream):
     words, amps, ini = (x.cpu() for x in stream)
     torch.save({"words": words, "amps": amps, "ini": ini}, path)
     single = equivalence_runs(None, dev)
+    torch.cuda.empty_cache()    # the two ranks share this card with this process
     world = parallel.launch(shard_world, SHARD_RANKS, "gloo", "cuda", args=(str(path),),
                             timeout=300, join_timeout=900)
     res["exchange"] = [w["exchange"] for w in world]
@@ -3228,7 +3524,7 @@ def phase_sharding(dev, hams, stream):
 
 
 def phase_timings(dev, n_elements, chunk_case, fciqmc_case, hh_cases, path_plans, sub_chunk,
-                  obs_cases, ne_qz_case, ne_qz_subsp_case, real_cases):
+                  obs_cases, ne_qz_case, ne_qz_subsp_case, real_cases, ne2_subsp_case):
     """Each kernel's wrapper and its plain version on the inputs of its
     check at the main path's shapes (the same seeds; ``chunk_case`` is the
     exact-H path's own chunk, ``fciqmc_case`` FCIQMC's own merge input,
@@ -3239,7 +3535,8 @@ def phase_timings(dev, n_elements, chunk_case, fciqmc_case, hh_cases, path_plans
     values, flags, origin, dest) by name, ``ne_qz_case`` and
     ``ne_qz_subsp_case`` the four-word paths' own kernel A and C inputs,
     ``real_cases`` the real molecules' own merge inputs (arena, spawn keys,
-    values, flags, keep mask or None) by name),
+    values, flags, keep mask or None) by name, ``ne2_qz`` among them at
+    seven words, ``ne2_subsp_case`` ne2_qz_subsp's own kernel C input),
     with its bound:
     call times first for every kernel, then device times, since the
     profiler slows every later launch of the process."""
@@ -3300,7 +3597,7 @@ def phase_timings(dev, n_elements, chunk_case, fciqmc_case, hh_cases, path_plans
         _, rp, rs = plain(**plan)
         cases[f"emit {name}"] = (lambda f=kernel, p=plan: f(**p), lambda f=plain, p=plan: f(**p),
                                  emit_bound(plan, rp, rs), None)
-    for w in (2, 4):    # kernel A at one C and S, two key widths
+    for w in (2, 4, *WIDER_WORDS):    # kernel A at one C and S, the key widths
         gen.manual_seed(90 + w)
         wa, wsk, wsv, wsi, wkeep = ne_qz_merge_case(gen, dev, w)
         wa = with_rows(wa, 2)
@@ -3319,15 +3616,26 @@ def phase_timings(dev, n_elements, chunk_case, fciqmc_case, hh_cases, path_plans
     extras["merge ne_qz"] = {
         "sort": lambda: merge.sort_spawns(zsk),
         "stress": lambda: merge.accumulate(za, zsk1, zsv, zsi, 0, 1, keep_mask=zkeep)}
-    qa, qsk, qsv, qsr, qsi = ne_qz_subsp_case
-    qsk1 = one_key_stress(qa, qsk)
-    cases["merge_multi ne_qz_subsp"] = (
-        lambda: merge_multi.accumulate(qa, qsk, qsv, qsr, qsi),
-        lambda: ar.accumulate_multi(qa, qsk, qsv, qsr, qsi),
-        merge_bound(qa, (qsk, qsv, qsr, qsi)), None)
-    extras["merge_multi ne_qz_subsp"] = {
-        "sort": lambda: merge.sort_spawns(qsk),
-        "stress": lambda: merge_multi.accumulate(qa, qsk1, qsv, qsr, qsi)}
+    for name, (qa, qsk, qsv, qsr, qsi) in (("ne_qz_subsp", ne_qz_subsp_case),
+                                           ("ne2_qz_subsp", ne2_subsp_case)):
+        qsk1 = one_key_stress(qa, qsk)
+        cases[f"merge_multi {name}"] = (
+            lambda a=qa, k=qsk, v=qsv, r=qsr, i=qsi: merge_multi.accumulate(a, k, v, r, i),
+            lambda a=qa, k=qsk, v=qsv, r=qsr, i=qsi: ar.accumulate_multi(a, k, v, r, i),
+            merge_bound(qa, (qsk, qsv, qsr, qsi)), None)
+        extras[f"merge_multi {name}"] = {
+            "sort": lambda k=qsk: merge.sort_spawns(k),
+            "stress": lambda a=qa, k=qsk1, v=qsv, r=qsr, i=qsi: merge_multi.accumulate(
+                a, k, v, r, i)}
+    for w in WIDER_MULTI_TIMED:    # kernel C at ne_qz_subsp's shapes, limb keys
+        gen.manual_seed(190 + w)
+        wa, wsk, wsv, wsr, wsi = ne_qz_subsp_multi_case(gen, dev, w)
+        cases[f"merge_multi ne_qz_subsp shapes W={w}"] = (
+            lambda a=wa, k=wsk, v=wsv, r=wsr, i=wsi: merge_multi.accumulate(a, k, v, r, i),
+            lambda a=wa, k=wsk, v=wsv, r=wsr, i=wsi: ar.accumulate_multi(a, k, v, r, i),
+            merge_bound(wa, (wsk, wsv, wsr, wsi)), None)
+        extras[f"merge_multi ne_qz_subsp shapes W={w}"] = {
+            "sort": lambda k=wsk: merge.sort_spawns(k)}
     ca, csk, csv, csr, csi = sub_chunk
     cases["merge_multi subspfull_chunk"] = (
         lambda: merge_multi.accumulate(ca, csk, csv, csr, csi),
@@ -3414,6 +3722,7 @@ def main():
     e = phase_emit(dev)
     c = phase_merge_multi(dev)
     wide = phase_merge_wide(dev)
+    wider = phase_merge_wider(dev)
     p = phase_probe(dev)
     phase_small_step(dev)
     main_res = phase_main_path(dev)
@@ -3430,6 +3739,7 @@ def main():
     phase_small_hh(dev)
     ffhh_res, ffhh_case = phase_frifull_hh(dev)
     fshh_res, fshh_case, hh_plans = phase_frisys_hh(dev)
+    hhw_res, hhw_case, hhw_plans = phase_frisys_hh_wide(dev)
     phase_subspace_modes_small(dev)
     modes_res = phase_subspace_modes(dev)
     sfull_res, sub_chunk = phase_subspfull(dev)
@@ -3441,9 +3751,14 @@ def main():
     cli_res = phase_cli_resume(dev)
     phase_small_wide(dev)
     int_res, hams = phase_integrals(dev)
+    native_res = phase_native_reader(hams["ne_ccpvqz"])
     qz_res, qz_case = phase_ne_qz(dev, hams["ne_ccpvqz"])
     qzs_res, qzs_case = phase_ne_qz_subsp(dev, hams["ne_ccpvqz"])
     real_res, real_cases, real_plans = {}, {}, {}
+    ne2_res, real_cases["ne2_qz"], ne2_subsp_case = phase_ne2_qz(
+        dev, int_res["ne_ccpvqz"]["e_hf_total"])
+    gc.collect()
+    torch.cuda.empty_cache()    # ne2_qz_subsp's 37 GB peak stays reserved otherwise
     real_res["rung_real"], real_cases["rung_real"], real_plans = phase_rung_real(
         dev, hams["n2_ccpvdz"])
     real_res["semistoch_cisd"], real_cases["semistoch_cisd"] = phase_semistoch_cisd(
@@ -3461,13 +3776,16 @@ def main():
                  for layout in layouts}
     # last: its profiler slows what follows
     t = phase_timings(dev, semi_res["n_elements"], chunk_case, fciqmc_case,
-                      {"frifull_hh": ffhh_case, "frisys_hh": fshh_case},
-                      {**hh_plans, **unf_plans, **real_plans}, sub_chunk, obs_cases, qz_case,
-                      qzs_case, real_cases)
+                      {"frifull_hh": ffhh_case, "frisys_hh": fshh_case,
+                       "frisys_hh_wide": hhw_case},
+                      {**hh_plans, **hhw_plans, **unf_plans, **real_plans}, sub_chunk,
+                      obs_cases, qz_case, qzs_case, real_cases, ne2_subsp_case)
     del real_cases, real_plans, qz_case, qzs_case, chunk_case, fciqmc_case, ffhh_case, fshh_case
-    del hh_plans, unf_plans, sub_chunk, obs_captured, repl_captured
+    del hh_plans, unf_plans, sub_chunk, obs_captured, repl_captured, hhw_case, hhw_plans
+    del ne2_subsp_case
     obs_cases = list(obs_cases)     # the names; the tensors go before the child processes
     profiles = phase_real_profiles(dev)
+    trace_res = phase_trace(dev)
 
     keys = ("ms", "plain_ms", "device_ms", "plain_device_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -3481,8 +3799,8 @@ def main():
     frisys_bound_by = max((s["bound_ms"], s["bound_by"]) for s in shapes.values())[1]
     emit_step = {key: step_sum(key) for key in ("ms", "plain_ms", "device_ms",
                                                 "plain_device_ms", "bound_ms")}
-    for name, r in {**fshh_res["emit_checks"], **unf_res["emit_checks"],
-                    **real_res["rung_real"]["emit_checks"]}.items():
+    for name, r in {**fshh_res["emit_checks"], **hhw_res["emit_checks"],
+                    **unf_res["emit_checks"], **real_res["rung_real"]["emit_checks"]}.items():
         shapes[name] = {**timing(f"emit {name}"), "max_abs_err": r["max_abs_err"],
                         "n_out": r["n_out"], "kept": r["kept"]}
     sort_keys = ("device_ops", "sort_ms", "sort_device_ms", "sort_device_ops")
@@ -3493,8 +3811,10 @@ def main():
                           ("semistoch", semi_res["merge_check"]["max_abs_err"]),
                           ("fciqmc", fq_res["real_step"]["max_abs_err"]),
                           ("frifull_hh", ffhh_res["real_step"]["max_abs_err"]),
-                          ("frisys_hh", fshh_res["real_step"]["max_abs_err"]))}
-    for name, r in (("frifull_hh", ffhh_res), ("frisys_hh", fshh_res)):
+                          ("frisys_hh", fshh_res["real_step"]["max_abs_err"]),
+                          ("frisys_hh_wide", hhw_res["real_step"]["max_abs_err"]))}
+    for name, r in (("frifull_hh", ffhh_res), ("frisys_hh", fshh_res),
+                    ("frisys_hh_wide", hhw_res)):
         merge_shapes[name].update({key: r["real_step"][key] for key in (
             "arena_rows", "spawns", "live_spawns", "unique_targets", "longest_run")})
     for name in obs_cases:
@@ -3504,15 +3824,21 @@ def main():
             **timing(f"merge {name}"), **{key: t[f"merge {name}"][key] for key in sort_keys},
             **{key: real[key] for key in ("max_abs_err", "arena_rows", "spawns", "live_spawns",
                                           "unique_targets", "longest_run")}}
-    for w in (2, 4):
+    checks = {**wide, **wider}
+    for w in (2, 4, *WIDER_WORDS):
         name = f"ne_qz shapes W={w}"
         merge_shapes[f"{name}, made-up"] = {
             **timing(f"merge {name}"), **{key: t[f"merge {name}"][key] for key in sort_keys},
-            "max_abs_err": wide[f"merge W={w}"]["max_abs_err"]}
+            "max_abs_err": checks[f"merge W={w}"]["max_abs_err"]}
     merge_shapes["ne_qz (W=4)"] = {
         **merge_timing("merge ne_qz"), "max_abs_err": qz_res["ne_qz"]["real_step"]["max_abs_err"],
         **{key: qz_res["ne_qz"]["real_step"][key] for key in (
             "arena_rows", "spawns", "live_spawns", "unique_targets", "longest_run")}}
+    merge_shapes["ne2_qz (W=7)"] = {
+        **timing("merge ne2_qz"), **{key: t["merge ne2_qz"][key] for key in sort_keys},
+        **{key: ne2_res["ne2_qz"]["real_step"][key] for key in (
+            "max_abs_err", "arena_rows", "spawns", "live_spawns", "unique_targets",
+            "longest_run")}}
     for name, path in (("rung_real", "rung_real"), ("semistoch_cisd", "semistoch_cisd"),
                        ("frifull_real_chunk", "frifull_real"), ("fciqmc_real", "fciqmc_real")):
         real = real_res[path]["real_chunk" if name.endswith("chunk") else "real_step"]
@@ -3544,6 +3870,8 @@ def main():
         ("subspfull", sfull_res), ("observables", obs_res), ("obs_repl", repl_res),
         ("unfused rung", unf_res), ("ne_qz", qz_res["ne_qz"]),
         ("ne_qz unnorm", qz_res["ne_qz unnorm"]), ("ne_qz_subsp", qzs_res),
+        ("frisys_hh_wide", hhw_res), ("ne2_qz", ne2_res["ne2_qz"]),
+        ("ne2_qz_subsp", ne2_res["ne2_qz_subsp"]),
         *real_res.items(), *sharded_paths)
         if kernel in r["launches"]}
     multi_shape = {**timing("merge_multi subspfull_chunk"),
@@ -3560,8 +3888,9 @@ def main():
          "launches_by_observables_layout": {"observables": obs_res["launches_by_layout"],
                                             "obs_repl": repl_res["launches_by_layout"]},
          "max_abs_err": max(m["rung"]["max_abs_err"], m["chunk_regime"]["max_abs_err"],
-                            fq_res["first_step"]["max_abs_err"], wide["merge W=3"]["max_abs_err"],
-                            wide["merge W=4"]["max_abs_err"],
+                            fq_res["first_step"]["max_abs_err"],
+                            *(r["max_abs_err"] for k, r in checks.items()
+                              if k.startswith("merge W=")),
                             *(sh["max_abs_err"] for sh in merge_shapes.values())),
          **merge_timing("merge"), "shapes": merge_shapes},
         {"name": "emit", "route": "cuda", "source": "fries_tpu_torch/csrc/emit.cu",
@@ -3576,15 +3905,24 @@ def main():
          "launches_by_path": by_path("merge_multi"),
          "launches_per_subspfull_step": sfull_res["merges_per_step"],
          "max_abs_err": max(c["max_abs_err"], sfull_res["real_chunk"]["max_abs_err"],
-                            wide["merge_multi W=3"]["max_abs_err"],
-                            wide["merge_multi W=4"]["max_abs_err"],
-                            qzs_res["real_step"]["max_abs_err"]),
+                            *(r["max_abs_err"] for k, r in checks.items()
+                              if k.startswith("merge_multi W=")),
+                            qzs_res["real_step"]["max_abs_err"],
+                            ne2_res["ne2_qz_subsp"]["real_step"]["max_abs_err"]),
          **merge_timing("merge_multi"),
-         "shapes": {"subspfull_chunk": multi_shape, "ne_qz_subsp (W=4)": {
-             **merge_timing("merge_multi ne_qz_subsp"),
-             "max_abs_err": qzs_res["real_step"]["max_abs_err"],
-             **{key: qzs_res["real_step"][key] for key in (
-                 "arena_rows", "spawns", "live_spawns", "unique_targets", "longest_run")}}}},
+         "shapes": {"subspfull_chunk": multi_shape, **{
+             f"{name} (W={w})": {
+                 **merge_timing(f"merge_multi {name}"),
+                 **{key: r["real_step"][key] for key in (
+                     "max_abs_err", "arena_rows", "spawns", "live_spawns", "unique_targets",
+                     "longest_run")}}
+             for name, w, r in (("ne_qz_subsp", 4, qzs_res),
+                                ("ne2_qz_subsp", 7, ne2_res["ne2_qz_subsp"]))}, **{
+             f"ne_qz_subsp shapes W={w}, made-up": {
+                 **timing(f"merge_multi ne_qz_subsp shapes W={w}"),
+                 **{key: t[f"merge_multi ne_qz_subsp shapes W={w}"][key] for key in sort_keys},
+                 "max_abs_err": checks[f"merge_multi W={w}"]["max_abs_err"]}
+             for w in WIDER_MULTI_TIMED}}},
         {"name": "probe_reshape", "route": "cuda",
          "source": "fries_tpu_torch/csrc/probe_reshape.cu",
          "replaces": "tools/probe_reshape.py:33", "launches": p["launches"],
@@ -3601,12 +3939,17 @@ def main():
     log(f"sharding summary: {json.dumps(brief_shard)}")
     idle = {name: profiles[name]["device_idle_share"] for name in profiles}
     configs = {"ne_qz": qz_res["ne_qz"], "ne_qz unnorm": qz_res["ne_qz unnorm"],
-               "ne_qz_subsp": qzs_res, **real_res}
+               "ne_qz_subsp": qzs_res, "ne2_qz": ne2_res["ne2_qz"],
+               "ne2_qz_subsp": ne2_res["ne2_qz_subsp"], **real_res}
     brief = {name: {k: v for k, v in r.items() if k not in ("emit_checks", "real_step",
                                                              "real_chunk")}
              for name, r in configs.items()}
     log(f"real molecules: {json.dumps({'integrals': int_res, 'configs': brief})}")
     log(f"real molecules, device idle share (profile_step): {json.dumps(idle)}")
+    log(f"ne2_qz system: {json.dumps(ne2_res['system'])}")
+    log(f"frisys_hh_wide: {json.dumps({k: v for k, v in hhw_res.items() if k != 'emit_checks'})}")
+    log(f"native reader: {json.dumps(native_res)}")
+    log(f"profiling trace: {json.dumps(trace_res)}")
     log(f"chip_smoke: total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -14,7 +14,10 @@ drivers (``drivers``), linear algebra and Lanczos (``linalg``), the
 integral pipeline that builds real molecules from geometry (``basis``,
 ``sto3g``, ``gto``, ``scf``, ``cisd``, ``real_systems``), and the
 ``frisys_mol`` / ``frifull_mol`` / ``frimulti_mol`` / ``fciqmc_mol`` /
-``fciqmc_fp_mol`` / ``subsp_mol`` command line (``cli``).
+``fciqmc_fp_mol`` / ``subsp_mol`` command line (``cli``), the native C++
+FCIDUMP and vector reader (``native``, built with g++ at first use) and
+profiling hooks (``profiling``).  Determinants take up to sixteen 32-bit
+words (256 orbitals) on the card and any width on the CPU.
 
 The package imports torch, numpy and scipy only; ``fries_tpu`` (JAX) is the
 reference it is tested against.  Importing builds nothing: the kernels are

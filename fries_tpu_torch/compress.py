@@ -17,9 +17,9 @@ Counterpart of the main-path part of ``fries_tpu/compress.py``:
   the subspace iteration's norm-factor controller.
 * walker rounding and row sampling: ``round_binomially``,
   ``stochastic_round`` and ``sample_categorical_rows``, drawing from a key
-  node (:mod:`fries_tpu_torch.rng`).  The reference's alias tables
-  (``setup_alias`` / ``sample_alias``) have no caller on a ported path and
-  are not ported.
+  node (:mod:`fries_tpu_torch.rng`); Walker's alias tables,
+  ``setup_alias`` (host numpy, the reference's) and ``sample_alias``, which
+  the hot paths do not use (they sample rows by inverse CDF).
 * pivotal resampling: ``piv_select_tree`` / ``piv_select_tree_2d`` (the
   log-depth duel tournaments, in the reference's duel order), ``piv_comp``
   (vector compression) and ``comp_sub_piv`` (one pivotal hierarchical
@@ -51,6 +51,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from fries_tpu_torch import parallel
@@ -120,6 +121,41 @@ def sample_categorical_rows(key, probs, valid=None):
         acc += col.to(torch.float32)
         idx += acc.to(F64) <= u
     return idx.clamp_max(probs.shape[-1] - 1)
+
+
+def setup_alias(probs):
+    """Walker / Vose alias tables (aliases int64 (n,), alias_probs f64 (n,))
+    of one distribution: host numpy, the reference's construction
+    (compress_utils.cpp:823-897)."""
+    probs = np.asarray(probs, dtype=np.float64)
+    n = probs.shape[0]
+    aliases = np.arange(n, dtype=np.int64)
+    alias_probs = n * probs.copy()
+    small = [i for i in range(n) if alias_probs[i] < 1]
+    big = [i for i in range(n) if alias_probs[i] >= 1]
+    while small and big:
+        s = small.pop()
+        b = big[-1]
+        aliases[s] = b
+        alias_probs[b] += alias_probs[s] - 1
+        if alias_probs[b] < 1:
+            small.append(b)
+            big.pop()
+    return aliases, alias_probs
+
+
+def sample_alias(key, aliases, alias_probs, shape):
+    """int32 draws of ``shape`` from the alias tables of :func:`setup_alias`:
+    ``key`` (a key node) splits in two, a uniform index and a uniform that
+    keeps it or takes its alias; on the key node's device."""
+    k_idx, k_u = key.split(2)
+    idx_u = k_idx.uniform(shape)
+    aliases = torch.as_tensor(aliases, dtype=torch.int64, device=idx_u.device)
+    alias_probs = torch.as_tensor(alias_probs, dtype=F64, device=idx_u.device)
+    n = aliases.shape[0]
+    idx = (idx_u * n).to(torch.int64).clamp_max(n - 1)
+    u = k_u.uniform(shape).to(idx_u.device)
+    return torch.where(u < alias_probs[idx], idx, aliases[idx]).to(torch.int32)
 
 
 # ---------------------------------------------------------------------------

@@ -14,8 +14,9 @@
 // What bounds it on the H100: bytes, about 32 B per valid arena row read
 // (two key words, two value rows, the keep bit), 33 B per spawn (sorted key,
 // permutation, gathered value and flag) and 32 B per arena row written at
-// capacity; at W = 3, 4 (128-bit keys) 16 B more per arena row read and
-// written and 8 B more per spawn.  The Pallas kernel walks both streams on a sequential grid;
+// capacity; at W = 3..16 (128-bit keys, then L = ceil(W / 2) 64-bit limbs)
+// 8 B per word more per arena row read and written, and 8 (L - 1) B more per
+// spawn.  The Pallas kernel walks both streams on a sequential grid;
 // here the design of merge_common.cuh runs it in four passes: a memset, a
 // segmented reduction of the sorted spawns by key (carries by decoupled
 // look-back), a merge path over the arena's valid rows and the unique keys
@@ -31,8 +32,9 @@ extern "C" const char* fries_error_string(int err) {
 }
 
 // All pointers are device pointers.  akw (C, W) int64 words, avals (n_rows,
-// C), akeep (C) or NULL (no fused compaction); skey sorted, (S) packed or, for W = 3, 4,
-// (S, 2) (lo, hi) sign-flipped halves; ukey scratch of one key each; perm (S) the sort's
+// C), akeep (C) or NULL (no fused compaction); skey sorted, (S) packed or, for
+// 3 <= W <= 16, (S, L) sign-flipped columns (L = ceil(W / 2), the lowest
+// first); ukey scratch of one key each (L int64); perm (S) the sort's
 // permutation, sval (S) and sini (S) in the stream's order; scratch and the
 // control block as runtime/merge.py allocates them; okw (C, W), ovals
 // (n_rows, C), overflow one byte.
@@ -42,7 +44,7 @@ extern "C" int fries_merge(const int64_t* akw, const double* avals, int64_t c, i
                            const uint8_t* sini, int64_t s, int64_t sentinel, int64_t* ukey,
                            double* usum, int32_t* ucnt, double* records, int64_t* ctrl,
                            int64_t* okw, double* ovals, uint8_t* overflow, void* stream) {
-  const MergeArgs a{akw, avals, akeep, c, n_rows, 0, origin_row, dest_row,
+  const MergeArgs a{akw, avals, akeep, c, w, n_rows, 0, origin_row, dest_row,
                     skey, perm, sval, sini, nullptr, s, 1, sentinel,
                     ukey, usum, ucnt, records, ctrl, okw, ovals, overflow};
   return launch_merge(a, w, static_cast<cudaStream_t>(stream));

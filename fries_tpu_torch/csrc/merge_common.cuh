@@ -42,10 +42,18 @@
 // Keys (Key<W>, W a template parameter): W = 1 or 2 words pack into one
 // sign-flipped int64, W = 3 or 4 into an unsigned 128-bit integer (words 0-1
 // the low half, 2-3 the high half), both compared as integers, the last word
-// the most significant.  The arena's (C, W) int64 words are packed on the fly
-// and written back as words; spawn keys come sorted from torch.sort, as one
-// int64 each or as (lo, hi) sign-flipped int64 halves.  The sentinel is the
-// all-ones row's key, the largest.  Tickets come from atomic counters, not blockIdx,
+// the most significant.  Wider keys, W = 5..16, are Limbs<L>: L = ceil(W / 2)
+// uint64 limbs, limb j words 2j and 2j + 1 (the top limb of an odd W holds
+// one word), compared lexicographically from the top limb.  Their kernels are
+// instantiated once per L (W = 2L, kMaxWords = 16 at most) and read the
+// arena's row stride, W or W - 1, from MergeArgs::w.  The arena's (C, W)
+// int64 words are packed on the fly and written back as words; spawn keys
+// come sorted from torch.sort, as one int64 each or as L sign-flipped int64
+// columns.  The sentinel is the all-ones row's key, the largest.  The key
+// tiles sit in dynamic shared memory: at L = 8 (64-byte keys) merge_tiles'
+// two tiles take 131 KB, past the 48 KB of a static allocation, so a launch
+// that needs more raises the kernel's limit first (up to the H100's 227 KB a
+// block).  Tickets come from atomic counters, not blockIdx,
 // so a tile only waits on tiles already running: the look-backs always make
 // progress.
 
@@ -64,6 +72,8 @@ constexpr int kItems = 4;
 constexpr int kTile = kThreads * kItems;  // merge.py TILE
 constexpr int kMaxChannels = 32;          // merge_multi.py MAX_ROWS
 constexpr int kFillBlocks = 2048;
+constexpr int kMaxWords = 16;             // merge.py MAX_WORDS
+constexpr size_t kStaticSmem = 48 * 1024;
 constexpr int64_t kWordMask = 0xFFFFFFFFll;
 constexpr uint64_t kSignBit = 0x8000000000000000ull;
 
@@ -84,12 +94,13 @@ struct MergeArgs {
   const double* avals;
   const uint8_t* akeep;
   int64_t c;
+  int w;  // the arena's words per row (the row stride)
   int n_rows;
   // per_row: channel r tests occupancy in and adds to value row r (kernel
   // C); otherwise one channel tests origin_row and adds to dest_row (A)
   int per_row, origin_row, dest_row;
-  // spawns: keys sorted (S int64, or S (lo, hi) pairs for W > 2), the sort's
-  // permutation, and values,
+  // spawns: keys sorted (S int64, or S rows of L columns for W > 2), the
+  // sort's permutation, and values,
   // initiator flags and rows (NULL: channel 0) in the stream's order
   const int64_t* skey;
   const int64_t* perm;
@@ -116,36 +127,108 @@ struct MergeArgs {
 inline int64_t n_reduce_tiles(int64_t s) { return (s + kTile - 1) / kTile; }
 inline int64_t n_merge_tiles(int64_t c, int64_t s) { return (c + s + kTile - 1) / kTile; }
 
-template <int W>
-using Key = typename std::conditional<(W <= 2), int64_t, unsigned __int128>::type;
+// A key of W = 5..16 words: limb j holds words 2j and 2j + 1, the top limb
+// the most significant.
+template <int L>
+struct Limbs {
+  uint64_t v[L];
+};
+
+template <int L>
+__device__ __forceinline__ bool operator==(const Limbs<L>& x, const Limbs<L>& y) {
+  bool eq = true;
+#pragma unroll
+  for (int j = 0; j < L; ++j) eq &= x.v[j] == y.v[j];
+  return eq;
+}
+
+template <int L>
+__device__ __forceinline__ bool operator!=(const Limbs<L>& x, const Limbs<L>& y) {
+  return !(x == y);
+}
+
+template <int L>
+__device__ __forceinline__ bool operator<(const Limbs<L>& x, const Limbs<L>& y) {
+#pragma unroll
+  for (int j = L - 1; j > 0; --j)
+    if (x.v[j] != y.v[j]) return x.v[j] < y.v[j];
+  return x.v[0] < y.v[0];
+}
+
+template <int L>
+__device__ __forceinline__ bool operator<=(const Limbs<L>& x, const Limbs<L>& y) {
+  return !(y < x);
+}
 
 template <int W>
-__device__ __forceinline__ Key<W> arena_key(const int64_t* akw, int64_t i) {
+using Key = typename std::conditional<
+    (W <= 2), int64_t,
+    typename std::conditional<(W <= 4), unsigned __int128, Limbs<(W + 1) / 2>>::type>::type;
+
+// The arena's words per row: W, or for limb keys (instantiated at even W)
+// the run-time width W or W - 1.
+template <int W>
+__device__ __forceinline__ int row_words(const MergeArgs& a) {
+  return W <= 4 ? W : a.w;
+}
+
+template <int W>
+__device__ __forceinline__ Key<W> arena_key(const MergeArgs& a, int64_t i) {
+  const int64_t* akw = a.akw;
   if constexpr (W <= 2) {
     uint64_t u = static_cast<uint64_t>(akw[i * W]);
     if (W == 2) u |= static_cast<uint64_t>(akw[i * 2 + 1]) << 32;
     return static_cast<int64_t>(u ^ kSignBit);
-  } else {
+  } else if constexpr (W <= 4) {
     const uint64_t lo = static_cast<uint64_t>(akw[i * W]) |
                         static_cast<uint64_t>(akw[i * W + 1]) << 32;
     uint64_t hi = static_cast<uint64_t>(akw[i * W + 2]);
     if (W == 4) hi |= static_cast<uint64_t>(akw[i * W + 3]) << 32;
     return static_cast<unsigned __int128>(hi) << 64 | lo;
+  } else {
+    const int w = a.w;
+    const int64_t* row = akw + i * w;
+    Key<W> key;
+#pragma unroll
+    for (int j = 0; j < W / 2; ++j) {
+      uint64_t u = static_cast<uint64_t>(row[2 * j]);
+      if (2 * j + 1 < w) u |= static_cast<uint64_t>(row[2 * j + 1]) << 32;
+      key.v[j] = u;
+    }
+    return key;
   }
 }
 
 template <int W>
 __device__ __forceinline__ Key<W> sentinel_key(const MergeArgs& a) {
-  if constexpr (W <= 2) return a.sentinel;
-  else return static_cast<unsigned __int128>(W == 4 ? ~0ull : kWordMask) << 64 | ~0ull;
+  if constexpr (W <= 2) {
+    return a.sentinel;
+  } else if constexpr (W <= 4) {
+    return static_cast<unsigned __int128>(W == 4 ? ~0ull : kWordMask) << 64 | ~0ull;
+  } else {
+    Key<W> key;
+#pragma unroll
+    for (int j = 0; j < W / 2; ++j) key.v[j] = ~0ull;
+    if (a.w & 1) key.v[W / 2 - 1] = kWordMask;
+    return key;
+  }
 }
 
 // The i-th sorted spawn key.
 template <int W>
 __device__ __forceinline__ Key<W> spawn_key(const MergeArgs& a, int64_t i) {
-  if constexpr (W <= 2) return a.skey[i];
-  else return static_cast<unsigned __int128>(static_cast<uint64_t>(a.skey[2 * i + 1]) ^ kSignBit)
-                  << 64 | (static_cast<uint64_t>(a.skey[2 * i]) ^ kSignBit);
+  if constexpr (W <= 2) {
+    return a.skey[i];
+  } else if constexpr (W <= 4) {
+    return static_cast<unsigned __int128>(static_cast<uint64_t>(a.skey[2 * i + 1]) ^ kSignBit)
+               << 64 | (static_cast<uint64_t>(a.skey[2 * i]) ^ kSignBit);
+  } else {
+    Key<W> key;
+#pragma unroll
+    for (int j = 0; j < W / 2; ++j)
+      key.v[j] = static_cast<uint64_t>(a.skey[(W / 2) * i + j]) ^ kSignBit;
+    return key;
+  }
 }
 
 template <int W>
@@ -153,19 +236,26 @@ __device__ __forceinline__ Key<W>* unique_keys(const MergeArgs& a) {
   return reinterpret_cast<Key<W>*>(a.ukey);
 }
 
-// A key's W words.
+// A key's words, written to word[0, row_words) (W <= 4: a register array).
 template <int W>
-__device__ __forceinline__ void key_words(Key<W> key, int64_t* word) {
+__device__ __forceinline__ void key_words(const MergeArgs& a, const Key<W>& key, int64_t* word) {
   if constexpr (W <= 2) {
     const uint64_t u = static_cast<uint64_t>(key) ^ kSignBit;
     word[0] = static_cast<int64_t>(u & kWordMask);
     if (W == 2) word[W - 1] = static_cast<int64_t>((u >> 32) & kWordMask);
-  } else {
+  } else if constexpr (W <= 4) {
     const uint64_t lo = static_cast<uint64_t>(key), hi = static_cast<uint64_t>(key >> 64);
     word[0] = static_cast<int64_t>(lo & kWordMask);
     word[1] = static_cast<int64_t>(lo >> 32);
     word[2] = static_cast<int64_t>(hi & kWordMask);
     if (W == 4) word[W - 1] = static_cast<int64_t>(hi >> 32);
+  } else {
+    const int w = a.w;
+#pragma unroll
+    for (int j = 0; j < W / 2; ++j) {
+      word[2 * j] = static_cast<int64_t>(key.v[j] & kWordMask);
+      if (2 * j + 1 < w) word[2 * j + 1] = static_cast<int64_t>(key.v[j] >> 32);
+    }
   }
 }
 
@@ -304,9 +394,15 @@ __device__ void look_back(const int64_t* status, int64_t t, int shift, Fold fold
   }
 }
 
+// Dynamic shared memory of reduce_spawns: the tile's keys, one before, one
+// after.
+template <int W>
+constexpr size_t reduce_smem() { return (kTile + 2) * sizeof(Key<W>); }
+
 template <int W>
 __global__ void __launch_bounds__(kThreads) reduce_spawns(MergeArgs a, int64_t nt) {
-  __shared__ Key<W> s_key[kTile + 2];  // the tile's keys, one before, one after
+  extern __shared__ __align__(16) unsigned char smem[];
+  Key<W>* s_key = reinterpret_cast<Key<W>*>(smem);
   __shared__ Part s_agg[kMaxChannels], s_ex[kMaxChannels];
   __shared__ int64_t s_tile;
   if (threadIdx.x == 0)
@@ -319,7 +415,7 @@ __global__ void __launch_bounds__(kThreads) reduce_spawns(MergeArgs a, int64_t n
   if (t == nt) {  // the extra block: the arena's valid rows (sentinels sort last)
     if (threadIdx.x < 32) {
       const int64_t nv = warp_partition(0, a.c, [&](int64_t i) {
-        return arena_key<W>(a.akw, i) != sent;
+        return arena_key<W>(a, i) != sent;
       });
       if (lane == 0) a.ctrl[kNValid] = nv;
     }
@@ -344,15 +440,14 @@ __global__ void __launch_bounds__(kThreads) reduce_spawns(MergeArgs a, int64_t n
     s_key[q] = i >= 0 && i < a.s ? spawn_key<W>(a, i) : sent;
   }
   __syncthreads();
-  Key<W> key[kItems];
   bool head[kItems], end[kItems], counted[kItems];
 #pragma unroll
   for (int j = 0; j < kItems; ++j) {
     const int q = threadIdx.x * kItems + j;
-    key[j] = s_key[q + 1];
-    const bool valid = key[j] != sent;
-    head[j] = valid && key[j] != s_key[q];
-    end[j] = valid && key[j] != s_key[q + 2];
+    const Key<W> key = s_key[q + 1];
+    const bool valid = key != sent;
+    head[j] = valid && key != s_key[q];
+    end[j] = valid && key != s_key[q + 2];
     counted[j] = valid && row[j] >= 0 && row[j] < a.n_chan;   // a valid spawn of a valid row
   }
   const int nc = a.n_chan;
@@ -404,7 +499,7 @@ __global__ void __launch_bounds__(kThreads) reduce_spawns(MergeArgs a, int64_t n
     for (int j = 0; j < kItems; ++j) {
       run = combine(run, spawn_part(head[j], counted[j], ini[j], row[j], val[j], ch));
       const int64_t u = run.n - 1;
-      if (ch == 0 && head[j]) unique_keys<W>(a)[u] = key[j];
+      if (ch == 0 && head[j]) unique_keys<W>(a)[u] = s_key[threadIdx.x * kItems + j + 1];
       if (end[j]) {
         a.usum[ch * a.s + u] = run.sa;
         a.usum[(nc + ch) * a.s + u] = run.si;
@@ -437,22 +532,37 @@ __device__ __forceinline__ bool occupied(const MergeArgs& a, int ch, int64_t i) 
 template <int W>
 __device__ __forceinline__ void write_rows(const MergeArgs& a, const int64_t* o,
                                            const int* src, const int* m, unsigned live) {
-  int64_t word[kItems][W];
+  if constexpr (W <= 4) {
+    int64_t word[kItems][W];
 #pragma unroll
-  for (int k = 0; k < kItems; ++k) {
-    if (!(live >> k & 1)) continue;
-    if (src[k] >= 0) {
+    for (int k = 0; k < kItems; ++k) {
+      if (!(live >> k & 1)) continue;
+      if (src[k] >= 0) {
 #pragma unroll
-      for (int w = 0; w < W; ++w) word[k][w] = a.akw[static_cast<int64_t>(src[k]) * W + w];
-    } else {
-      key_words<W>(unique_keys<W>(a)[-src[k] - 1], word[k]);
+        for (int w = 0; w < W; ++w) word[k][w] = a.akw[static_cast<int64_t>(src[k]) * W + w];
+      } else {
+        key_words<W>(a, unique_keys<W>(a)[-src[k] - 1], word[k]);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kItems; ++k)
+      if (live >> k & 1)
+#pragma unroll
+        for (int w = 0; w < W; ++w) a.okw[o[k] * W + w] = word[k][w];
+  } else {   // limb keys: each row's words copied straight, not held in registers
+    const int w = a.w;
+#pragma unroll
+    for (int k = 0; k < kItems; ++k) {
+      if (!(live >> k & 1)) continue;
+      int64_t* out = a.okw + o[k] * w;
+      if (src[k] >= 0) {
+        const int64_t* in = a.akw + static_cast<int64_t>(src[k]) * w;
+        for (int j = 0; j < w; ++j) out[j] = in[j];
+      } else {
+        key_words<W>(a, unique_keys<W>(a)[-src[k] - 1], out);
+      }
     }
   }
-#pragma unroll
-  for (int k = 0; k < kItems; ++k)
-    if (live >> k & 1)
-#pragma unroll
-      for (int w = 0; w < W; ++w) a.okw[o[k] * W + w] = word[k][w];
   for (int row = 0; row < a.n_rows; ++row) {
     const int ch = row_channel(a, row);
     double v[kItems];
@@ -476,18 +586,24 @@ __device__ __forceinline__ void write_rows(const MergeArgs& a, const int64_t* o,
   }
 }
 
-// Static shared memory of merge_tiles at 16 B keys: the two key tiles and
-// the row descriptors, with 1 KB for the scans' and look-back's words,
-// within the 48 KB of a static allocation.
-static_assert(2 * (kTile + 1) * sizeof(unsigned __int128) + 2 * kTile * sizeof(int32_t) + 1024 <=
-                  48 * 1024,
-              "merge_tiles' static shared memory exceeds 48 KB");
+// Dynamic shared memory of merge_tiles: the arena keys [a0 - 1, a1) and
+// the unique keys [b0, b1] of its tile, then the row descriptors.  With the
+// few hundred bytes of static words (scans, look-back) it stays within the
+// 227 KB a block can have at 64-byte keys (139 KB).
+template <int W>
+constexpr size_t merge_smem() {
+  return 2 * (kTile + 1) * sizeof(Key<W>) + 2 * kTile * sizeof(int32_t);
+}
+static_assert(merge_smem<kMaxWords>() + 1024 <= 227 * 1024,
+              "merge_tiles' shared memory exceeds the H100's 227 KB a block");
 
 template <int W>
 __global__ void __launch_bounds__(kThreads) merge_tiles(MergeArgs a, int64_t nt_reduce) {
-  __shared__ Key<W> s_a[kTile + 1];  // arena keys [a0 - 1, a1)
-  __shared__ Key<W> s_b[kTile + 1];  // unique keys [b0, b1]
-  __shared__ int32_t s_src[kTile], s_match[kTile];
+  extern __shared__ __align__(16) unsigned char smem[];
+  Key<W>* s_a = reinterpret_cast<Key<W>*>(smem);
+  Key<W>* s_b = s_a + (kTile + 1);
+  int32_t* s_src = reinterpret_cast<int32_t*>(s_b + (kTile + 1));
+  int32_t* s_match = s_src + kTile;
   __shared__ int64_t s_split[2], s_tile;
   __shared__ unsigned long long s_nonini;
   int64_t* status = a.ctrl + kCtrlHead + nt_reduce;
@@ -508,7 +624,7 @@ __global__ void __launch_bounds__(kThreads) merge_tiles(MergeArgs a, int64_t nt_
     const int64_t d = (t + warp) * kTile < total ? (t + warp) * kTile : total;
     const int64_t split = warp_partition(d > n_b ? d - n_b : 0, d < n_a ? d : n_a,
                                          [&](int64_t m) {
-      return arena_key<W>(a.akw, m) <= ukey[d - 1 - m];
+      return arena_key<W>(a, m) <= ukey[d - 1 - m];
     });
     if (lane == 0) s_split[warp] = split;
   }
@@ -520,7 +636,7 @@ __global__ void __launch_bounds__(kThreads) merge_tiles(MergeArgs a, int64_t nt_
   const int na = static_cast<int>(a1 - a0), nb = static_cast<int>(b1 - b0), n = na + nb;
   // the sentinel stands for "no key": no valid key equals it
   for (int q = threadIdx.x; q <= na; q += kThreads)
-    s_a[q] = a0 - 1 + q >= 0 ? arena_key<W>(a.akw, a0 - 1 + q) : sent;
+    s_a[q] = a0 - 1 + q >= 0 ? arena_key<W>(a, a0 - 1 + q) : sent;
   for (int q = threadIdx.x; q <= nb; q += kThreads)
     s_b[q] = b0 + q < n_b ? ukey[b0 + q] : sent;
   __syncthreads();
@@ -630,18 +746,30 @@ __global__ void __launch_bounds__(kThreads) merge_tiles(MergeArgs a, int64_t nt_
 template <int W>
 __global__ void fill_tail(MergeArgs a) {
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  const int nw = row_words<W>(a);
   for (int64_t j = a.ctrl[kNUsed] + blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
        j < a.c; j += stride) {
 #pragma unroll
-    for (int w = 0; w < W; ++w) a.okw[j * W + w] = kWordMask;
+    for (int w = 0; w < nw; ++w) a.okw[j * nw + w] = kWordMask;
     for (int row = 0; row < a.n_rows; ++row) a.ovals[row * a.c + j] = 0.0;
   }
 }
 
+// Allows a kernel more than 48 KB of dynamic shared memory when it needs it.
+template <class Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+  if (bytes <= kStaticSmem) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
 template <int W>
 cudaError_t launch_w(const MergeArgs& a, int64_t nt_r, int64_t nt_m, cudaStream_t stream) {
-  reduce_spawns<W><<<nt_r + 1, kThreads, 0, stream>>>(a, nt_r);
-  merge_tiles<W><<<nt_m, kThreads, 0, stream>>>(a, nt_r);
+  cudaError_t err = allow_smem(reduce_spawns<W>, reduce_smem<W>());
+  if (!err) err = allow_smem(merge_tiles<W>, merge_smem<W>());
+  if (err) return err;
+  reduce_spawns<W><<<nt_r + 1, kThreads, reduce_smem<W>(), stream>>>(a, nt_r);
+  merge_tiles<W><<<nt_m, kThreads, merge_smem<W>(), stream>>>(a, nt_r);
   const int64_t fill = (a.c + kThreads - 1) / kThreads;
   fill_tail<W><<<fill < kFillBlocks ? fill : kFillBlocks, kThreads, 0, stream>>>(a);
   return cudaGetLastError();
@@ -651,7 +779,8 @@ cudaError_t launch_w(const MergeArgs& a, int64_t nt_r, int64_t nt_m, cudaStream_
 // words and the records 2 * n_reduce_tiles(s) * (2 + 3 * n_chan) doubles
 // (merge.py allocates both).
 cudaError_t launch_merge(const MergeArgs& a, int w, cudaStream_t stream) {
-  if (a.n_chan < 1 || a.n_chan > kMaxChannels || a.c < 1 || a.s < 1) return cudaErrorInvalidValue;
+  if (a.n_chan < 1 || a.n_chan > kMaxChannels || a.c < 1 || a.s < 1 || a.w != w)
+    return cudaErrorInvalidValue;
   if (!a.per_row && (a.origin_row < 0 || a.origin_row >= a.n_rows || a.dest_row < 0 ||
                      a.dest_row >= a.n_rows))
     return cudaErrorInvalidValue;
@@ -662,6 +791,13 @@ cudaError_t launch_merge(const MergeArgs& a, int w, cudaStream_t stream) {
   if (w == 2) return launch_w<2>(a, nt_r, nt_m, stream);
   if (w == 3) return launch_w<3>(a, nt_r, nt_m, stream);
   if (w == 4) return launch_w<4>(a, nt_r, nt_m, stream);
+  // limb keys, one instance per L = ceil(w / 2)
+  if (w <= 6) return launch_w<6>(a, nt_r, nt_m, stream);
+  if (w <= 8) return launch_w<8>(a, nt_r, nt_m, stream);
+  if (w <= 10) return launch_w<10>(a, nt_r, nt_m, stream);
+  if (w <= 12) return launch_w<12>(a, nt_r, nt_m, stream);
+  if (w <= 14) return launch_w<14>(a, nt_r, nt_m, stream);
+  if (w <= kMaxWords) return launch_w<16>(a, nt_r, nt_m, stream);
   return cudaErrorInvalidValue;
 }
 

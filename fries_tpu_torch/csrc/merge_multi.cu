@@ -31,7 +31,7 @@ extern "C" int fries_merge_multi(const int64_t* akw, const double* avals, int64_
                                  int64_t s, int64_t sentinel, int64_t* ukey, double* usum,
                                  int32_t* ucnt, double* records, int64_t* ctrl, int64_t* okw,
                                  double* ovals, uint8_t* overflow, void* stream) {
-  const MergeArgs a{akw, avals, nullptr, c, n_rows, 1, 0, 0,
+  const MergeArgs a{akw, avals, nullptr, c, w, n_rows, 1, 0, 0,
                     skey, perm, sval, sini, srow, s, n_rows, sentinel,
                     ukey, usum, ucnt, records, ctrl, okw, ovals, overflow};
   return launch_merge(a, w, static_cast<cudaStream_t>(stream));

@@ -12,10 +12,12 @@ function is vectorized over leading batch dimensions.
 The arena's order is lexicographic with the last word the most significant.
 Determinants of at most two words (2 * n_orb <= 64) have an order-preserving
 scalar key, :func:`pack_key`, one int64.  Wider ones sort on
-:func:`key_columns`, one sign-flipped int64 per two words, with one stable
-sort per column (:func:`sort_dets`); where an int64 key is needed (a
-search, a segmented sum) :func:`order_keys` ranks the rows of all the
-tensors at hand in one such sort.
+:func:`key_columns`, one sign-flipped int64 per two words (:func:`n_limbs`
+of them, the top one alone at odd W), with one stable sort per column
+(:func:`sort_dets`); where an int64 key is needed (a search, a segmented
+sum) :func:`order_keys` ranks the rows of all the tensors at hand in one
+such sort.  The card's merge kernels take the columns as the limbs of
+their key.
 """
 
 from __future__ import annotations
@@ -274,6 +276,19 @@ def key_columns(words: torch.Tensor) -> list[torch.Tensor]:
     column :func:`pack_key`, and W = 3 or 4 the two halves of a 128-bit
     key."""
     return [pack_key(words[..., k:k + 2]) for k in range(0, words.shape[-1], 2)]
+
+
+def n_limbs(num_words: int) -> int:
+    """The number of :func:`key_columns` of ``num_words`` words: 64-bit
+    limbs, ceil(W / 2)."""
+    return -(-num_words // 2)
+
+
+def sentinel_columns(num_words: int) -> list[int]:
+    """The :func:`key_columns` of the all-ones sentinel row, least
+    significant first, as Python ints (the top one of an odd W holds one
+    word)."""
+    return [int(c) for c in key_columns(invalid_det(num_words))]
 
 
 def sort_dets(words: torch.Tensor) -> torch.Tensor:

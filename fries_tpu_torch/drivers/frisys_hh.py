@@ -73,14 +73,14 @@ def level_one(absv, chan_w, m_samp: int, rn, s_cap: int, shards=None):
     return val, torch.where(live, parent, 0), (sub == 1) & live, live
 
 
-def level_two(n_elec: int, keys, val, det_idx, is_ph, live, from_bit, to_bit, m_samp: int,
-              rn, s_cap: int, shards=None):
+def level_two(ham: hub.HubbardHolstein, keys, val, det_idx, is_ph, live, from_bit, to_bit,
+              m_samp: int, rn, s_cap: int, shards=None):
     """Level 2: each slot's value times its branch count, divided
     uniformly over the allowed hops or the 2 n_elec phonon branches.
     Returns (values, determinant index, is_phonon, live, branch)."""
     dev = keys.device
-    n_hops = hub.hops_allowed(hub._bits64(keys[det_idx]), from_bit, to_bit).sum(-1)
-    ndiv2 = torch.where(is_ph, 2 * n_elec, n_hops.clamp_min(1))
+    n_hops = hub.hops_allowed(ham, hub.rows(ham, keys[det_idx]), from_bit, to_bit).sum(-1)
+    ndiv2 = torch.where(is_ph, 2 * ham.n_elec, n_hops.clamp_min(1))
     val2 = torch.where(live & (is_ph | (n_hops > 0)), val * ndiv2, 0.0)
     val, parent, sub, _, _ = compress.comp_sub(
         val2, ndiv2, torch.zeros((s_cap, 1), dtype=F64, device=dev),
@@ -96,15 +96,14 @@ def finalize(ham: hub.HubbardHolstein, keys, vals, occ, h_fac, val, det_idx, is_
     """The sampled branches' targets and amplitudes: (words, amps), the
     sentinel key where the amplitude is zero."""
     n, n_elec = ham.n_sites, ham.n_elec
-    one = torch.ones((), dtype=torch.int64, device=keys.device)
     s_keys = keys[det_idx]
-    s_bits = hub._bits64(s_keys)
+    s_bits = hub.rows(ham, s_keys)
     sign = torch.sign(vals[det_idx])
 
     # hops: the branch-th allowed hop
-    hop_col, hop_found = _rank_to_index(hub.hops_allowed(s_bits, from_bit, to_bit), branch)
+    hop_col, hop_found = _rank_to_index(hub.hops_allowed(ham, s_bits, from_bit, to_bit), branch)
     col = hop_col.clamp(0, from_bit.shape[0] - 1)
-    hop_bits = (s_bits & ~(one << from_bit[col])) | (one << to_bit[col])
+    hop_bits = hub.hop(ham, s_bits, from_bit[col], to_bit[col])
     hop_amp = torch.where(~is_ph & live & hop_found, h_fac * (-1.0) * val * sign, 0.0)
 
     # phonons: branch = electron index + n_elec * (0 = lower, 1 = raise)
@@ -113,12 +112,12 @@ def finalize(ham: hub.HubbardHolstein, keys, vals, occ, h_fac, val, det_idx, is_
     ph_at = _at(hub.phonon_nums(ham, s_keys), site)
     ph_ok = is_ph & ((~raise_ & (ph_at > 0)) | (raise_ & (ph_at + 1 <= ham.max_ph)))
     new_num = torch.where(raise_, ph_at + 1, ph_at - 1).clamp(0, ham.max_ph)
-    ph_bits = hub._set_counter(ham, s_bits, site, new_num) if ham.ph_bits else s_bits
+    ph_bits = hub.set_counter(ham, s_bits, site, new_num) if ham.ph_bits else s_bits
     sqrt_fac = torch.sqrt(torch.where(raise_, ph_at + 1, ph_at.clamp_min(1)).to(F64))
     ph_amp = torch.where(ph_ok, h_fac * val * sign * sqrt_fac, 0.0)
 
     amps = torch.where(is_ph, ph_amp, hop_amp)
-    words = hub._words(torch.where(is_ph, ph_bits, hop_bits), ham.n_words)
+    words = hub.to_words(ham, hub.select(ham, is_ph, ph_bits, hop_bits))
     return torch.where((amps != 0)[:, None], words, dets.invalid_det(ham.n_words, keys.device)), amps
 
 
@@ -137,7 +136,7 @@ def make_spawner(ham: hub.HubbardHolstein, cfg: FrisysHHConfig, e_ref=None, devi
         val, det_idx, is_ph, live = level_one(vals.abs(), chan_w, cfg.matr_samp, rns[0],
                                               cfg.spawn_cap, shards)
         val, det_idx, is_ph, live, branch = level_two(
-            ham.n_elec, keys, val, det_idx, is_ph, live, from_bit, to_bit, cfg.matr_samp,
+            ham, keys, val, det_idx, is_ph, live, from_bit, to_bit, cfg.matr_samp,
             rns[1], cfg.spawn_cap, shards)
         words, amps = finalize(ham, keys, vals, occ, h_fac, val, det_idx, is_ph, live, branch,
                                from_bit, to_bit)

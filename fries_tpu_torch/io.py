@@ -8,12 +8,20 @@ output (the subspace trial vectors); the Hubbard-Holstein parameter file
 (``parse_hh_input``); the HF input directory (``parse_hf_input`` /
 ``write_hf_dir``); whole-file and last-line numeric readers (``load_rdm``,
 ``load_last_line``); and ``npy_append`` for the h/d matrix trajectories.
-Everything is parsed with numpy alone.  Determinants come
-back as (N, W) uint32 words, as the reference returns them.
+Determinants come back as (N, W) uint32 words, as the reference returns
+them.
+
+The FCIDUMP record body, determinant files of masks up to 64 bits and value
+files go through the native reader (:mod:`fries_tpu_torch.native`) or a
+numpy / Python path, by the reference's switch ``native``: None takes the
+native reader when it builds (``FRIES_NATIVE=0`` turns it off), True
+requires it, False takes Python.  The first read of each kind logs which
+reader ran, and :data:`READS` counts the reads by reader.
 """
 
 from __future__ import annotations
 
+import logging
 import re
 from pathlib import Path
 
@@ -21,7 +29,29 @@ import numpy as np
 import torch
 
 from fries_tpu_torch import dets
+from fries_tpu_torch import native as fnative
 from fries_tpu_torch.ops import molecule as mol
+
+READS = {"native": 0, "python": 0}
+"""Reads by reader (FCIDUMP bodies, determinant and value files)."""
+_LOGGED: set = set()
+
+
+def _reader(native, what: str):
+    """The native library for a read of ``what`` under the switch
+    ``native`` (None: when it builds; True: required; False: never), or
+    None for the Python path."""
+    so = None
+    if native is not False:
+        so, why = fnative.lib()
+        if so is None and native is True:
+            raise RuntimeError(f"the native {what} reader is unavailable: {why}")
+    which = "python" if so is None else "native"
+    READS[which] += 1
+    if (what, which) not in _LOGGED:
+        _LOGGED.add((what, which))
+        logging.getLogger(__name__).info("%s: the %s reader", what, which)
+    return so
 
 # MOLPRO irrep label (1-based) -> XOR-group label, per point group
 _SYMM_MAPS = {
@@ -77,14 +107,16 @@ def _parse_body(body: str, n_orb: int):
     return hcore, eris, core_energy
 
 
-def parse_fcidump(path, point_group: str = "C1", device=None):
-    """Parse an FCIDUMP file into (MolecularHamiltonian, core_energy)."""
-    raw = Path(path).read_text()
-    header_end = raw.find("&END")
+def parse_fcidump(path, point_group: str = "C1", device=None, native=None):
+    """Parse an FCIDUMP file into (MolecularHamiltonian, core_energy); the
+    record body by the native reader or numpy (``native``, as the module
+    says)."""
+    raw = Path(path).read_bytes()
+    header_end = raw.find(b"&END")
     if header_end < 0:
-        header_end = raw.find("/")
-    header = raw[:header_end]
-    body = raw[raw.find("\n", header_end) + 1:]
+        header_end = raw.find(b"/")
+    header = raw[:header_end].decode()
+    body_off = raw.find(b"\n", header_end) + 1
 
     def field(name):
         m = re.search(name + r"\s*=\s*([0-9]+)", header)
@@ -98,7 +130,11 @@ def parse_fcidump(path, point_group: str = "C1", device=None):
     if len(orbsym) != n_orb:
         raise ValueError("ORBSYM length does not match NORB")
     symm = convert_symm(np.asarray(orbsym), point_group)
-    hcore, eris_chem, core_energy = _parse_body(body, n_orb)
+    so = _reader(native, "FCIDUMP")
+    if so is not None:
+        hcore, eris_chem, core_energy = fnative.parse_fcidump_body(so, path, body_off, n_orb)
+    else:
+        hcore, eris_chem, core_energy = _parse_body(raw[body_off:].decode(), n_orb)
     eris_phys = np.ascontiguousarray(np.transpose(eris_chem, (0, 2, 1, 3)))
     ham = mol.MolecularHamiltonian(
         hcore=torch.as_tensor(hcore, device=device),
@@ -227,19 +263,35 @@ def parse_hh_input(path):
     }
 
 
-def read_dets(path, n_bits):
+def read_dets(path, n_bits, native=None):
     """Determinants stored as decimal bit masks, one per line -> (N, W)
-    uint32 words, for any width (the masks are read as Python ints)."""
+    uint32 words, for any width: masks of at most 64 bits by the native
+    reader's u64 parse (``native``, as the module says), wider ones as
+    Python ints."""
     n_words = dets.n_words(n_bits)
+    so = _reader(native, "determinant") if n_bits <= 64 else None
+    if so is not None:
+        masks = fnative.parse_u64(so, path)
+        return np.stack([(masks >> np.uint64(32 * w)).astype(np.uint32)
+                         for w in range(n_words)], -1).reshape(-1, n_words)
     masks = [int(x) for x in Path(path).read_text().split()]
     return np.asarray([[(m >> (32 * w)) & dets.WORD_MASK for w in range(n_words)]
                        for m in masks], np.uint32).reshape(-1, n_words)
 
 
-def load_vec_txt(prefix, n_bits):
+def _read_floats(path, native=None):
+    """Every whitespace-separated float of a file, by the native reader or
+    numpy (``native``, as the module says)."""
+    so = _reader(native, "value")
+    if so is not None:
+        return fnative.parse_doubles(so, path)
+    return np.asarray(Path(path).read_text().split(), np.float64)
+
+
+def load_vec_txt(prefix, n_bits, native=None):
     """<prefix>dets + <prefix>vals text files -> (keys (N, W), vals (N,))."""
-    keys = read_dets(str(prefix) + "dets", n_bits)
-    vals = np.asarray(Path(str(prefix) + "vals").read_text().split(), np.float64)
+    keys = read_dets(str(prefix) + "dets", n_bits, native)
+    vals = _read_floats(str(prefix) + "vals", native)
     n = min(len(keys), len(vals))
     return keys[:n], vals[:n]
 
@@ -294,9 +346,9 @@ def load_vec_dice(path, n_orb, n_bits, state: int = 0):
             np.asarray(vals, np.float64))
 
 
-def load_rdm(path):
+def load_rdm(path, native=None):
     """Every whitespace-separated number of a file as a flat f64 array."""
-    return np.asarray(Path(path).read_text().split(), np.float64)
+    return _read_floats(path, native)
 
 
 def load_last_line(path):

@@ -4,10 +4,11 @@ Counterpart of ``fries_tpu/ops/hubbard.py``:
 
 * state layout: bits 0..n-1 spin-up site occupation, bits n..2n-1 spin-down,
   then ``ph_bits`` phonon-counter bits per site from bit 2n; a 1-D open
-  chain.  The port keys determinants on one packed int64, so a model fits
-  when n_sites * (2 + ph_bits) <= 64 (two words); a counter may straddle the
-  two words, and every bit operation here works on the 64-bit value of the
-  row (:func:`_bits64`) with shifts and masks;
+  chain, of any width.  The bit operations work on a row form
+  (:func:`rows`): up to 64 bits (two words) the row's 64-bit value in one
+  int64, with shifts and masks; wider rows on their (..., W) words, a
+  field read across a word boundary from the two words it touches
+  (:func:`field`).  A counter may straddle a word boundary in either form;
 * hops are a static candidate grid (spin x bond x direction,
   :func:`hop_grid`) with an occupancy mask.  Nearest-neighbour hops on an
   open chain never pass another electron of the same spin, so their
@@ -41,9 +42,6 @@ class HubbardHolstein:
     g: float = 0.0
     t: float = 1.0
 
-    def __post_init__(self):
-        dets.require_packable(self.n_words)
-
     @property
     def n_bits(self) -> int:
         return 2 * self.n_sites + self.ph_bits * self.n_sites
@@ -67,9 +65,53 @@ def _words(bits, n_words: int):
     return dets.unpack_key(bits ^ dets.INT64_MIN, n_words)
 
 
-def _field(bits, pos, width: int):
-    """The ``width``-bit field of ``bits`` starting at bit ``pos``."""
-    return (bits >> pos) & ((1 << width) - 1)
+def rows(ham: HubbardHolstein, words):
+    """The row form of (..., W) words that the bit helpers take: the 64-bit
+    value (...,) where W <= 2, else the words themselves."""
+    return _bits64(words) if dets.packable(ham.n_words) else words
+
+
+def to_words(ham: HubbardHolstein, r):
+    """Inverse of :func:`rows`: (..., W) words."""
+    return _words(r, ham.n_words) if dets.packable(ham.n_words) else r
+
+
+def expand(ham: HubbardHolstein, r):
+    """Row forms with a new axis before the row, to broadcast against a
+    grid of positions."""
+    return r[..., None] if dets.packable(ham.n_words) else r[..., None, :]
+
+
+def select(ham: HubbardHolstein, cond, a, b):
+    """``torch.where`` over row forms: ``a`` where ``cond`` (the rows'
+    shape), else ``b``."""
+    return torch.where(cond if dets.packable(ham.n_words) else cond[..., None], a, b)
+
+
+def field(ham: HubbardHolstein, r, pos, width: int):
+    """The ``width``-bit field (width <= 32) starting at bit ``pos`` of the
+    row forms ``r``; ``pos`` broadcasts against the rows.  Wide rows read
+    the field's word and the next one (the last word alone at the top: a
+    field inside the row ends in it)."""
+    mask = (1 << width) - 1
+    if dets.packable(ham.n_words):
+        return (r >> pos) & mask
+    pos = torch.as_tensor(pos, dtype=torch.int64, device=r.device)
+    shape = torch.broadcast_shapes(r.shape[:-1], pos.shape)
+    words = r.expand(shape + r.shape[-1:])
+    k = (pos // dets.WORD_BITS).expand(shape)[..., None]
+    lo = torch.gather(words, -1, k)[..., 0]
+    hi = torch.gather(words, -1, (k + 1).clamp_max(r.shape[-1] - 1))[..., 0]
+    return (((hi << dets.WORD_BITS) | lo) >> (pos % dets.WORD_BITS)) & mask
+
+
+def hop(ham: HubbardHolstein, r, from_bit, to_bit):
+    """Row forms with bit ``from_bit`` cleared and ``to_bit`` set (the
+    positions broadcast against the rows)."""
+    if dets.packable(ham.n_words):
+        one = torch.ones((), dtype=torch.int64, device=r.device)
+        return (r & ~(one << from_bit)) | (one << to_bit)
+    return dets.set_bit(dets.clear_bit(r, from_bit), to_bit)
 
 
 def hop_grid(n_sites: int):
@@ -90,11 +132,11 @@ def hop_tensors(n_sites: int, device):
     return tuple(torch.as_tensor(x, device=device) for x in hop_grid(n_sites))
 
 
-def hops_allowed(bits, from_bit, to_bit):
+def hops_allowed(ham: HubbardHolstein, r, from_bit, to_bit):
     """(..., n_hop) bools: the hop's source occupied and its target empty,
-    for the 64-bit rows ``bits`` (...,) and the grid's tensors."""
-    b = bits[..., None]
-    return (_field(b, from_bit, 1) == 1) & (_field(b, to_bit, 1) == 0)
+    for the row forms ``r`` and the grid's tensors."""
+    b = expand(ham, r)
+    return (field(ham, b, from_bit, 1) == 1) & (field(ham, b, to_bit, 1) == 0)
 
 
 # ---------------------------------------------------------------------------
@@ -107,15 +149,25 @@ def phonon_nums(ham: HubbardHolstein, words) -> torch.Tensor:
         return torch.zeros(words.shape[:-1] + (ham.n_sites,), dtype=torch.int64,
                            device=words.device)
     pos = 2 * ham.n_sites + ham.ph_bits * torch.arange(ham.n_sites, device=words.device)
-    return _field(_bits64(words)[..., None], pos, ham.ph_bits)
+    return field(ham, expand(ham, rows(ham, words)), pos, ham.ph_bits)
 
 
-def _set_counter(ham: HubbardHolstein, bits, site, new_num):
-    """64-bit rows ``bits`` with site ``site``'s counter set to ``new_num``."""
-    pos = 2 * ham.n_sites + ham.ph_bits * torch.as_tensor(site, device=bits.device)
-    new = torch.as_tensor(new_num, dtype=torch.int64, device=bits.device)
-    mask = torch.full((), ham.max_ph, dtype=torch.int64, device=bits.device) << pos
-    return (bits & ~mask) | ((new & ham.max_ph) << pos)
+def set_counter(ham: HubbardHolstein, r, site, new_num):
+    """Row forms ``r`` with site ``site``'s counter set to ``new_num`` (low
+    ``ph_bits`` bits; ``site`` and ``new_num`` broadcast against the rows).
+    Wide rows mask each word with its share of the counter's bits."""
+    dev = r.device
+    pos = 2 * ham.n_sites + ham.ph_bits * torch.as_tensor(site, device=dev)
+    new = torch.as_tensor(new_num, dtype=torch.int64, device=dev) & ham.max_ph
+    if dets.packable(ham.n_words):
+        mask = torch.full((), ham.max_ph, dtype=torch.int64, device=dev) << pos
+        return (r & ~mask) | (new << pos)
+    # word j holds bits [32 j, 32 j + 32): the counter shifted by pos - 32 j
+    shift = pos[..., None] - dets.WORD_BITS * torch.arange(r.shape[-1], device=dev)
+    left, right = shift.clamp(0, dets.WORD_BITS), (-shift).clamp(0, dets.WORD_BITS)
+    place = lambda x: torch.where(shift >= 0, (x << left) & dets.WORD_MASK, x >> right)
+    return (r & ~place(torch.full((), ham.max_ph, dtype=torch.int64, device=dev))) | \
+        place(new[..., None])
 
 
 def with_phonon(ham: HubbardHolstein, words, site, new_num) -> torch.Tensor:
@@ -124,7 +176,7 @@ def with_phonon(ham: HubbardHolstein, words, site, new_num) -> torch.Tensor:
     phonon bits the words come back unchanged."""
     if ham.ph_bits == 0:
         return words
-    return _words(_set_counter(ham, _bits64(words), site, new_num), words.shape[-1])
+    return to_words(ham, set_counter(ham, rows(ham, words), site, new_num))
 
 
 # ---------------------------------------------------------------------------
@@ -134,8 +186,12 @@ def with_phonon(ham: HubbardHolstein, words, site, new_num) -> torch.Tensor:
 def diag_matrel(ham: HubbardHolstein, words) -> torch.Tensor:
     """U * n_doubly_occupied + omega * n_phonons (absolute, unshifted)."""
     n = ham.n_sites
-    bits = _bits64(words)
-    n_doub = dets.popcount32(_field(bits, 0, n) & _field(bits, n, n)).to(F64)
+    if dets.packable(ham.n_words):
+        bits = _bits64(words)
+        n_doub = dets.popcount32(field(ham, bits, 0, n) & field(ham, bits, n, n)).to(F64)
+    else:
+        occ = dets.unpack_bits(words, 2 * n)
+        n_doub = (occ[..., :n] & occ[..., n:]).sum(-1).to(F64)
     ph = phonon_nums(ham, words).sum(-1).to(F64)
     return ham.u * n_doub + ham.omega * ph
 
@@ -155,18 +211,17 @@ def offdiag_batch(ham: HubbardHolstein, words, vals, h_fac):
     n = ham.n_sites
     dev = words.device
     vals = torch.as_tensor(vals, dtype=F64, device=dev)
-    bits = _bits64(words)
+    r = rows(ham, words)
+    rb = expand(ham, r)
     from_bit, to_bit = hop_tensors(n, dev)
-    hop_ok = hops_allowed(bits, from_bit, to_bit)
-    one = torch.ones((), dtype=torch.int64, device=dev)
-    hop_bits = (bits[:, None] & ~(one << from_bit)) | (one << to_bit)
-    out_bits = [hop_bits]
+    hop_ok = hops_allowed(ham, r, from_bit, to_bit)
+    out_bits = [hop(ham, rb, from_bit, to_bit)]
     out_amps = [torch.where(hop_ok, h_fac * (-ham.t) * vals[:, None], 0.0)]
 
     if ham.ph_bits:
         ph = phonon_nums(ham, words)
-        n_at_site = _field(bits[:, None], torch.arange(n, device=dev), 1) + \
-            _field(bits[:, None], torch.arange(n, 2 * n, device=dev), 1)
+        n_at_site = field(ham, rb, torch.arange(n, device=dev), 1) + \
+            field(ham, rb, torch.arange(n, 2 * n, device=dev), 1)
         site = torch.arange(n, device=dev)
         for direction in (-1, +1):
             new_num = ph + direction
@@ -174,11 +229,10 @@ def offdiag_batch(ham: HubbardHolstein, words, vals, h_fac):
             sqrt_fac = torch.sqrt((ph if direction < 0 else ph + 1).to(F64))
             out_amps.append(torch.where(
                 ok, h_fac * ham.g * sqrt_fac * n_at_site * vals[:, None], 0.0))
-            out_bits.append(_set_counter(ham, bits[:, None], site,
-                                         new_num.clamp(0, ham.max_ph)))
+            out_bits.append(set_counter(ham, rb, site, new_num.clamp(0, ham.max_ph)))
 
     amps = torch.cat(out_amps, dim=1)
-    new_words = _words(torch.cat(out_bits, dim=1), ham.n_words)
+    new_words = to_words(ham, torch.cat(out_bits, dim=1))
     sentinel = dets.invalid_det(ham.n_words, dev)
     return torch.where((amps != 0)[..., None], new_words, sentinel), amps
 

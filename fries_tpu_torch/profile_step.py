@@ -10,7 +10,9 @@ fciqmc``, bench.py's 5M-walker FCIQMC configuration; ``--workload
 frimulti``; the Hubbard-Holstein ``frifull_hh`` and ``frisys_hh``; the
 observable estimators ``observables`` and ``obs_repl``; ``unfused``, the
 rung with its five comp_sub rounds; the four-word configurations on real
-Ne/cc-pVQZ ``ne_qz``, ``ne_qz_unnorm`` and ``ne_qz_subsp``; or the other
+Ne/cc-pVQZ ``ne_qz``, ``ne_qz_unnorm`` and ``ne_qz_subsp``; the
+seven-word ``ne2_qz`` and ``ne2_qz_subsp`` on Ne2/cc-pVQZ and the 80-bit
+``frisys_hh_wide``; or the other
 real molecules ``rung_real`` (the 1e6 rung on N2/cc-pVDZ),
 ``semistoch_cisd`` (with the 150-determinant CISD space), ``frifull_real``
 (H2O/cc-pVDZ's (10e, 12o)) and ``fciqmc_real`` (stretched N2); the
@@ -18,7 +20,7 @@ hash-sharded ``rung_real_sharded`` and ``subsp_sharded``, each in a
 one-rank NCCL world, where the exchange shows as four phases: ``exchange:
 bucket build``, ``exchange: count all-gather``, ``exchange: host read`` and
 ``exchange: payload``), runs
-warm-up steps (frifull, subspfull and frisys_hh: until the vectors hold
+warm-up steps (frifull, subspfull, frisys_hh and frisys_hh_wide: until the vectors hold
 their budgets of nonzeros; fciqmc and fciqmc_real: bench.py's 60; the
 observables: the 6 of their burn-in; the others 3), then
 
@@ -198,7 +200,8 @@ def main(argv=None):
     parser.add_argument("--workload", choices=[
         "frisys", "semistoch", "frifull", "subsp", "subsp_lowmem", "subsp_multi", "subspfull",
         "fciqmc", "frimulti", "frifull_hh", "frisys_hh", "observables", "obs_repl",
-        "unfused", "ne_qz", "ne_qz_unnorm", "ne_qz_subsp", "rung_real", "semistoch_cisd",
+        "unfused", "ne_qz", "ne_qz_unnorm", "ne_qz_subsp", "ne2_qz", "ne2_qz_subsp",
+        "frisys_hh_wide", "rung_real", "semistoch_cisd",
         "frifull_real", "fciqmc_real", "rung_real_sharded", "subsp_sharded"],
         default="frisys")
     parser.add_argument("--dedup_cap", type=int, default=0,
@@ -251,6 +254,13 @@ def main(argv=None):
         step, state, est, _ = rung.build_frifull_hh(dev)
     elif args.workload == "frisys_hh":
         step, state, est, _ = rung.build_frisys_hh(dev)
+    elif args.workload == "frisys_hh_wide":
+        step, state, est, _ = rung.build_frisys_hh_wide(dev)
+    elif args.workload == "ne2_qz":
+        step, state, est, _ = rung.build_ne2_qz(dev)
+    elif args.workload == "ne2_qz_subsp":
+        step, state, _ = rung.build_ne2_qz_subsp(dev)
+        est = ()
     elif args.workload == "unfused":
         step, state, est, _ = rung.build(dev, fuse_ab=False, fuse_cd=False)
     elif args.workload in ("ne_qz", "ne_qz_unnorm"):
@@ -270,7 +280,8 @@ def main(argv=None):
         step, state, _ = rung.build_subspace(dev, **modes)
         est = ()
     budget = {"frifull": rung.frifull_config().target_nonz,
-              "frisys_hh": rung.frisys_hh_config().vec_nonz}.get(args.workload)
+              "frisys_hh": rung.frisys_hh_config().vec_nonz,
+              "frisys_hh_wide": rung.frisys_hh_config().vec_nonz}.get(args.workload)
     step_kw = step
     step = lambda state, *est: step_kw(state, *est, **kw)
     for i in range(60):

@@ -65,6 +65,12 @@
   vec_nonz = matr_samp = 1e6, spawn_cap 1.4e6 (the command line's), capacity
   2^21, target_norm 2e6, init_thresh 0, e_ref 0, seed 0, from one Neel
   determinant.
+* ``frisys_hh_wide``: ``frisys_hh``'s couplings and budgets
+  (:func:`frisys_hh_config`, unchanged) on a 16-site chain at half filling
+  with ph_bits 3: 80 bits in three words, so kernel A merges 128-bit keys
+  (the W = 3 instance) and the model works on rows past 64 bits; kernel B
+  at K = 2 and K = 1 as in ``frisys_hh``.  The 12-site ``frisys_hh`` stays:
+  it runs the one-int64 path of W <= 2.
 * ``subsp_lowmem`` and ``multi``: the subsp configuration with
   ``lowmem=True`` or ``compress_mode="multi"``
   (``subspace_config(lowmem=True)``), on its system and trial vectors.
@@ -99,6 +105,19 @@
   (``FRIES_SUBSP_SYSTEM=ne_ccpvqz``): HF and bench.py's real-system single,
   the HOMO (orbital 3) to the first virtual of its irrep in the real
   ``symm`` (orbital 6).
+
+* ``ne2_qz``: the neon dimer at full width, no cut in it: Ne2 at r = 5.84
+  a0 (3.09 Angstrom, its equilibrium distance), cc-pVQZ on both atoms (110
+  spherical functions), both 1s frozen: 108 active orbitals, 16 electrons,
+  216 bits, seven words (kernel A on 64-bit limb keys, L = 4).  Built by
+  :func:`fries_tpu_torch.scf.build_molecule` from the in-repo cc-pVQZ
+  table on the card (:func:`ne2_qz_molecule`); not a system of
+  ``real_systems.SYSTEMS``, which mirrors ``tools/real_systems.py``.
+  ``ne_qz``'s configuration (:func:`ne_qz_config`, bench.py's 500k rung,
+  n_a = 1) unchanged.
+* ``ne2_qz_subsp``: bench.py's subsp configuration (:func:`subspace_config`,
+  T = 2: HF and bench.py's real-system single, :func:`ne_qz_single`) on
+  that system: kernel C at W = 7.
 
 The real molecules of bench.py's default branches, built by
 :mod:`fries_tpu_torch.real_systems` on the card (no cache):
@@ -155,7 +174,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from fries_tpu_torch import cisd, dets, real_systems, synth
+from fries_tpu_torch import cisd, dets, real_systems, scf, synth
 from fries_tpu_torch.drivers import (fciqmc, frifull, frifull_hh, frimulti, frisys,
                                      frisys_hh, observables, power, subspace)
 from fries_tpu_torch.ops import hubbard
@@ -179,6 +198,8 @@ NE_QZ_SYMM = (0, 5, 6, 7, 5, 6, 7, 0, 0, 0, 1, 2, 3, 5, 6, 7, 0, 4, 5, 5, 6, 6, 
               1, 2, 3, 0, 0, 0, 1, 1, 2, 2, 3, 3, 5, 6, 7, 4, 5, 5, 6, 6, 7, 7, 0, 0, 1, 2,
               3, 0)
 NE_QZ_SAMP = 500_000
+NE2_R = 5.84             # bohr: Ne2's equilibrium distance (3.09 Angstrom)
+NE2_FROZEN = 4           # electrons: both 1s
 NE_QZ_CAPACITY = 1 << 20
 NE_QZ_SPAWN_CAP = 532_768
 
@@ -355,6 +376,18 @@ def build_frisys_hh(device, seed: int = 0):
     return step, state, estimator_args(aux), aux
 
 
+def frisys_hh_wide_system() -> hubbard.HubbardHolstein:
+    return hubbard.HubbardHolstein(n_sites=16, n_elec=16, ph_bits=3, u=2.0, omega=1.0, g=0.5)
+
+
+def build_frisys_hh_wide(device, seed: int = 0):
+    """The ``frisys_hh_wide`` configuration on ``device``.  Returns (step,
+    state, est, aux) as :func:`build` does."""
+    step, _, state, aux = frisys_hh.build(frisys_hh_wide_system(), 0.0, frisys_hh_config(),
+                                          seed=seed, device=device)
+    return step, state, estimator_args(aux), aux
+
+
 def fciqmc_system(device=None):
     return synth.n2_ccpvdz_like(seed=2, device=device)
 
@@ -414,6 +447,32 @@ def build_ne_qz(device, unnorm: bool = False, seed: int = 0, ham=None):
     ham = ne_qz_system(device) if ham is None else ham
     step, _, state, aux = frisys.build(ham, ne_qz_config(unnorm), seed=seed)
     return step, state, estimator_args(aux), aux
+
+
+def ne2_qz_molecule(device="cuda"):
+    """(Ne2/cc-pVQZ's MolecularHamiltonian, the SCF's info): 108 active
+    orbitals, 16 electrons, seven-word determinants, built on ``device``
+    (:func:`fries_tpu_torch.scf.build_molecule`; ``info["seconds"]`` times
+    its stages)."""
+    centers = np.array([[0.0, 0.0, -NE2_R / 2], [0.0, 0.0, NE2_R / 2]])
+    return scf.build_molecule(("Ne", "Ne"), centers, basis="cc-pvqz", n_frozen=NE2_FROZEN,
+                              device=device)
+
+
+def build_ne2_qz(device, seed: int = 0, ham=None):
+    """``ne2_qz`` on ``device`` (``ham``: Ne2/cc-pVQZ, when already built
+    there).  Returns (step, state, est, aux) as :func:`build` does."""
+    ham = ne2_qz_molecule(device)[0] if ham is None else ham
+    step, _, state, aux = frisys.build(ham, ne_qz_config(), seed=seed)
+    return step, state, estimator_args(aux), aux
+
+
+def build_ne2_qz_subsp(device, seed: int = 0, ham=None):
+    """``ne2_qz_subsp`` on ``device`` (``ham``: Ne2/cc-pVQZ, when already
+    built there).  Returns (step, state, aux) as :func:`build_subspace`
+    does."""
+    ham = ne2_qz_molecule(device)[0] if ham is None else ham
+    return build_ne_qz_subsp(device, seed, ham=ham)
 
 
 def ne_qz_single(ham):

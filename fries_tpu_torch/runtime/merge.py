@@ -35,8 +35,9 @@ keep mask only (1, 0, 0) and (2, 0, 1), the layouts the fused-compaction
 condition above is shown for.
 
 On the card the spawn keys are packed and sorted with ``torch.sort``
-(:func:`sort_spawns`: one sort of the int64 key for W <= 2, two stable
-sorts of the 128-bit key's halves for W = 3, 4); everything else is the
+(:func:`sort_spawns`: one sort of the int64 key for W <= 2, one stable
+sort per 64-bit limb of the key for 3 <= W <= :data:`MAX_WORDS`, L =
+ceil(W / 2) of them: two for the 128-bit keys of W = 3, 4); everything else is the
 kernel entry, four device operations (``csrc/merge_common.cuh`` has the design): it reads the arena's
 (C, W) words and (R, C) value rows and the spawns through the sort's
 permutation, and writes the merged arena's words and value rows.  The
@@ -56,7 +57,8 @@ from fries_tpu_torch.runtime import arena as arena_mod
 F64 = torch.float64
 TILE = 1024        # kTile in csrc/merge_common.cuh
 CTRL_HEAD = 8      # kCtrlHead: {n_out, nonini_occ_add, n_used, ...}
-MAX_WORDS = 4      # keys of W <= 2 words are one int64, of W = 3, 4 128 bits
+MAX_WORDS = 16     # kMaxWords: keys of W <= 2 words are one int64, of W = 3, 4
+                   # 128 bits, of W = 5..16 L = ceil(W / 2) 64-bit limbs (256 orbitals)
 
 LAUNCHES = 0
 """Kernel launches made by :func:`accumulate` (CUDA tensors only)."""
@@ -87,18 +89,21 @@ def accumulate_plain(arena, spawn_keys, spawn_vals, spawn_ini,
 def sort_spawns(spawn_keys):
     """The spawn stream's keys sorted (stable) and the permutation: the work
     a CUDA merge does before its kernel entry.  W <= 2: the (S,) packed
-    int64 keys.  W = 3, 4: the (S, 2) 128-bit keys as int64 (lo, hi)
-    halves, each sign-flipped (:func:`dets.key_columns`), from one stable
-    sort per half, the low half first (:func:`dets.sort_dets`' order).  The
-    halves are gathered, not the (S, W) rows: a row gather through the
-    permutation costs as much as both sorts on the card."""
+    int64 keys.  W > 2: the (S, L) keys as their L = ceil(W / 2)
+    sign-flipped int64 columns (:func:`dets.key_columns`, the 128-bit
+    key's (lo, hi) halves at W = 3, 4), from one stable sort per column, the
+    lowest first (:func:`dets.sort_dets`' order).  The columns are gathered,
+    not the (S, W) rows: a row gather through the permutation costs as much
+    as the sorts on the card."""
     if dets.packable(spawn_keys.shape[-1]):
         return torch.sort(dets.pack_key(spawn_keys), stable=True)
-    lo, hi = dets.key_columns(spawn_keys)
-    perm = torch.sort(lo, stable=True).indices
-    hi_sorted, p2 = torch.sort(hi[perm], stable=True)
-    perm = perm[p2]
-    return torch.stack([lo[perm], hi_sorted], dim=-1), perm
+    *low, top = dets.key_columns(spawn_keys)
+    perm = torch.sort(low[0], stable=True).indices
+    for col in low[1:]:
+        perm = perm[torch.sort(col[perm], stable=True).indices]
+    top_sorted, p = torch.sort(top[perm], stable=True)
+    perm = perm[p]
+    return torch.stack([col[perm] for col in low] + [top_sorted], dim=-1), perm
 
 
 def ptr(t):
@@ -113,13 +118,14 @@ def launch(kernel, entry, arena, spawn_keys, spawn_vals, spawn_ini, n_chan,
     ``arena_args``, the sorted keys, the permutation, the values, then
     ``spawn_args``, the initiator flags, S, the sentinel, the scratch, the
     control block, the outputs and the stream.  Returns the merged arena
-    and its stats.  W > :data:`MAX_WORDS` raises ``NotImplementedError``."""
+    and its stats.  W > :data:`MAX_WORDS` raises ``NotImplementedError``
+    before anything is allocated or launched."""
     c, w = arena.keys.shape
     s = spawn_keys.shape[0]
     if not 1 <= w <= MAX_WORDS:
         raise NotImplementedError(
-            f"{kernel}: keys of {w} words (> {MAX_WORDS}, more than 64 orbitals) "
-            "are not ported to the card")
+            f"{kernel}: keys of {w} words (> {MAX_WORDS}, more than "
+            f"{16 * MAX_WORDS} orbitals) are not ported to the card")
     if c < 1 or s < 1:
         raise ValueError(f"{kernel}: arena and spawn stream must be non-empty")
     if c + s >= 2**31:
@@ -132,7 +138,7 @@ def launch(kernel, entry, arena, spawn_keys, spawn_vals, spawn_ini, n_chan,
     _build.check_tensor(kernel, "spawn initiator flags", spawn_ini, torch.bool, (s,))
     skey, perm = sort_spawns(spawn_keys)
     nt_r, nt_m = -(-s // TILE), -(-(c + s) // TILE)
-    key_words = 1 if dets.packable(w) else 2      # int64 words per key
+    key_words = 1 if dets.packable(w) else dets.n_limbs(w)      # int64 words per key
     scratch = (torch.empty(key_words * s, dtype=torch.int64, device=dev),   # unique keys
                torch.empty(2 * n_chan * s, dtype=F64, device=dev),          # their sums
                torch.empty((n_chan + 1) * s, dtype=torch.int32, device=dev),  # their counts

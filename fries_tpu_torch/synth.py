@@ -67,6 +67,13 @@ def n2_ccpvdz_like(seed=0, device=None) -> mol.MolecularHamiltonian:
                        device=device)
 
 
+def h2o_ccpvdz_like(seed=0, device=None) -> mol.MolecularHamiltonian:
+    """H2O/cc-pVDZ-sized system: 24 spatial orbitals, 10 electrons, C2v irrep
+    distribution (a1 11, b1 4, b2 7, a2 2)."""
+    symm = np.array([0] * 11 + [2] * 4 + [3] * 7 + [1] * 2, np.int64)
+    return make_system(24, 10, symm=symm, seed=seed, scale_two=0.1, device=device)
+
+
 def ne_augccpvdz_like(seed=0, device=None) -> mol.MolecularHamiltonian:
     """Ne/aug-cc-pVDZ-sized system: 23 spatial orbitals, 10 electrons, D2h
     irrep distribution (the subspace benchmark's system size)."""

@@ -59,9 +59,14 @@ def test_model_sizes(n_sites, ph_bits):
 
 
 def test_model_too_wide_raises():
-    thub.HubbardHolstein(16, 16, 2)          # 64 bits: two words
-    with pytest.raises(NotImplementedError):
-        thub.HubbardHolstein(13, 13, 3)      # 65 bits
+    """The model has no width gate, as in the reference: 64 bits (two words)
+    and 65 bits (three) both build, with the reference's sizes."""
+    for n_sites, ph_bits in ((16, 2), (13, 3)):
+        jham, tham = models(n_sites, ph_bits)
+        assert (tham.n_bits, tham.n_words, tham.max_ph) == \
+            (jham.n_bits, jham.n_words, jham.max_ph)
+        assert thub.n_candidates(tham) == jhub.n_candidates(jham)
+    assert tham.n_bits == 65 and tham.n_words == 3
 
 
 @pytest.mark.parametrize("n_sites,ph_bits", SHAPES)

@@ -1121,8 +1121,9 @@ def test_merge_multi_wide_matches_plain(cuda, n_words, case):
 
 
 def test_merges_refuse_five_words(cuda):
-    """More than 64 orbitals raises before a launch, on both merges."""
-    a = to_dev(ar.make(64, 5, 2), cuda)
+    """Past the merges' width limit, 16 words (256 orbitals), W = 17 raises
+    before a launch, on both merges."""
+    a = to_dev(ar.make(64, 17, 2), cuda)
     sv = torch.zeros(4, dtype=torch.float64, device=cuda)
     si = torch.ones(4, dtype=torch.bool, device=cuda)
     with pytest.raises(NotImplementedError):

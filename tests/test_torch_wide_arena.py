@@ -173,9 +173,10 @@ def test_sort_spawns_wide(w):
 
 
 def test_card_merge_refuses_more_than_four_words():
-    """W = 5 (more than 64 orbitals) raises before anything is launched."""
-    a = tar.make(16, 5, 1)
-    sk = td.invalid_det(5).repeat(4, 1)
-    with pytest.raises(NotImplementedError, match="5 words"):
+    """The card merges' width limit, now W = 16 words (256 orbitals): W = 17
+    raises before anything is launched."""
+    a = tar.make(16, 17, 1)
+    sk = td.invalid_det(17).repeat(4, 1)
+    with pytest.raises(NotImplementedError, match="17 words"):
         merge.launch("merge", "fries_merge", a, sk, torch.zeros(4, dtype=torch.float64),
                      torch.ones(4, dtype=torch.bool), 1)
