@@ -143,6 +143,21 @@ Phases, in order; any failure exits non-zero:
    stretched N2: 60 + 5 steps, then bench.py's own capacity and shift
    interval for its 65 iterations, the first overflow logged); each with
    ms/step, its rate, peak memory and launches per step;
+17e. the flagship science run (``fries_tpu_torch.flagship``) on
+   Ne/aug-cc-pVDZ with its anchor's configuration (150,000 nonzeros, the 50
+   largest CISD determinants as the deterministic space, initiator 1.0,
+   eps 1e-3, deadbeat + tracking shift control, seed 20): the system and
+   its CISD built on the card (seconds), ``flagship.run`` for 200
+   iterations in 4 blocks of 50 with the kernels' counts reset just before
+   (1 kernel A and 3 kernel B launches per iteration asserted), no
+   overflow, finite estimators, five streams of 200 lines and the gate's
+   transient diagnosis; then 100 iterations and 100 more resumed from the
+   checkpoint, whose streams must equal the straight run's exactly; then
+   the state at iteration 200 stepped once more with fixed uniforms: its
+   merge input (protected keep bits) through kernel A and its three
+   emission plans (A+B, C+D, E) through kernel B, against their plain
+   versions; ms/step and the build, CISD and ``frisys.build`` seconds on a
+   line of their own;
 18. the timings: each kernel's wrapper and its plain version on the inputs of
    its check at the main path's shapes (the same seeds), last, since the
    profiler that reads device times slows every later launch of the process.
@@ -203,10 +218,12 @@ phase 11's real input) and the Hubbard-Holstein paths' real merges
 (``observables (4, 0, 0)``, ``observables (4, 0, 3)``, ``obs_repl (4, 1,
 1)``, ``obs_repl (4, 1, 3)``), ``ne_qz``'s real four-word merge
 (``ne_qz (W=4)``) and the real molecules' (``rung_real``,
-``semistoch_cisd``, ``frifull_real_chunk``, ``fciqmc_real``).  Kernel B's
+``semistoch_cisd``, ``frifull_real_chunk``, ``fciqmc_real``) and the
+flagship's (``flagship``).  Kernel B's
 ``shapes`` add frisys_hh's two levels (``hh level 1``, ``hh level 2``),
-the unfused rung's five (``unfused A`` to ``unfused E``) and rung_real's
-three (``rung_real A+B``, ``rung_real C+D``, ``rung_real E``), none in
+the unfused rung's five (``unfused A`` to ``unfused E``), rung_real's
+three (``rung_real A+B``, ``rung_real C+D``, ``rung_real E``) and the
+flagship's three (``flagship A+B``, ``flagship C+D``, ``flagship E``), none in
 its entry's sums; kernel C's the
 subspfull chunk (``subspfull_chunk``) and ``ne_qz_subsp``'s real
 four-word merge (``ne_qz_subsp (W=4)``).  ``launches`` sums a kernel's
@@ -2750,6 +2767,18 @@ def phase_rung_real(dev, ham):
     return r, case, plans
 
 
+def with_protected(a, keep, prot):
+    """``keep`` (the reference's row) with the rows of the protected keys
+    ``prot`` set: the semistochastic step's keep mask."""
+    import torch
+    from fries_tpu_torch.runtime import arena as ar
+
+    pos, found = ar.lookup(a, prot)
+    mask = torch.zeros(a.capacity + 1, dtype=torch.bool, device=a.keys.device)
+    mask.index_fill_(0, torch.where(found, pos, a.capacity), True)
+    return keep | mask[:a.capacity]
+
+
 def phase_semistoch_cisd(dev, ham):
     """``semistoch_cisd``: the CISD on the card (its seconds), the 150
     largest-|c| determinants as the deterministic space, 2 warm-up + 5
@@ -2784,16 +2813,128 @@ def phase_semistoch_cisd(dev, ham):
     gen.manual_seed(22)
     rns = torch.rand(6, dtype=torch.float64, generator=gen).to(dev)
     a, w, amp, ini, keep = power_merge_input(state, aux, rung.EPS, rns)
-    pos, found = ar.lookup(a, prot)      # the step's keep mask: the reference and the space
-    mask = torch.zeros(a.capacity + 1, dtype=torch.bool, device=dev)
-    mask.index_fill_(0, torch.where(found, pos, a.capacity), True)
-    keep = keep | mask[:a.capacity]
-    case = (a, w, amp, ini, keep)
+    case = (a, w, amp, ini, with_protected(a, keep, prot))
     r["real_step"] = {**merge_stream_stats(a, w),
                       **check_merge("semistoch_cisd, a real step's stream, (2,0,1) + protected "
                                     "keep bits", a, w, amp, ini, None, keep)}
     log(f"semistoch_cisd real step: {json.dumps(r['real_step'])}")
     return r, case
+
+
+FLAGSHIP_FLAGS = ("--system", "ne", "--budget", "150000", "--determ", "50", "--initiator",
+                  "1.0", "--burn", "4000", "--seed", "20", "--scan", "25", "--block", "50",
+                  "--save_interval", "100")
+FLAGSHIP_ITERS = 200
+
+
+def read_streams(path):
+    """{stream name: its lines} of a flagship result directory."""
+    from fries_tpu_torch import flagship
+
+    return {name: (path / f"{name}.txt").read_text().splitlines()
+            for name in flagship.STREAMS}
+
+
+def phase_flagship(dev):
+    """The flagship run on Ne/aug-cc-pVDZ (phase 17e).  Returns (results,
+    the merge case of a real step, its emission plans by name)."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import torch
+    from fries_tpu_torch import flagship
+    from fries_tpu_torch.drivers import frisys
+    from fries_tpu_torch.runtime import checkpoint, emit, merge, merge_multi
+
+    tmp = Path(tempfile.mkdtemp(prefix="flagship_"))
+    meta = flagship.SYSTEMS["ne"]
+    args = lambda name, *extra: flagship.parser().parse_args(
+        [*FLAGSHIP_FLAGS, "--result_dir", str(tmp / name), *extra])
+    try:
+        torch.cuda.synchronize()
+        ham, words, vals, e_cisd, info = flagship.build_system("ne", dev)
+        lines = []
+        runs = {}
+        mods = {"merge": merge, "emit": emit, "merge_multi": merge_multi}
+        for mod in mods.values():
+            mod.LAUNCHES = 0
+        try:
+            runs["straight"] = flagship.run(ham, (words, vals),
+                                            args("straight", "--iters", str(FLAGSHIP_ITERS)),
+                                            meta, e_cisd=e_cisd, log=lines.append)
+            launches = {k: mod.LAUNCHES for k, mod in mods.items()}
+            half = str(FLAGSHIP_ITERS // 2)
+            flagship.run(ham, (words, vals), args("resumed", "--iters", half), meta,
+                         e_cisd=e_cisd, log=lines.append)
+            runs["resumed"] = flagship.run(
+                ham, (words, vals), args("resumed", "--iters", str(FLAGSHIP_ITERS),
+                                         "--load_dir", str(tmp / "resumed")),
+                meta, e_cisd=e_cisd, log=lines.append)
+        except SystemExit as err:
+            raise AssertionError(f"flagship: {err}") from None
+        want = {"merge": FLAGSHIP_ITERS, "emit": 3 * FLAGSHIP_ITERS, "merge_multi": 0}
+        if launches != want:
+            raise AssertionError(f"flagship: launches {launches} in {FLAGSHIP_ITERS} "
+                                 f"iterations, want {want}")
+        straight, resumed = read_streams(tmp / "straight"), read_streams(tmp / "resumed")
+        for name, got in straight.items():
+            x = torch.tensor([float(v) for v in got], dtype=torch.float64)
+            if len(got) != FLAGSHIP_ITERS or not bool(torch.isfinite(x).all()):
+                raise AssertionError(f"flagship: {name}.txt holds {len(got)} lines, finite "
+                                     f"{bool(torch.isfinite(x).all())}")
+            if resumed[name] != got:
+                raise AssertionError(f"flagship: the resumed {name}.txt differs from the "
+                                     "straight run's")
+        r = runs["straight"]
+        if "diagnosis" not in r or r["n_independent_samples"] >= flagship.MIN_INDEPENDENT:
+            raise AssertionError(f"flagship: the gate passed {FLAGSHIP_ITERS} iterations "
+                                 f"({r['n_independent_samples']} independent samples)")
+        if runs["resumed"]["unconverged_estimate_mEh"] != r["unconverged_estimate_mEh"]:
+            raise AssertionError("flagship: the resumed run's statistics differ")
+        res = {"config": r["config"], "iterations": FLAGSHIP_ITERS,
+               "ms_per_step": 1e3 * r["sec_per_iter"], "peak_mem_bytes": r["peak_mem_bytes"],
+               "launches": {k: v for k, v in launches.items() if v},
+               "launches_per_step": {"merge": 1, "emit": 3},
+               "build_s": info["build_s"], "cisd_s": info["cisd_s"],
+               "frisys_build_s": r["build_s"], "n_cisd": info["n_cisd"],
+               "e_hf_total": info["e_hf_total"], "e_cisd_corr": e_cisd,
+               "n_dets_final": r["n_dets_final"], "norm_final": r["norm_final"],
+               "norm_max_over_target": r["norm_max_over_target"],
+               "iat": r["iat"], "unconverged_estimate_mEh": r["unconverged_estimate_mEh"],
+               "diagnosis": r["diagnosis"],
+               "resumed_ms_per_step": 1e3 * runs["resumed"]["sec_per_iter"]}
+        log(f"flagship: {json.dumps({k: v for k, v in res.items() if k != 'diagnosis'})}")
+        log(f"flagship seconds: build {info['build_s']:.3f}, CISD {info['cisd_s']:.3f} "
+            f"({info['n_cisd']} determinants), frisys.build {r['build_s']:.3f}; "
+            f"{res['ms_per_step']:.2f} ms/step over {FLAGSHIP_ITERS} iterations")
+        log("flagship progress:\n" + "\n".join(x for x in lines if x.startswith("# blk")))
+
+        # the path's own tensors: iteration 200's state, one more step's inputs
+        run_args = args("straight")
+        cfg, trial, init_vec, determ = flagship.prepare(words, vals, run_args, meta)
+        _, _, state, aux = frisys.build(ham, cfg, seed=run_args.seed, trial=trial,
+                                        init_vec=init_vec, determ_keys=determ)
+        state = checkpoint.restore(str(tmp / "straight" / "checkpoint.npz"), state)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(23)
+    rns = torch.rand(6, dtype=torch.float64, generator=gen).to(dev)
+    case, plans = capture_emissions(power_merge_input, state, aux, cfg.eps, rns)
+    if len(plans) != 3:
+        raise AssertionError(f"flagship: {len(plans)} emissions in one spawn")
+    plans = dict(zip(("flagship A+B", "flagship C+D", "flagship E"), plans))
+    res["emit_checks"] = {
+        name: check_emit(f"{name}, a real step's plan (N={plan['offsets'].shape[0]})", plan,
+                         need_kept=False) for name, plan in plans.items()}
+    a, w, amp, ini, keep = case
+    case = (a, w, amp, ini, with_protected(a, keep, aux["protected_keys"]))
+    res["real_step"] = {**merge_stream_stats(a, w),
+                        **check_merge("flagship, a real step's stream, (2,0,1) + protected "
+                                      "keep bits", *case[:4], None, case[4])}
+    log(f"flagship real step: {json.dumps(res['real_step'])}")
+    return res, case, plans
 
 
 def phase_frifull_real(dev, full):
@@ -3763,6 +3904,8 @@ def main():
         dev, hams["n2_ccpvdz"])
     real_res["semistoch_cisd"], real_cases["semistoch_cisd"] = phase_semistoch_cisd(
         dev, hams["n2_ccpvdz"])
+    real_res["flagship"], real_cases["flagship"], flag_plans = phase_flagship(dev)
+    real_plans.update(flag_plans)
     real_res["frifull_real"], real_cases["frifull_real_chunk"] = phase_frifull_real(
         dev, hams["h2o_ccpvdz"])
     real_res["fciqmc_real"], real_cases["fciqmc_real"] = phase_fciqmc_real(
@@ -3800,7 +3943,8 @@ def main():
     emit_step = {key: step_sum(key) for key in ("ms", "plain_ms", "device_ms",
                                                 "plain_device_ms", "bound_ms")}
     for name, r in {**fshh_res["emit_checks"], **hhw_res["emit_checks"],
-                    **unf_res["emit_checks"], **real_res["rung_real"]["emit_checks"]}.items():
+                    **unf_res["emit_checks"], **real_res["rung_real"]["emit_checks"],
+                    **real_res["flagship"]["emit_checks"]}.items():
         shapes[name] = {**timing(f"emit {name}"), "max_abs_err": r["max_abs_err"],
                         "n_out": r["n_out"], "kept": r["kept"]}
     sort_keys = ("device_ops", "sort_ms", "sort_device_ms", "sort_device_ops")
@@ -3840,7 +3984,8 @@ def main():
             "max_abs_err", "arena_rows", "spawns", "live_spawns", "unique_targets",
             "longest_run")}}
     for name, path in (("rung_real", "rung_real"), ("semistoch_cisd", "semistoch_cisd"),
-                       ("frifull_real_chunk", "frifull_real"), ("fciqmc_real", "fciqmc_real")):
+                       ("frifull_real_chunk", "frifull_real"), ("fciqmc_real", "fciqmc_real"),
+                       ("flagship", "flagship")):
         real = real_res[path]["real_chunk" if name.endswith("chunk") else "real_step"]
         merge_shapes[name] = {
             **timing(f"merge {name}"), **{key: t[f"merge {name}"][key] for key in sort_keys},

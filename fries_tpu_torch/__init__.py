@@ -14,7 +14,8 @@ drivers (``drivers``), linear algebra and Lanczos (``linalg``), the
 integral pipeline that builds real molecules from geometry (``basis``,
 ``sto3g``, ``gto``, ``scf``, ``cisd``, ``real_systems``), and the
 ``frisys_mol`` / ``frifull_mol`` / ``frimulti_mol`` / ``fciqmc_mol`` /
-``fciqmc_fp_mol`` / ``subsp_mol`` command line (``cli``), the native C++
+``fciqmc_fp_mol`` / ``subsp_mol`` command line (``cli``), the flagship
+science run against the published rows (``flagship``), the native C++
 FCIDUMP and vector reader (``native``, built with g++ at first use) and
 profiling hooks (``profiling``).  Determinants take up to sixteen 32-bit
 words (256 orbitals) on the card and any width on the CPU.

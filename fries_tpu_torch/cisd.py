@@ -136,6 +136,17 @@ def cisd_ground_state(ham: mol.MolecularHamiltonian, target_irrep: int = 0, m: i
     return e, words, vec
 
 
+def largest(words, coeffs, k: int):
+    """(words, coeffs) of the ``k`` determinants of largest |c|, as numpy
+    arrays: |c| rounded to 1e-10, ties in the given order (the CISD's
+    determinants come sorted), so the choice is the same on every device."""
+    words = words.cpu().numpy() if torch.is_tensor(words) else np.asarray(words)
+    coeffs = coeffs.cpu().numpy() if torch.is_tensor(coeffs) else np.asarray(coeffs)
+    mag = np.round(np.abs(coeffs), 10)
+    order = np.lexsort((np.arange(len(mag)), -mag))[:k]
+    return words[order], coeffs[order]
+
+
 def _occupancy(det_words):
     """(N, 32 W) bool occupancy of words given as a tensor or an array of
     32-bit values (uint32 or int64)."""

@@ -23,8 +23,10 @@ that takes ``axis_name`` in the reference takes ``shards=None`` here, and
   the parent joins with one, so a rank that falls out of step fails instead
   of hanging.
 
-A world of several ranks on one card (gloo, every rank on ``cuda:0``, with
-CUDA tensors in every collective) is a choice the caller states.
+:func:`launch` and :func:`init_world` default to the cards (NCCL, one rank
+per card); a CPU world (gloo on ``"cpu"``) and a world of several ranks on
+one card (gloo, every rank on ``cuda:0``, with CUDA tensors in every
+collective) are choices the caller states.
 """
 
 from __future__ import annotations
@@ -133,7 +135,7 @@ def rank_device(backend: str, device, rank: int) -> torch.device:
     return device
 
 
-def init_world(rank: int, size: int, backend: str = "gloo", device="cpu",
+def init_world(rank: int, size: int, backend: str = "nccl", device="cuda",
                init_method: str | None = None, timeout: float = TIMEOUT) -> Shards:
     """Join (or, with ``size`` 1, make) a process group and return this
     rank's handle.  ``init_method`` None makes a ``file://`` store of its
@@ -177,15 +179,15 @@ def _worker(rank, size, backend, device, init_method, timeout, fn, args, results
         close_world()
 
 
-def launch(fn, n: int, backend: str = "gloo", device="cpu", args=(), timeout: float = TIMEOUT,
+def launch(fn, n: int, backend: str = "nccl", device="cuda", args=(), timeout: float = TIMEOUT,
            join_timeout: float | None = None):
     """Run ``fn(shards, *args)`` on ``n`` ranks and return the ranks' results
     in rank order (moved to the CPU).  ``fn`` must be importable by name (a
     module-level function of a module that the child processes can import).
 
-    ``backend="nccl"`` puts rank r on ``cuda:r`` and stops when fewer than
-    ``n`` cards are visible; ``"gloo"`` runs on ``device`` (on ``"cuda"``
-    every rank shares ``cuda:0``).  Under ``torchrun`` (``RANK`` and
+    ``backend="nccl"`` (the default) puts rank r on ``cuda:r`` and stops
+    when fewer than ``n`` cards are visible; ``"gloo"`` runs on ``device``
+    (on ``"cuda"`` every rank shares ``cuda:0``).  Under ``torchrun`` (``RANK`` and
     ``WORLD_SIZE`` set) this process joins that world as its rank and
     returns ``[its result]``.  ``timeout`` is the process group's;
     ``join_timeout`` (default ``timeout`` + 60 s) bounds the whole run, after

@@ -513,9 +513,7 @@ def cisd_determ_space(ham, n_determ: int = N_DETERM):
     ``ham``'s device; |c| rounded to 1e-10, ties in the arena's order (the
     CISD's determinants are sorted so)."""
     e, words, vec = cisd.cisd_ground_state(ham)
-    mag = np.round(np.abs(vec.cpu().numpy()), 10)
-    order = np.lexsort((np.arange(len(mag)), -mag))[:n_determ]
-    return words.cpu().numpy()[order], e
+    return cisd.largest(words, vec, n_determ)[0], e
 
 
 def build_semistoch_cisd(device, seed: int = 0, ham=None):

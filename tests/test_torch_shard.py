@@ -58,8 +58,8 @@ def world():
     init_keys = np.unique(rng.integers(0, 1 << 16, size=(60, 2)).astype(np.uint32), axis=0)
     init_vals = rng.standard_normal((2, len(init_keys)))
     args = [(keys, amps, 200, 400), (keys, amps, 40, 80)]
-    out = parallel.launch(torch_world.shard_world, N, args=(args, init_keys, init_vals, 64),
-                          timeout=60, join_timeout=120)
+    out = parallel.launch(torch_world.shard_world, N, "gloo", "cpu",
+                          args=(args, init_keys, init_vals, 64), timeout=60, join_timeout=120)
     return keys, amps, init_keys, init_vals, out
 
 
@@ -112,9 +112,19 @@ def test_distribute_rows_matches_reference(world):
 
 def test_failed_rank_surfaces_in_parent():
     with pytest.raises(Exception, match="rank 1 fails"):
-        parallel.launch(torch_world.fail_on_rank_one, N, timeout=30, join_timeout=120)
+        parallel.launch(torch_world.fail_on_rank_one, N, "gloo", "cpu", timeout=30,
+                        join_timeout=120)
+
+
+def test_default_launch_needs_cards():
+    """The default world is NCCL on the cards: without enough of them it
+    stops before any rank starts, and never falls back to the CPU."""
+    if torch.cuda.is_available() and torch.cuda.device_count() >= N:
+        pytest.skip("enough cards are visible")
+    with pytest.raises(RuntimeError, match="nccl with 2 ranks needs 2 CUDA devices"):
+        parallel.launch(torch_world.fail_on_rank_one, N, timeout=30, join_timeout=60)
 
 
 def test_join_timeout_kills_ranks():
     with pytest.raises(TimeoutError):
-        parallel.launch(torch_world.sleep_forever, N, timeout=30, join_timeout=8)
+        parallel.launch(torch_world.sleep_forever, N, "gloo", "cpu", timeout=30, join_timeout=8)

@@ -112,8 +112,8 @@ def runs():
              ("comp_sub_factored", {"values": values, "ndiv": ndiv, "fa": fa, "fb": fb},
               budget_sub, rn),
              ("comp_sub_piv", {"values": values, "ndiv": ndiv, "w": w}, budget_sub, rn)]
-    got = parallel.launch(torch_world.compress_cases, N, args=(cases, table), timeout=100,
-                          join_timeout=120)
+    got = parallel.launch(torch_world.compress_cases, N, "gloo", "cpu", args=(cases, table),
+                          timeout=100, join_timeout=120)
 
     ref = {}
     ref["find_preserve"] = smap(lambda v: jc.find_preserve(jnp.abs(v), budget, axis_name=AX),

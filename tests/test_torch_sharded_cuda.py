@@ -37,8 +37,8 @@ def test_sharded_frisys_card_matches_cpu(cuda):
     assert refused == [], f"gloo refuses CUDA tensors in {refused}"
     card = parallel.launch(torch_world.frisys_small_steps, N, "gloo", "cuda",
                            args=(h, cfg, 12, 4), timeout=100, join_timeout=120)
-    cpu = parallel.launch(torch_world.frisys_small_steps, N, args=(h, cfg, 12, 4), timeout=100,
-                          join_timeout=120)
+    cpu = parallel.launch(torch_world.frisys_small_steps, N, "gloo", "cpu", args=(h, cfg, 12, 4),
+                          timeout=100, join_timeout=120)
     for r in range(N):
         for (ca, cm), (pa, pm) in zip(card[r], cpu[r]):
             np.testing.assert_array_equal(ca["keys"], pa["keys"])

@@ -87,7 +87,7 @@ def frisys_steps_against_reference(cfg, determ_keys=None):
         jstate, jm = jstep(jstate)
         after.append(jstate.arena)
         metrics.append(jm)
-    out = parallel.launch(torch_world.frisys_steps, N_RANKS,
+    out = parallel.launch(torch_world.frisys_steps, N_RANKS, "gloo", "cpu",
                           args=(ham_dict(j), cfg, states, draws, determ_keys), timeout=100,
                           join_timeout=120)
     for s in range(3):
@@ -160,7 +160,7 @@ def world_runs():
     runs = [("frifull", dict(cfg=ff, n_iter=30)),
             ("subspace", dict(cfg=ss, t_keys=t_keys, t_vals=t_vals, n_iter=15)),
             ("observables", dict(cfg=ob, n_iter=12))]
-    sharded = parallel.launch(torch_world.equivalences, N_RANKS, args=(hd, runs),
+    sharded = parallel.launch(torch_world.equivalences, N_RANKS, "gloo", "cpu", args=(hd, runs),
                               timeout=110, join_timeout=120)
     ham = torch_world.ham_of(hd)
     single = {}

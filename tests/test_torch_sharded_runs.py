@@ -24,7 +24,7 @@ def runs():
               target_norm=300.0, n_shards=N_RANKS, exchange_cap=128)
     runs = [("fciqmc", dict(cfg=fq, n_iter=300, seed=2, init_walkers=80.0)),
             ("frisys", dict(cfg=fs, n_iter=400, seed=1))]
-    return parallel.launch(torch_world.equivalences, N_RANKS, args=(ham41(), runs),
+    return parallel.launch(torch_world.equivalences, N_RANKS, "gloo", "cpu", args=(ham41(), runs),
                            timeout=110, join_timeout=120)
 
 
