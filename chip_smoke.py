@@ -158,6 +158,19 @@ Phases, in order; any failure exits non-zero:
    emission plans (A+B, C+D, E) through kernel B, against their plain
    versions; ms/step and the build, CISD and ``frisys.build`` seconds on a
    line of their own;
+17f. the last science tools: ``anchor_scale``'s 48,400-determinant anchor
+   at its defaults (12 orbitals, 6 electrons, seed 5): the Lanczos at full
+   dimension (E0 within 1e-8 Ha of the JAX record -15.340561820, seconds),
+   300 iterations in blocks of 25 with the counts reset just before (1
+   kernel A and 3 kernel B launches per iteration asserted, no overflow,
+   finite estimators, ms/step, peak), then one more step fed fixed
+   uniforms: its merge input through kernel A and its three emission plans
+   through kernel B against their plain versions; ``make_fcidump water``
+   on the card, read back by both readers, and ``frisys_mol`` on that file
+   through the command line for 40 iterations (1 kernel A and 3 kernel B
+   launches per iteration, the last iteration's launches against their
+   plain versions); ``derive_ccpvqz``'s E_HF just below -128.543470 Ha and
+   its contractions ``basis.py``'s to 5e-7;
 18. the timings: each kernel's wrapper and its plain version on the inputs of
    its check at the main path's shapes (the same seeds), last, since the
    profiler that reads device times slows every later launch of the process.
@@ -176,7 +189,11 @@ Phases, in order; any failure exits non-zero:
    checksums and amplitude sums per destination), and the ragged and dense
    paths deliver the same multiset; ``rung_real_sharded`` at full width in a
    1-rank NCCL world and in a 2-rank world on the card (gloo, the card
-   shared): 2 warm-up steps, then 2 steps fed fixed uniforms with the
+   shared): its 2 warm-up steps run twice from one seed must give the same
+   arena and metrics bit for bit on every rank (every stage's inputs and
+   outputs hashed, the first that differs named), with N2/cc-pVDZ built
+   twice per rank equal bit for bit; then 2 warm-up steps, then 2 steps fed
+   fixed uniforms with the
    kernels and with their plain versions from one state (each captured
    kernel launch of the last step against its plain version at its own
    tolerance; the merged arenas and metrics of the two runs within the
@@ -229,7 +246,8 @@ subspfull chunk (``subspfull_chunk``) and ``ne_qz_subsp``'s real
 four-word merge (``ne_qz_subsp (W=4)``).  ``launches`` sums a kernel's
 launches over the timed steps of every path (``launches_by_path`` breaks
 them down).
-Usage: ``python3 chip_smoke.py``.
+Usage: ``python3 chip_smoke.py``; ``--sharding N`` runs phase 17d alone N
+times (its inputs built once) and counts the runs that pass.
 """
 
 import contextlib
@@ -300,10 +318,12 @@ def check_no_reference_imports():
                  "fries_tpu_torch.stats", "fries_tpu_torch.runtime.checkpoint",
                  "fries_tpu_torch.basis", "fries_tpu_torch.sto3g", "fries_tpu_torch.gto",
                  "fries_tpu_torch.scf", "fries_tpu_torch.cisd", "fries_tpu_torch.linalg",
-                 "fries_tpu_torch.real_systems"):
+                 "fries_tpu_torch.real_systems", "fries_tpu_torch.flagship",
+                 "fries_tpu_torch.anchor_scale", "fries_tpu_torch.make_fcidump",
+                 "fries_tpu_torch.atomic_hf", "fries_tpu_torch.derive_ccpvqz"):
         importlib.import_module(name)
     loaded = sorted(n for n, mod in sys.modules.items() if mod is not None and (
-        n in ("jax", "fries_tpu") or n.startswith(("jax.", "fries_tpu."))))
+        n in ("jax", "fries_tpu", "tools") or n.startswith(("jax.", "fries_tpu.", "tools."))))
     if loaded:
         raise AssertionError(f"chip_smoke: the reference is loaded: {loaded[:5]}")
 
@@ -2937,6 +2957,159 @@ def phase_flagship(dev):
     return res, case, plans
 
 
+ANCHOR_E0 = -15.340561820     # the JAX package's Lanczos record (PARITY.md:124-133)
+ANCHOR_DIM = 48_400
+ANCHOR_ITERS, ANCHOR_BLOCK = 300, 25
+FCIDUMP_FLAGS = ["--epsilon", "0.02", "--vec_nonz", "200", "--mat_nonz", "1000",
+                 "--max_dets", "16384", "--target", "400", "--seed", "3"]
+FCIDUMP_ITERS = 40
+
+
+def phase_anchor(dev):
+    """The 48,400-determinant anchor (phase 17f, ``fries_tpu_torch.
+    anchor_scale`` at its defaults): the Lanczos at full dimension (E0
+    against the JAX record within 1e-8 Ha, seconds), 300 iterations in
+    blocks of 25 with the kernels' counts reset just before (1 kernel A and
+    3 kernel B launches per iteration asserted, no overflow, finite
+    estimators, ms/step), then the state stepped once more with fixed
+    uniforms: its merge input through kernel A and its three emission plans
+    through kernel B, against their plain versions.  Returns (results, the
+    merge case, {round: plan})."""
+    import torch
+    from fries_tpu_torch import anchor_scale, synth
+    from fries_tpu_torch.drivers import frisys
+    from fries_tpu_torch.runtime import emit, merge, merge_multi
+
+    args = anchor_scale.parser().parse_args([])
+    ham = synth.make_system(args.n_orb, args.n_elec, seed=args.seed, scale_two=0.1,
+                            device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    half = args.n_elec // 2
+    e0, ritz, basis = anchor_scale.exact_energy(ham, half, args.n_elec - half,
+                                                m=args.lanczos_m)
+    torch.cuda.synchronize()
+    lanczos_s = time.perf_counter() - t0
+    if basis.shape[0] != ANCHOR_DIM or abs(e0 - ANCHOR_E0) > 1e-8:
+        raise AssertionError(f"anchor: Lanczos E0 {e0!r} over {basis.shape[0]} determinants, "
+                             f"want {ANCHOR_E0} over {ANCHOR_DIM}")
+    cfg = anchor_scale.anchor_config(args)
+    _, run_steps, state, aux = frisys.build(
+        ham, cfg, seed=args.seed + 1, trial=anchor_scale.ritz_trial(basis, ritz, args.trial_k))
+    est = [aux[k] for k in ("num_keys", "num_vals", "den_keys", "den_vals", "ref_key")]
+    mods = {"merge": merge, "emit": emit, "merge_multi": merge_multi}
+    for mod in mods.values():
+        mod.LAUNCHES = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trajs = []
+    for _ in range(ANCHOR_ITERS // ANCHOR_BLOCK):
+        state, traj = run_steps(state, *est, ANCHOR_BLOCK)
+        trajs.append(traj)
+    torch.cuda.synchronize()
+    s_per_step = (time.perf_counter() - t0) / ANCHOR_ITERS
+    launches = {k: mod.LAUNCHES for k, mod in mods.items()}
+    want = {"merge": ANCHOR_ITERS, "emit": 3 * ANCHOR_ITERS, "merge_multi": 0}
+    if launches != want:
+        raise AssertionError(f"anchor: launches {launches}, want {want}")
+    traj = {k: torch.cat([t[k].reshape(-1) for t in trajs]) for k in trajs[0]}
+    if bool(traj["overflow"].any()):
+        raise AssertionError("anchor: arena overflow")
+    for k in ("proj_num", "proj_den", "norm", "shift"):
+        if not bool(torch.isfinite(traj[k]).all()):
+            raise AssertionError(f"anchor: non-finite {k}")
+    num, den = traj["proj_num"][-100:].double(), traj["proj_den"][-100:].double()
+    res = {"dimension": int(basis.shape[0]), "lanczos_e0": e0, "lanczos_s": lanczos_s,
+           "e0_minus_jax_record": e0 - ANCHOR_E0, "iterations": ANCHOR_ITERS,
+           "ms_per_step": 1e3 * s_per_step, "s_per_step": s_per_step,
+           "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+           "launches": {k: v for k, v in launches.items() if v},
+           "launches_per_step": {"merge": 1, "emit": 3},
+           "n_dets_final": int(traj["n_dets"][-1]), "norm_final": float(traj["norm"][-1]),
+           "e_corr_last_100": float(num.sum() / den.sum()),
+           "exact_corr": e0 - float(aux["e_ref"])}
+    log(f"anchor: {json.dumps(res)}")
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(29)
+    rns = torch.rand(6, dtype=torch.float64, generator=gen).to(dev)
+    case, plans = capture_emissions(power_merge_input, state, aux, cfg.eps, rns)
+    if len(plans) != 3:
+        raise AssertionError(f"anchor: {len(plans)} emissions in one spawn")
+    plans = dict(zip(("anchor A+B", "anchor C+D", "anchor E"), plans))
+    res["emit_checks"] = {
+        name: check_emit(f"{name}, a real step's plan (N={plan['offsets'].shape[0]})", plan,
+                         need_kept=False) for name, plan in plans.items()}
+    res["real_step"] = {**merge_stream_stats(case[0], case[1]),
+                        **check_merge("anchor, a real step's stream, (2,0,1) + keep_mask",
+                                      *case[:4], None, case[4])}
+    log(f"anchor real step: {json.dumps(res['real_step'])}")
+    return res, case, plans
+
+
+def phase_fcidump_tools(dev):
+    """``make_fcidump`` and ``derive_ccpvqz`` on the card (phase 17f):
+    water's FCIDUMP written from integrals built on the card, read back by
+    both readers (equal bit for bit, and to the card's integrals within
+    1e-12), then ``frisys_mol`` on it through the command line for 40
+    iterations (1 kernel A and 3 kernel B launches per iteration, no
+    overflow, finite estimators; the last iteration's merge and emissions
+    through the kernels and their plain versions); the Ne cc-pVQZ
+    derivation's E_HF just below the literature -128.543470 Ha and its rows
+    ``basis.py``'s to 5e-7."""
+    import contextlib
+    import io as pyio
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+    from fries_tpu_torch import basis, cli, derive_ccpvqz, gto, make_fcidump
+    from fries_tpu_torch import io as tio
+    from fries_tpu_torch.runtime import emit, merge
+
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "FCIDUMP_h2o")
+        out = pyio.StringIO()
+        with contextlib.redirect_stdout(out):
+            make_fcidump.main(["water", "--out", path])
+        ham, core = gto.water(device=dev)
+        (hn, cn), (hp, cp) = (tio.parse_fcidump(path, native=n) for n in (True, False))
+        if not (torch.equal(hn.hcore, hp.hcore) and torch.equal(hn.eris, hp.eris) and cn == cp):
+            raise AssertionError("make_fcidump: the two readers differ")
+        err = max(float((hp.hcore - ham.hcore.cpu()).abs().max()),
+                  float((hp.eris - ham.eris.cpu()).abs().max()), abs(cp - core))
+        if err > 1e-12:
+            raise AssertionError(f"make_fcidump: the file is {err} from the card's integrals")
+        res["make_fcidump"] = {"line": out.getvalue().strip(), "max_abs_err": err}
+        store = {}
+        merge.LAUNCHES = emit.LAUNCHES = 0
+        run_dir = os.path.join(tmp, "run")
+        with capture_kernel_inputs(store), contextlib.redirect_stdout(pyio.StringIO()):
+            cli.main(["frisys_mol", "--fcidump_path", path, *FCIDUMP_FLAGS, "--max_iter",
+                      str(FCIDUMP_ITERS), "--result_dir", run_dir])
+        launches = {"merge": merge.LAUNCHES, "emit": emit.LAUNCHES}
+        if launches != {"merge": FCIDUMP_ITERS, "emit": 3 * FCIDUMP_ITERS}:
+            raise AssertionError(f"frisys_mol on the FCIDUMP: launches {launches}")
+        num = np.loadtxt(os.path.join(run_dir, "projnum.txt"))
+        den = np.loadtxt(os.path.join(run_dir, "projden.txt"))
+        if num.shape != (FCIDUMP_ITERS,) or not (np.isfinite(num).all()
+                                                 and np.isfinite(den).all()):
+            raise AssertionError(f"frisys_mol on the FCIDUMP: streams {num.shape}")
+    store = {"merge": store["merge"][-1:], "emit": store["emit"][-3:]}
+    res["frisys_mol"] = {"iterations": FCIDUMP_ITERS, "launches": launches,
+                         "e_corr_last_20": float(num[-20:].sum() / den[-20:].sum()),
+                         "kernel_vs_plain_max_abs_err": check_captured(
+                             "frisys_mol on water's FCIDUMP, the last iteration's", store)}
+    e, rows = derive_ccpvqz.contractions(basis._NE_QZ_S_EXP, basis._NE_QZ_P_EXP, dev)
+    diff = {k: float(np.abs(rows[k] - v).max()) for k, v in derive_ccpvqz.BASIS_ROWS.items()}
+    if not -128.5435 < e < derive_ccpvqz.E_HF_LITERATURE or max(diff.values()) > 5e-7:
+        raise AssertionError(f"derive_ccpvqz: E_HF {e!r}, rows against basis.py {diff}")
+    res["derive_ccpvqz"] = {"e_hf": e, "max_abs_diff_from_basis_py": diff}
+    log(f"science tools: {json.dumps(res)}")
+    return res
+
+
 def phase_frifull_real(dev, full):
     """``frifull_real``: real H2O/cc-pVDZ sliced to (10e, 12o), 2 warm-up +
     5 timed steps (48 kernel A launches per step asserted), then one real
@@ -3153,6 +3326,119 @@ def count_syncs(fn):
         torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("default")
     return out, sum("synchroniz" in str(w.message) for w in caught)
+
+
+# the stages of a step whose inputs and outputs the reproducibility check
+# hashes, in call order: the first entry that differs between two runs
+# from one seed names the operation that is not reproducible
+REPRO_STAGES = (
+    ("fries_tpu_torch.drivers.power", ("draw_uniforms", "exchange_spawns")),
+    ("fries_tpu_torch.compress", ("find_preserve", "sys_comp", "_norm_over_ranks",
+                                  "_threshold_fixpoint", "_grid_layout", "comp_sub_plan",
+                                  "comp_sub_factored_plan")),
+    ("fries_tpu_torch.runtime.emit", ("emit", "emit_factored")),
+    ("fries_tpu_torch.runtime.shard", ("exchange_ragged", "exchange_dense")),
+    ("fries_tpu_torch.runtime.merge", ("accumulate",)),
+)
+
+
+def tensor_digests(obj):
+    """Short hashes of the bytes of every tensor in ``obj`` (nested tuples,
+    lists, dicts and dataclasses), in order."""
+    import dataclasses
+    import hashlib
+
+    import torch
+
+    if isinstance(obj, torch.Tensor):
+        data = obj.detach().contiguous().cpu().reshape(-1).view(torch.uint8).numpy()
+        return [hashlib.blake2b(data.tobytes(), digest_size=6).hexdigest()]
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        obj = [getattr(obj, f.name) for f in dataclasses.fields(obj)]
+    if isinstance(obj, dict):
+        obj = list(obj.values())
+    if isinstance(obj, (tuple, list)):
+        return [h for x in obj for h in tensor_digests(x)]
+    return []
+
+
+def stage_records(records):
+    """Every function of ``REPRO_STAGES`` (where the module has it) appends
+    (name, input digests, output digests) to ``records`` for the block."""
+    import importlib
+
+    def wrap(name):
+        def w(fn):
+            def rec(*args, **kwargs):
+                din = tensor_digests([args, kwargs])
+                out = fn(*args, **kwargs)
+                records.append((name, din, tensor_digests(out)))
+                return out
+            return rec
+        return w
+    targets = []
+    for mod_name, names in REPRO_STAGES:
+        mod = importlib.import_module(mod_name)
+        targets += [(mod, n, wrap(f"{mod_name.rsplit('.', 1)[1]}.{n}"))
+                    for n in names if hasattr(mod, n)]
+    return patched(*targets)
+
+
+def repro_warmups(label, build, n_steps, n_runs=2):
+    """``n_runs`` runs of ``build()`` (-> step, state, est) and ``n_steps``
+    steps from it, every stage hashed: each run's arena (keys, values,
+    n_used) and metrics must equal the first run's bit for bit, else it
+    raises and names the first stage whose inputs or outputs differ.
+    Returns {"equal", "runs", "steps", "stage_calls"}."""
+    runs = []
+    for _ in range(n_runs):
+        records = []
+        with stage_records(records):
+            step, state, est = build()
+            metrics = []
+            for _ in range(n_steps):
+                state, m = step(state, *est)
+                metrics.append(m)
+        runs.append((tensor_digests([state.arena, metrics]), records))
+    first = None
+    for k, (final, records) in enumerate(runs[1:], 1):
+        if final == runs[0][0]:
+            continue
+        for i, (a, b) in enumerate(zip(runs[0][1], records)):
+            if a != b:
+                side = "inputs" if a[1] != b[1] else "outputs"
+                pos = next(j for j, (x, y) in enumerate(zip(a[1 if side == "inputs" else 2],
+                                                            b[1 if side == "inputs" else 2]))
+                           if x != y)
+                first = f"run {k}: stage call {i} {a[0]} ({side}, tensor {pos}) differs"
+                break
+        first = first or f"run {k}: final arena differs, every hashed stage equal"
+        break
+    if first is not None:
+        raise AssertionError(f"{label}: not reproducible: {first}")
+    return {"equal": True, "runs": n_runs, "steps": n_steps, "stage_calls": len(runs[0][1])}
+
+
+def repro_rung_real(shards, ham):
+    """``rung_real_sharded``'s warm-up on this rank, twice from one seed,
+    against itself (:func:`repro_warmups`)."""
+    from fries_tpu_torch import rung
+
+    def build():
+        step, state, est, _ = rung.build_real_sharded(shards, ham=ham)
+        return step, state, est
+    return repro_warmups(f"rung_real_sharded rank {shards.rank} of {shards.size}", build,
+                         SHARD_WARM)
+
+
+def built_twice(device):
+    """Real N2/cc-pVDZ built twice on ``device``: (the first build, whether
+    the two builds' integrals are equal bit for bit)."""
+    from fries_tpu_torch import real_systems
+
+    ham = real_systems.n2_ccpvdz(device)
+    again = real_systems.n2_ccpvdz(device)
+    return ham, tensor_digests([ham.hcore, ham.eris]) == tensor_digests([again.hcore, again.eris])
 
 
 def probe_collectives(shards):
@@ -3562,7 +3848,11 @@ def shard_world(shards, stream_path):
 
     _build.load()
     out = {"exchange": exchange_check(shards, stream_path)}
-    out["rung_real"] = sharded_rung_real(shards)
+    ham, same = built_twice(shards.device)
+    if not same:
+        raise AssertionError(f"rank {shards.rank}: two builds of N2/cc-pVDZ differ")
+    out["repro"] = repro_rung_real(shards, ham)
+    out["rung_real"] = sharded_rung_real(shards, ham=ham)
     out["subsp"] = sharded_subsp(shards)
     out["equivalence"] = equivalence_runs(shards, shards.device)
     return out
@@ -3617,6 +3907,9 @@ def phase_sharding(dev, hams, stream):
         log(f"sharding probe: 1-rank NCCL world: {json.dumps(nccl)}")
         if any(nccl.values()):
             raise AssertionError(f"1-rank NCCL world: {nccl}")
+        res["repro_nccl1"] = repro_rung_real(shards, hams["n2_ccpvdz"])
+        log(f"rung_real_sharded, 1-rank NCCL, two warm-ups from one seed: "
+            f"{json.dumps(res['repro_nccl1'])}")
         res["rung_real_nccl1"] = sharded_rung_real(shards, ham=hams["n2_ccpvdz"])
         log(f"rung_real_sharded, 1-rank NCCL: {json.dumps(res['rung_real_nccl1'])}")
         res["subsp_nccl1"] = sharded_subsp(shards, ham=hams["ne_ccpvqz"])
@@ -3634,6 +3927,9 @@ def phase_sharding(dev, hams, stream):
     res["exchange"] = [w["exchange"] for w in world]
     log(f"exchange, 2 ranks on one card over rung_real's real stream "
         f"({int(words.shape[0])} rows): {json.dumps(res['exchange'])}")
+    res["repro_2rank"] = [w["repro"] for w in world]
+    log(f"rung_real_sharded, 2 ranks on one card, two warm-ups from one seed: "
+        f"{json.dumps(res['repro_2rank'])}")
     res["rung_real_2rank"] = [w["rung_real"] for w in world]
     if not res["rung_real_2rank"][1]["min_grid_offset"] > 0:
         raise AssertionError("rung_real_sharded: rank 1 emitted with no shard offset")
@@ -3832,9 +4128,56 @@ def phase_timings(dev, n_elements, chunk_case, fciqmc_case, hh_cases, path_plans
     return res
 
 
+def sharding_main(dev, n_runs):
+    """``--sharding N``: phase 17d alone, ``N`` times (its inputs built
+    once: N2/cc-pVDZ, Ne/cc-pVQZ and rung_real's real spawn stream); each
+    run's outcome on a line, and the count of runs that passed.  Exits 1
+    unless every run passed."""
+    import torch
+    from fries_tpu_torch import real_systems, rung
+
+    hams = {"n2_ccpvdz": real_systems.n2_ccpvdz(dev), "ne_ccpvqz": rung.ne_qz_system(dev)}
+    _, case, _ = phase_rung_real(dev, hams["n2_ccpvdz"])
+    stream = case[1:4]
+    del case
+    torch.cuda.empty_cache()
+    passed = 0
+    for i in range(n_runs):
+        t0 = time.perf_counter()
+        try:
+            r = phase_sharding(dev, hams, stream)
+        except Exception as e:   # a failed run is counted; the next one runs
+            out = {"run": i, "passed": False, "error": f"{type(e).__name__}: {str(e)[-800:]}"}
+        else:
+            passed += 1
+            out = {"run": i, "passed": True, "repro_equal": [
+                       x["equal"] for x in (r["repro_nccl1"], *r["repro_2rank"])],
+                   "keys_in_one_only": {
+                       name: [x["steps_kernels_vs_plain"]["keys_in_one_only"] for x in runs]
+                       for name, runs in (("rung_real_nccl1", [r["rung_real_nccl1"]]),
+                                          ("rung_real_2rank", r["rung_real_2rank"]),
+                                          ("subsp_nccl1", [r["subsp_nccl1"]]),
+                                          ("subsp_2rank", r["subsp_2rank"]))},
+                   "values_rel_l1_max": max(
+                       max(x["steps_kernels_vs_plain"]["values_rel_l1"])
+                       for x in (r["rung_real_nccl1"], *r["rung_real_2rank"]))}
+        out["seconds"] = time.perf_counter() - t0
+        log(f"phase 17d run {i}: {json.dumps(out)}")
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"phase 17d: {passed} of {n_runs} runs passed")
+    return 0 if passed == n_runs else 1
+
+
 def main():
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser(description="The port on the card, every path and kernel.")
+    ap.add_argument("--sharding", type=int, default=0, metavar="N",
+                    help="only phase 17d, N times")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -3858,6 +4201,8 @@ def main():
     _build.PROBE_LAUNCHES = 0
     _build.load()
     log(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s")
+    if args.sharding:
+        return sharding_main(dev, args.sharding)
     pc = phase_probe_copy(dev)
     m = phase_merge(dev)
     e = phase_emit(dev)
@@ -3906,6 +4251,9 @@ def main():
         dev, hams["n2_ccpvdz"])
     real_res["flagship"], real_cases["flagship"], flag_plans = phase_flagship(dev)
     real_plans.update(flag_plans)
+    real_res["anchor"], real_cases["anchor"], anchor_plans = phase_anchor(dev)
+    real_plans.update(anchor_plans)
+    tools_res = phase_fcidump_tools(dev)
     real_res["frifull_real"], real_cases["frifull_real_chunk"] = phase_frifull_real(
         dev, hams["h2o_ccpvdz"])
     real_res["fciqmc_real"], real_cases["fciqmc_real"] = phase_fciqmc_real(
@@ -3944,7 +4292,8 @@ def main():
                                                 "plain_device_ms", "bound_ms")}
     for name, r in {**fshh_res["emit_checks"], **hhw_res["emit_checks"],
                     **unf_res["emit_checks"], **real_res["rung_real"]["emit_checks"],
-                    **real_res["flagship"]["emit_checks"]}.items():
+                    **real_res["flagship"]["emit_checks"],
+                    **real_res["anchor"]["emit_checks"]}.items():
         shapes[name] = {**timing(f"emit {name}"), "max_abs_err": r["max_abs_err"],
                         "n_out": r["n_out"], "kept": r["kept"]}
     sort_keys = ("device_ops", "sort_ms", "sort_device_ms", "sort_device_ops")
@@ -3985,7 +4334,7 @@ def main():
             "longest_run")}}
     for name, path in (("rung_real", "rung_real"), ("semistoch_cisd", "semistoch_cisd"),
                        ("frifull_real_chunk", "frifull_real"), ("fciqmc_real", "fciqmc_real"),
-                       ("flagship", "flagship")):
+                       ("flagship", "flagship"), ("anchor", "anchor")):
         real = real_res[path]["real_chunk" if name.endswith("chunk") else "real_step"]
         merge_shapes[name] = {
             **timing(f"merge {name}"), **{key: t[f"merge {name}"][key] for key in sort_keys},
@@ -4017,7 +4366,8 @@ def main():
         ("ne_qz unnorm", qz_res["ne_qz unnorm"]), ("ne_qz_subsp", qzs_res),
         ("frisys_hh_wide", hhw_res), ("ne2_qz", ne2_res["ne2_qz"]),
         ("ne2_qz_subsp", ne2_res["ne2_qz_subsp"]),
-        *real_res.items(), *sharded_paths)
+        *real_res.items(), ("frisys_mol on water's FCIDUMP", tools_res["frisys_mol"]),
+        *sharded_paths)
         if kernel in r["launches"]}
     multi_shape = {**timing("merge_multi subspfull_chunk"),
                    **{key: t["merge_multi subspfull_chunk"][key] for key in sort_keys},

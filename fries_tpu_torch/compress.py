@@ -55,6 +55,7 @@ import numpy as np
 import torch
 
 from fries_tpu_torch import parallel
+from fries_tpu_torch.ops import ordered
 from fries_tpu_torch.runtime import emit as emit_mod
 
 F64 = torch.float64
@@ -296,7 +297,7 @@ def sys_comp(vals, keep, n_samp, rn, loc_norm, shards=None):
     inf = torch.tensor(float("inf"), dtype=F64, device=vals.device)
     glob_norm, _, lbound = _norm_over_ranks(loc_norm, 0, shards)
     unit = torch.where(n_samp > 0, glob_norm / n_samp.clamp_min(1), inf)
-    cum = torch.cumsum(absw, 0) - absw
+    cum = ordered.cumsum(absw) - absw
     if shards is not None:
         cum = lbound + cum
     hits = (_grid_count_below(cum + absw, rn, unit)
@@ -502,7 +503,7 @@ def multi_comp(key, vals, keep, n_samp, loc_norm, shards=None):
     inf = torch.tensor(float("inf"), dtype=F64, device=dev)
     glob_norm, _, lbound = _norm_over_ranks(loc_norm, 0, shards)
     unit = torch.where(n_samp > 0, glob_norm / n_samp.clamp_min(1), inf)
-    cum = torch.cumsum(absw, 0)
+    cum = ordered.cumsum(absw)
     u = key.uniform((n,)).to(dev)
     live_draw = torch.arange(n, device=dev) < n_samp
     draws = torch.sort(torch.where(live_draw, u, inf)).values * glob_norm
@@ -549,7 +550,7 @@ def _grid_layout(parent_rem, kept_counts, loc_norm, kept_budget, n_samp, rn,
     n_grid = (n_samp - kept_g).clamp_min(0)
     n_grid = torch.where(glob_norm < 1e-9, 0, n_grid)
     unit = torch.where(n_grid > 0, glob_norm / n_grid.clamp_min(1).to(F64), inf)
-    cum_parent = torch.cumsum(parent_rem, 0) - parent_rem
+    cum_parent = ordered.cumsum(parent_rem) - parent_rem
     if shards is not None:
         cum_parent = lbound + cum_parent
     g_start = _grid_count_below(cum_parent, rn, unit)

@@ -25,8 +25,20 @@
 //      tree, then the carry from earlier tiles (a run's total is
 //      (carry + block prefix) + thread's spawns), not the one-thread
 //      left-to-right walk of earlier versions: values agree with the plain
-//      version within rtol 1e-12.  One extra block counts the arena's valid
-//      rows (a 32-way warp search for the first sentinel key).
+//      version within rtol 1e-12.  The order is fixed by the data, never
+//      by which tiles happen to have finished: a tile's look-back ends
+//      only at a tile that has published its inclusive prefix AND holds a
+//      head (kInclusiveHead).  Such a tile's inclusive sums are its own
+//      aggregate's, bit for bit (a head restarts the run), and every tile
+//      between it and this one is folded from its aggregate in a tree
+//      anchored at this tile, so the carry of a run that crosses tiles
+//      is summed from the aggregates of the tiles since its head, in one
+//      order, whichever tiles were done when the walk passed them (the
+//      inclusive prefix of a tile without a head carries a sum whose order
+//      depended on that tile's own walk, so the walk passes it).  The merge
+//      is bitwise reproducible run to run.  One extra block counts the
+//      arena's valid rows (a 32-way warp search for the first sentinel
+//      key).
 //   2. merge_tiles: merge path over the arena's valid rows [0, n_valid) and
 //      the U unique keys, both read on the device.  A block takes a ticket,
 //      finds its tile's two diagonals with a 32-way warp search, loads both
@@ -83,8 +95,9 @@ enum : int {
   kNOut = 0, kNonini = 1, kNUsed = 2, kReduceTicket = 3, kMergeTicket = 4,
   kNValid = 5, kNUnique = 6, kCtrlHead = 8
 };
-// Look-back states: 0 not ready, 1 aggregate published, 2 inclusive prefix.
-constexpr int64_t kAggregate = 1, kInclusive = 2;
+// Look-back states: 0 not ready, 1 aggregate published, 2 inclusive prefix,
+// 3 inclusive prefix of a reduce tile that holds a head.
+constexpr int64_t kAggregate = 1, kInclusive = 2, kInclusiveHead = 3;
 constexpr int kStatusShift = 56;
 constexpr int64_t kStatusValue = (1ll << kStatusShift) - 1;
 
@@ -371,11 +384,12 @@ __device__ __forceinline__ Part get_record(const double* rec, int nc, int ch) {
 
 // Block-wide look-back over the tiles before t, kThreads at a time: thread
 // k waits for tile hi - (kThreads - 1) + k of the window ending at hi (the
-// oldest at thread 0), the nearest inclusive prefix ends the walk, and
+// oldest at thread 0), the nearest tile in state `stop` ends the walk, and
 // fold(word, tile, use) folds the window with block scans (use: the
-// thread's tile is in it, no older than that prefix).
+// thread's tile is in it, no older than that tile).
 template <class Fold>
-__device__ void look_back(const int64_t* status, int64_t t, int shift, Fold fold) {
+__device__ void look_back(const int64_t* status, int64_t t, int shift, int64_t stop_state,
+                          Fold fold) {
   __shared__ int s_stop;
   for (int64_t hi = t - 1; hi >= 0; hi -= kThreads) {
     const int64_t q = hi - (kThreads - 1) + threadIdx.x;
@@ -385,7 +399,7 @@ __device__ void look_back(const int64_t* status, int64_t t, int shift, Fold fold
     __threadfence();
     if (threadIdx.x == 0) s_stop = -1;
     __syncthreads();
-    if ((word >> shift) == kInclusive) atomicMax(&s_stop, static_cast<int>(threadIdx.x));
+    if ((word >> shift) == stop_state) atomicMax(&s_stop, static_cast<int>(threadIdx.x));
     __syncthreads();
     const int stop = s_stop;
     fold(word, q, q >= 0 && static_cast<int>(threadIdx.x) >= stop);
@@ -475,8 +489,10 @@ __global__ void __launch_bounds__(kThreads) reduce_spawns(MergeArgs a, int64_t n
   __threadfence();
   __syncthreads();
   if (threadIdx.x == 0) store_volatile(flags + t, kAggregate);
-  look_back(flags, t, 0, [&](int64_t flag, int64_t q, bool use) {
-    const double* rec = a.records + (2 * q + (flag == kInclusive)) * rec_len;
+  // the walk ends at the nearest tile with a head and an inclusive prefix;
+  // the tiles after it count by their aggregates (see the note at the top)
+  look_back(flags, t, 0, kInclusiveHead, [&](int64_t flag, int64_t q, bool use) {
+    const double* rec = a.records + (2 * q + (flag == kInclusiveHead)) * rec_len;
     for (int ch = 0; ch < nc; ++ch) {   // the window oldest first, before later windows
       Part tot;
       block_scan(use ? get_record(rec, nc, ch) : Part{}, &tot);
@@ -490,7 +506,7 @@ __global__ void __launch_bounds__(kThreads) reduce_spawns(MergeArgs a, int64_t n
   }
   __threadfence();
   __syncthreads();
-  if (threadIdx.x == 0) store_volatile(flags + t, kInclusive);
+  if (threadIdx.x == 0) store_volatile(flags + t, s_agg[0].n > 0 ? kInclusiveHead : kInclusive);
 
   for (int ch = 0; ch < nc; ++ch) {
     Part tot;
@@ -705,7 +721,7 @@ __global__ void __launch_bounds__(kThreads) merge_tiles(MergeArgs a, int64_t nt_
   // the tile's output offset by look-back
   if (threadIdx.x == 0) store_volatile(status + t, (kAggregate << kStatusShift) | k_tile);
   long long excl = 0;
-  look_back(status, t, kStatusShift, [&](int64_t word, int64_t, bool use) {
+  look_back(status, t, kStatusShift, kInclusive, [&](int64_t word, int64_t, bool use) {
     long long tot;
     block_scan<long long>(use ? word & kStatusValue : 0, &tot);
     excl += tot;

@@ -32,6 +32,7 @@ from fries_tpu_torch.drivers import fciqmc, frisys, power
 from fries_tpu_torch.ops import heat_bath as hb
 from fries_tpu_torch.ops import molecule as mol
 from fries_tpu_torch.ops import near_uniform as nu
+from fries_tpu_torch.ops import ordered
 from fries_tpu_torch.runtime import arena as ar
 
 F64 = torch.float64
@@ -79,7 +80,7 @@ def make_spawner(ham: mol.MolecularHamiltonian, syminfo: mol.SymmInfo, p_doub: f
         unit = absv.sum() / m_samp
         k_rn, k_split, k_spawn = key.split(3)
         rn = k_rn.uniform(()).to(dev)
-        cum = torch.cumsum(absv, 0) - absv
+        cum = ordered.cumsum(absv) - absv
         hits = (compress._grid_count_below(cum + absv, rn, unit)
                 - compress._grid_count_below(cum, rn, unit))
         colsamp_wt = (absv / unit.clamp_min(1e-300)).clamp_max(1.0)

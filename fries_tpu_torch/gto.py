@@ -41,6 +41,7 @@ import torch
 
 from fries_tpu_torch import basis as basis_data
 from fries_tpu_torch.ops import molecule as mol
+from fries_tpu_torch.ops import ordered
 
 F64 = torch.float64
 CUDA = "cuda"
@@ -508,7 +509,7 @@ def _one_electron(shells, centers, charges, device):
         bj = _ao_index(idx, offs, shells, 1, device)
         for m, vals in ((s_ao, sv), (t_ao, tv), (v_ao, vv)):
             blk = torch.zeros((pd.n_pairs,) + vals.shape[1:], dtype=F64, device=device)
-            blk.index_add_(0, pd.seg, w * vals)
+            ordered.index_add(blk, pd.seg, w * vals)
             m[ai[:, :, None], bj[:, None, :]] = blk
     # the lower triangle (i >= j) is the computed one, as in the reference
     sym = lambda m: torch.tril(m) + torch.tril(m, -1).T
@@ -621,10 +622,16 @@ def integrals_cc(symbols, centers, basis_name, spherical=True, device=CUDA, timi
     float64 tensors on ``device``.  ``timings``, a dict, receives the
     seconds of the one-electron part (``one_electron``) and of the ERIs
     (``eri``)."""
-    import time
-
     centers = np.atleast_2d(np.asarray(centers, float))
     shells, charges = build_shells(symbols, centers, basis_name)
+    return shell_integrals(shells, centers, charges, spherical, device, timings)
+
+
+def shell_integrals(shells, centers, charges, spherical=True, device=CUDA, timings=None):
+    """:func:`integrals_cc` over a list of :class:`Shell` on nuclei at
+    ``centers`` with ``charges``."""
+    import time
+
     cart_meta = _shell_aos(shells)
     t0 = time.perf_counter()
     s_ao, t_ao, v_ao = _one_electron(shells, centers, charges, device)

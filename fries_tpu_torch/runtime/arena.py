@@ -22,6 +22,7 @@ from dataclasses import dataclass, replace
 import torch
 
 from fries_tpu_torch import dets
+from fries_tpu_torch.ops import ordered
 
 F64 = torch.float64
 DEDUP_SPARE = 4096   # spare slots that dedup_spawns spreads its dead rows over
@@ -170,9 +171,8 @@ def accumulate(arena: Arena, spawn_keys, spawn_vals, spawn_ini,
     allowed = s_valid & (sini | occupied)
     nonini = (s_valid & ~sini & occupied).sum()
 
-    ukey, inv = torch.unique_consecutive(skey, return_inverse=True)
-    seg_sum = torch.zeros(ukey.shape[0], dtype=F64, device=dev).index_add_(
-        0, inv, torch.where(allowed, sval, 0.0))
+    ukey, inv, counts = torch.unique_consecutive(skey, return_inverse=True, return_counts=True)
+    seg_sum = ordered.segment_sum(torch.where(allowed, sval, 0.0), inv, counts)
     seg_cnt = torch.zeros(ukey.shape[0], dtype=torch.int64, device=dev).index_add_(
         0, inv, allowed.to(torch.int64))
     upos = torch.searchsorted(akey, ukey).clamp_max(c - 1)
@@ -237,10 +237,11 @@ def accumulate_multi(arena: Arena, spawn_keys, spawn_vals, spawn_rows, spawn_ini
     allowed = s_valid & (sini | occupied)
     nonini = (s_valid & ~sini & occupied).sum()
 
-    ukey, inv = torch.unique_consecutive(skey, return_inverse=True)
+    ukey, inv, counts = torch.unique_consecutive(skey, return_inverse=True, return_counts=True)
     n_u = ukey.shape[0]
-    seg_sum = torch.zeros(r * n_u, dtype=F64, device=dev).index_add_(
-        0, srow * n_u + inv, torch.where(allowed, sval, 0.0)).view(r, n_u)
+    by_row = sval.new_zeros((sval.shape[0], r))
+    by_row[torch.arange(sval.shape[0], device=dev), srow] = torch.where(allowed, sval, 0.0)
+    seg_sum = ordered.segment_sum(by_row, inv, counts).T
     seg_cnt = torch.zeros(n_u, dtype=torch.int64, device=dev).index_add_(
         0, inv, allowed.to(torch.int64))
     upos = torch.searchsorted(akey, ukey).clamp_max(c - 1)
@@ -289,6 +290,9 @@ def dedup_spawns(spawn_keys, spawn_vals, spawn_ini, cap: int):
     dest = torch.where(live & (rank[bins] < cap), rank[bins], cap + spare)
     out_keys = torch.full((cap + DEDUP_SPARE,), sent, dtype=torch.int64, device=dev)
     out_keys[dest] = skey
+    # atomics on the card, so the sums' last bits may differ from run to
+    # run: ops.ordered.index_add's fixed-order sum sorts the stream's
+    # indices and doubled this function's device time on the H100 (PERF.md)
     out_vals = torch.zeros(cap + DEDUP_SPARE, dtype=F64, device=dev).index_add_(
         0, dest, torch.where(live, sval, 0.0))
     out_ini = torch.zeros(cap + DEDUP_SPARE, dtype=torch.bool, device=dev)

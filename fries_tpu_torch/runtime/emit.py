@@ -49,6 +49,20 @@ tensors only)."""
 _EMIT_CHUNK_ELEMS = 1 << 26   # bounds the (slots, K) temporaries of the plain path
 
 
+def _row_prefix(rows):
+    """The inclusive prefix of each row, summed left to right as kernel B
+    walks it.  On the card ``torch.cumsum`` along a row sums in a tree of
+    its own; along the leading dimension it runs one thread per column,
+    left to right, so the rows go through it transposed (a single row
+    twice: a scan over every element of a tensor goes to CUB).  On the CPU
+    both run left to right."""
+    n = rows.shape[0]
+    if rows.device.type != "cuda":
+        return torch.cumsum(rows, -1)
+    cols = (rows if n > 1 else torch.cat([rows, rows])).T.contiguous()
+    return torch.cumsum(cols, 0).T[:n]
+
+
 def factored_rows(fa, fb, kill_b0=None):
     """The (M, E*V) stage rows of factors ``fa`` (M, E) and ``fb`` (M, V):
     ``w[:, e*V + v] = fa[:, e] * fb[:, v]``, zero at v = 0 where
@@ -104,7 +118,7 @@ def emit_plain(offsets, kept_counts, g_start, ndiv, uniform, w_sub,
             torch.floor(y / parent_rem[parent].clamp_min(1e-300) * p_ndiv_f)
             .clamp_min(0.0), p_ndiv_f - 1).to(torch.int64)
         live = rem_rows_v > 0
-        row_cum = torch.cumsum(rem_rows_v.to(torch.float32), -1).to(F64)
+        row_cum = _row_prefix(rem_rows_v.to(torch.float32)).to(F64)
         wt_sub = ((row_cum <= y[:, None]) & live).sum(-1)
         wt_sub = torch.minimum(wt_sub, (live.sum(-1) - 1).clamp_min(0))
         nk_rank = torch.cumsum(live, -1) - 1

@@ -228,3 +228,30 @@ def frisys_small_steps(shards, h, cfg, n_steps, seed):
         state, m = step(state, *est)
         out.append((arena_np(state.arena), {k: v.cpu().numpy() for k, v in m.items()}))
     return out
+
+
+def repeat_steps(shards, cfg, n_warm, seed):
+    """Reproducibility on this rank: the anchor-like 8-orbital system's
+    sharded frisys run twice from ``seed`` for ``n_warm`` steps, then one
+    step from the state it reached twice with fixed uniforms.  Returns
+    {"runs": [bytes of each run's arena], "steps": [bytes of each step's
+    arena and metrics]}."""
+    from fries_tpu_torch import rung, synth
+
+    def raw(state, m=None):
+        parts = [state.arena.keys, state.arena.vals, state.arena.n_used]
+        parts += [] if m is None else [torch.as_tensor(v) for _, v in sorted(m.items())]
+        return b"".join(p.contiguous().numpy().tobytes() for p in parts)
+
+    ham = synth.make_system(8, 4, seed=3, scale_two=0.1)
+    runs, state = [], None
+    for _ in range(2):
+        step, _, state, aux = frisys.build_sharded(ham, frisys.FrisysConfig(**cfg), seed,
+                                                   shards)
+        est = rung.estimator_args(aux)
+        for _ in range(n_warm):
+            state, _ = step(state, *est)
+        runs.append(raw(state))
+    rns = torch.rand(6, dtype=torch.float64, generator=torch.Generator().manual_seed(seed))
+    steps = [raw(*step(state, *est, rns=rns, rn_vec=0.41)) for _ in range(2)]
+    return {"runs": runs, "steps": steps}
