@@ -171,6 +171,22 @@ Phases, in order; any failure exits non-zero:
    launches per iteration, the last iteration's launches against their
    plain versions); ``derive_ccpvqz``'s E_HF just below -128.543470 Ha and
    its contractions ``basis.py``'s to 5e-7;
+17g. past kernels A and C's bounds: ``python -m fries_tpu_torch.cli``'s
+   subsp_mol, subsp_mol_lowmem and subspfull_mol with 33 trial vectors (HF
+   and the 32 determinants of its irrep nearest to it) on the small
+   system's FCIDUMP (4 iterations, a restart every second), and frisys_hh
+   and frifull_hh on a half-filled 86-site chain at ph_bits 4 (516 bits,
+   17 words; 6 iterations), each on the card and with ``--device cpu``:
+   every stream within rtol 1e-10, atol 1e-12 of the CPU's, at least one
+   merge counted in ``arena.PLAIN_ON_CARD`` on the card, and kernel C
+   (subspace) or kernel A (chain) launched no time there;
+   ``arena.accumulate_best`` with a keep mask at layout (3, 1, 2) on the
+   1e6 rung's shapes (a compaction, then one kernel A launch) against
+   ``merge.accumulate_plain`` on the CPU; and, after 17c's frifull_real,
+   ``frifull_real`` (dedup 2^19) built and stepped 4 times, twice from one
+   seed: every step's metrics and the last arena equal bit for bit.
+   ``arena.PLAIN_ON_CARD`` must be 0 after every phase before this one and
+   after the timings;
 18. the timings: each kernel's wrapper and its plain version on the inputs of
    its check at the main path's shapes (the same seeds), last, since the
    profiler that reads device times slows every later launch of the process.
@@ -247,7 +263,9 @@ four-word merge (``ne_qz_subsp (W=4)``).  ``launches`` sums a kernel's
 launches over the timed steps of every path (``launches_by_path`` breaks
 them down).
 Usage: ``python3 chip_smoke.py``; ``--sharding N`` runs phase 17d alone N
-times (its inputs built once) and counts the runs that pass.
+times (its inputs built once) and counts the runs that pass;
+``--past_bounds`` runs phase 17g alone (with real H2O/cc-pVDZ built for its
+frifull_real).
 """
 
 import contextlib
@@ -2542,6 +2560,199 @@ def phase_cli_resume(dev):
     return res
 
 
+PAST_BOUNDS_SUBSP = ["--point_group", "D2h", "--epsilon", "0.02", "--vec_nonz", "40",
+                     "--mat_nonz", "80", "--max_dets", "512", "--num_trial", "33",
+                     "--restart_int", "2", "--max_iter", "4", "--seed", "3"]
+PAST_BOUNDS_HH = {   # frifull_hh applies H to every capacity row: a small arena
+    "frisys_hh": ["--vec_nonz", "30", "--mat_nonz", "80", "--max_dets", "1024",
+                  "--max_iter", "6"],
+    "frifull_hh": ["--vec_nonz", "4", "--max_dets", "4096", "--max_iter", "3"]}
+HH_CHAIN = 86       # sites of the half-filled chain: 2 x 86 + 4 x 86 = 516 bits, 17 words
+
+
+def trial_33_masks():
+    """The small system's HF and the 32 determinants of its irrep nearest to
+    it (fewest excitations, then the lowest mask): 33 trial vectors, one
+    value row more than kernel C takes."""
+    n_orb = 8
+    hf = 0b11 | (0b11 << n_orb)
+
+    def irrep(m):
+        out = 0
+        for i in range(2 * n_orb):
+            if m >> i & 1:
+                out ^= SMALL_SYMM[i % n_orb]
+        return out
+
+    near = sorted((bin(m ^ hf).count("1"), m) for m in range(1 << (2 * n_orb))
+                  if m != hf and bin(m & 0xFF).count("1") == bin(m >> n_orb).count("1") == 2
+                  and irrep(m) == 0)
+    return [hf] + [m for _, m in near[:32]]
+
+
+def cli_card_against_cpu(label, argv, tmp):
+    """``fries_tpu_torch.cli.main(argv)`` on the card, then with ``--device
+    cpu``: every stream (each ``.txt`` but params.txt) the same shape and
+    within rtol 1e-10, atol 1e-12 of the CPU's; on the card at least one
+    merge taken off the kernels (``arena.PLAIN_ON_CARD``).  Returns the card
+    run's counts and seconds."""
+    import contextlib
+    import io as pyio
+    import os
+
+    import numpy as np
+    import torch
+    from fries_tpu_torch import cli
+    from fries_tpu_torch.runtime import arena as ar, emit, merge, merge_multi
+
+    mods = {"merge": merge, "emit": emit, "merge_multi": merge_multi}
+    dirs = {d: os.path.join(tmp, label.replace(" ", "_"), d) for d in ("cuda", "cpu")}
+    res, last = {}, {}
+
+    def keep_last(name):     # the last plain merge's inputs on the card
+        def wrap(fn):
+            def call(*args, **kw):
+                if args[0].keys.is_cuda:
+                    last[name] = args
+                return fn(*args, **kw)
+            return call
+        return wrap
+
+    for device, path in dirs.items():
+        if device == "cuda":
+            ar.PLAIN_ON_CARD = 0
+            before = {k: mod.LAUNCHES for k, mod in mods.items()}
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(pyio.StringIO()), patched(
+                (ar, "accumulate", keep_last("accumulate_best")),
+                (ar, "accumulate_multi", keep_last("accumulate_multi_best"))):
+            cli.main(argv + ["--device", device, "--result_dir", path])
+        res[f"{device}_s"] = time.perf_counter() - t0
+        if device == "cuda":
+            torch.cuda.synchronize()
+            res["plain_on_card"] = ar.PLAIN_ON_CARD
+            res["launches"] = {k: mod.LAUNCHES - before[k] for k, mod in mods.items()}
+    if not res["plain_on_card"]:
+        raise AssertionError(f"{label}: no merge left the kernels on the card")
+    for name, args in last.items():     # call ms through the dispatcher, on the path's tensors
+        a = args[0]
+        res[f"{name} plain merge"] = {"ms": cuda_ms(lambda: getattr(ar, name)(*args)),
+                                      "capacity": a.capacity, "rows": a.n_vecs,
+                                      "words": a.n_words, "spawns": args[1].shape[0]}
+    names = sorted(n for n in os.listdir(dirs["cpu"]) if n.endswith(".txt") and n != "params.txt")
+    worst = 0.0
+    for n in names:
+        text = [open(os.path.join(dirs[d], n)).read() for d in ("cuda", "cpu")]
+        if not text[1].strip():     # a stream this run is too short to write
+            if text[0].strip():
+                raise AssertionError(f"{label}: {n} written on the card only")
+            continue
+        x, y = (np.loadtxt(pyio.StringIO(t), delimiter=",", ndmin=2) for t in text)
+        if x.shape != y.shape or not np.allclose(x, y, rtol=1e-10, atol=1e-12):
+            raise AssertionError(f"{label}: {n} on the card differs from the CPU's")
+        worst = max(worst, float(np.abs(x - y).max()) if x.size else 0.0)
+    lines = sum(1 for line in open(os.path.join(dirs["cpu"], names[0])) if line.strip())
+    res.update(streams=names, lines=lines, max_abs_err=worst)
+    log(f"{label}: the card equals the CPU ({json.dumps(res)})")
+    return res
+
+
+def phase_past_bounds(dev):
+    """The regimes past kernels A and C's bounds, through the command line on
+    the card against ``--device cpu``: subsp_mol, subsp_mol_lowmem and
+    subspfull_mol with 33 trial vectors on the small system's FCIDUMP;
+    frisys_hh and frifull_hh on a half-filled 86-site chain at ph_bits 4
+    (keys of 17 words); then ``arena.accumulate_best`` with a keep mask at
+    layout (3, 1, 2) on the 1e6 rung's shapes (a compaction, then kernel A)
+    against ``merge.accumulate_plain`` on the CPU.  Every run counts its
+    card routes; on the CLI runs kernels A and C launch no time."""
+    import os
+    import tempfile
+
+    import torch
+    from fries_tpu_torch import dets
+    from fries_tpu_torch import io as tio
+    from fries_tpu_torch.runtime import arena as ar, merge
+
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        fcidump, trial = os.path.join(tmp, "FCIDUMP"), os.path.join(tmp, "trial")
+        tio.write_fcidump(small_system(), fcidump, point_group="D2h")
+        for j, m in enumerate(trial_33_masks()):
+            tio.save_vec_txt(f"{trial}{j:02d}", [[m & dets.WORD_MASK]], [1.0], 16)
+        for cmd in ("subsp_mol", "subsp_mol_lowmem", "subspfull_mol"):
+            r = cli_card_against_cpu(f"{cmd} T=33", [cmd, "--fcidump_path", fcidump,
+                                                     "--trial_vecs", trial] + PAST_BOUNDS_SUBSP,
+                                     tmp)
+            if r["launches"]["merge_multi"]:
+                raise AssertionError(f"{cmd} T=33: kernel C launched at 33 rows")
+            res[f"{cmd} T=33"] = r
+        params = os.path.join(tmp, "chain.txt")
+        with open(params, "w") as f:
+            f.write(f"n_elec\n{HH_CHAIN}\nlat_len\n{HH_CHAIN}\nn_dim\n1\neps\n0.02\nU\n1.5\n"
+                    "omega\n0.7\ng\n0.4\ngs_energy\n0.0\n")
+        for cmd, extra in PAST_BOUNDS_HH.items():
+            r = cli_card_against_cpu(f"{cmd} W=17", [cmd, "--params_path", params, "--ph_bits",
+                                                     "4", "--target", "200", "--seed", "3"] + extra,
+                                     tmp)
+            if r["launches"]["merge"]:
+                raise AssertionError(f"{cmd} W=17: kernel A launched on 17-word keys")
+            res[f"{cmd} W=17"] = r
+    gen = torch.Generator(device=dev).manual_seed(31)
+    a, sk, sv, si, keep = rung_merge_case(gen, dev)
+    a = ar.Arena(keys=a.keys, vals=torch.stack([torch.zeros_like(a.vals[0]), a.vals[0],
+                                                a.vals[0].flip(0)]), n_used=a.n_used)
+    ar.PLAIN_ON_CARD, launches = 0, merge.LAUNCHES
+    got = ar.accumulate_best(a, sk, sv, si, 1, 2, keep_mask=keep)
+    torch.cuda.synchronize()
+    routes, launches = ar.PLAIN_ON_CARD, merge.LAUNCHES - launches
+    if (routes, launches) != (1, 1):
+        raise AssertionError(f"keep mask at (3, 1, 2): {routes} card routes, {launches} "
+                             "kernel A launches, want 1 and 1")
+    cpu = lambda t: t.cpu()
+    ref = merge.accumulate_plain(ar.Arena(cpu(a.keys), cpu(a.vals), cpu(a.n_used)), cpu(sk),
+                                 cpu(sv), cpu(si), 1, 2, cpu(keep))
+    out = compare_merges("keep mask at (3, 1, 2)", (got[0], got[1]),
+                         (ar.Arena(ref[0].keys.to(dev), ref[0].vals.to(dev),
+                                   ref[0].n_used.to(dev)),
+                          {k: v.to(dev) for k, v in ref[1].items()}))
+    res["keep mask (3, 1, 2)"] = {**out, "plain_on_card": routes, "merge_launches": launches}
+    log(f"keep mask at (3, 1, 2), the 1e6 rung's shapes: a compaction then kernel A, equal "
+        f"to the plain merge on the CPU ({json.dumps(res['keep mask (3, 1, 2)'])})")
+    return res
+
+
+def frifull_real_repeats(dev, full, n_steps=4):
+    """``frifull_real`` (dedup 2^19) built and stepped twice from one seed:
+    every step's metrics and the last arena equal bit for bit."""
+    import torch
+    from fries_tpu_torch import rung
+
+    ham = rung.frifull_real_system(dev, full=full)
+    bits = lambda t: t.view(torch.int64) if t.is_floating_point() else t
+    runs = []
+    for _ in range(2):
+        step, state, args, _ = rung.build_frifull_real(dev, ham=ham)
+        metrics = []
+        for _ in range(n_steps):
+            state, m = step(state, *args)
+            metrics.append({k: bits(v.detach().clone().reshape(-1)) for k, v in m.items()})
+        a = state.arena
+        runs.append((metrics, [a.keys.clone(), bits(a.vals.clone()), a.n_used.clone()]))
+        del step, state, args
+    (m1, a1), (m2, a2) = runs
+    for i, (x, y) in enumerate(zip(m1, m2)):
+        for k in x:
+            if not torch.equal(x[k], y[k]):
+                raise AssertionError(f"frifull_real twice from one seed: step {i} metric {k} "
+                                     "differs")
+    if not all(torch.equal(x, y) for x, y in zip(a1, a2)):
+        raise AssertionError("frifull_real twice from one seed: the arenas differ")
+    res = {"steps": n_steps, "n_used": int(a1[2][0]), "equal_bits": True}
+    log(f"frifull_real twice from one seed, dedup 2^19: {json.dumps(res)}")
+    return res
+
+
 def phase_native_reader(ham):
     """The native FCIDUMP and vector-file reader (built with g++ from
     ``fries_tpu_torch/native/fries_io.cpp``; ``native=True`` throughout, so a
@@ -4177,6 +4388,8 @@ def main():
     ap = argparse.ArgumentParser(description="The port on the card, every path and kernel.")
     ap.add_argument("--sharding", type=int, default=0, metavar="N",
                     help="only phase 17d, N times")
+    ap.add_argument("--past_bounds", action="store_true",
+                    help="only phase 17g (the regimes past kernels A and C's bounds)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4203,6 +4416,15 @@ def main():
     log(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s")
     if args.sharding:
         return sharding_main(dev, args.sharding)
+    from fries_tpu_torch import real_systems
+    from fries_tpu_torch.runtime import arena as ar
+
+    if args.past_bounds:
+        past_res = phase_past_bounds(dev)
+        past_res["frifull_real twice"] = frifull_real_repeats(dev, real_systems.h2o_ccpvdz(dev))
+        log(f"past bounds: {json.dumps(past_res)}")
+        return 0
+    ar.PLAIN_ON_CARD = 0
     pc = phase_probe_copy(dev)
     m = phase_merge(dev)
     e = phase_emit(dev)
@@ -4256,10 +4478,17 @@ def main():
     tools_res = phase_fcidump_tools(dev)
     real_res["frifull_real"], real_cases["frifull_real_chunk"] = phase_frifull_real(
         dev, hams["h2o_ccpvdz"])
+    repeats_res = frifull_real_repeats(dev, hams["h2o_ccpvdz"])
     real_res["fciqmc_real"], real_cases["fciqmc_real"] = phase_fciqmc_real(
         dev, hams["n2_stretched"])
     shard_res = phase_sharding(dev, hams, real_cases["rung_real"][1:4])
     del hams
+    if ar.PLAIN_ON_CARD:
+        raise AssertionError(f"{ar.PLAIN_ON_CARD} merges left the kernels on paths inside "
+                             "their bounds")
+    past_res = phase_past_bounds(dev)
+    past_res["frifull_real twice"] = repeats_res
+    ar.PLAIN_ON_CARD = 0
     obs_cases = {f"{name} {layout}": (*captured[layout], layout[1], layout[2])
                  for name, captured, layouts in (
                      ("observables", obs_captured, ((4, 0, 0), (4, 0, 3))),
@@ -4274,6 +4503,8 @@ def main():
     del real_cases, real_plans, qz_case, qzs_case, chunk_case, fciqmc_case, ffhh_case, fshh_case
     del hh_plans, unf_plans, sub_chunk, obs_captured, repl_captured, hhw_case, hhw_plans
     del ne2_subsp_case
+    if ar.PLAIN_ON_CARD:
+        raise AssertionError(f"{ar.PLAIN_ON_CARD} merges left the kernels in the timings")
     obs_cases = list(obs_cases)     # the names; the tensors go before the child processes
     profiles = phase_real_profiles(dev)
     trace_res = phase_trace(dev)
@@ -4367,7 +4598,8 @@ def main():
         ("frisys_hh_wide", hhw_res), ("ne2_qz", ne2_res["ne2_qz"]),
         ("ne2_qz_subsp", ne2_res["ne2_qz_subsp"]),
         *real_res.items(), ("frisys_mol on water's FCIDUMP", tools_res["frisys_mol"]),
-        *sharded_paths)
+        *sharded_paths, *((f"{name} (cli, past the bounds)", r) for name, r in past_res.items()
+                          if "launches" in r))
         if kernel in r["launches"]}
     multi_shape = {**timing("merge_multi subspfull_chunk"),
                    **{key: t["merge_multi subspfull_chunk"][key] for key in sort_keys},
@@ -4444,6 +4676,7 @@ def main():
     log(f"ne2_qz system: {json.dumps(ne2_res['system'])}")
     log(f"frisys_hh_wide: {json.dumps({k: v for k, v in hhw_res.items() if k != 'emit_checks'})}")
     log(f"native reader: {json.dumps(native_res)}")
+    log(f"past bounds: {json.dumps(past_res)}")
     log(f"profiling trace: {json.dumps(trace_res)}")
     log(f"chip_smoke: total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))

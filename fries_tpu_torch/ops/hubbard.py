@@ -259,7 +259,7 @@ def reference_connections(ham: HubbardHolstein, ref_words, e_ref: float, device=
     n = ham.n_sites
     ref = np.asarray(torch.as_tensor(ref_words).cpu()).astype(np.int64).reshape(-1)
     value = sum(int(w) << (32 * i) for i, w in enumerate(ref))
-    occ = lambda b: (value >> b) & 1
+    occ = lambda b: (value >> int(b)) & 1
 
     def words_of(v):
         return [(v >> (32 * i)) & dets.WORD_MASK for i in range(ham.n_words)]

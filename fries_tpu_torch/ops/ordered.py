@@ -22,7 +22,9 @@ order fixed by the shapes alone.  On the CPU they are the plain torch call
   deterministic ``index_add_``);
 * :func:`segment_sum` is that sum where the rows already come sorted by
   target (the plain merges' runs of equal keys): ``segment_reduce`` sums
-  each run in one fixed order, with no sort.
+  each run in one fixed order, with no sort;
+* :func:`run_sums` sums runs of rows one row after another, on every
+  device, so the card gives the CPU's bits; fixed shapes, no host read.
 """
 
 from __future__ import annotations
@@ -69,3 +71,14 @@ def segment_sum(values: torch.Tensor, inv: torch.Tensor, counts: torch.Tensor) -
     if values.device.type != "cuda" or not values.is_floating_point():
         return values.new_zeros((counts.shape[0], *values.shape[1:])).index_add_(0, inv, values)
     return torch.segment_reduce(values, "sum", lengths=counts, axis=0, unsafe=True)
+
+
+def run_sums(values: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """Sums of consecutive runs of the rows of ``values`` (n, k): run j is
+    the next ``lengths[j]`` rows, and the rows past ``lengths.sum()`` are
+    not read, so ``lengths`` may end in zeros and keep a fixed shape.  Each
+    run adds its rows one after another from 0, column by column, on any
+    device (``segment_reduce`` over 2-D rows, one thread per run and column
+    on the card), the order of ``index_add_`` on the CPU.  Returns
+    (len(lengths), k)."""
+    return torch.segment_reduce(values, "sum", lengths=lengths, axis=0, unsafe=True)

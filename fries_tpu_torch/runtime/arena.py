@@ -12,7 +12,11 @@ sorted-merge CUDA kernel; :func:`accumulate_best` dispatches to
 :func:`fries_tpu_torch.runtime.merge.accumulate`, which launches the kernel
 for tensors on the card.  :func:`accumulate_multi` (per-spawn destination
 rows) and :func:`accumulate_multi_best` do the same for the multi-row merge
-kernel (:mod:`fries_tpu_torch.runtime.merge_multi`).
+kernel (:mod:`fries_tpu_torch.runtime.merge_multi`).  On the card both
+dispatchers take the plain merges where the shapes are outside the
+kernels' bounds (:func:`fries_tpu_torch.runtime.merge.kernel_fits`: more
+than 32 value rows, keys past 16 words, a keep mask at another layout),
+as the reference takes XLA outside its Pallas kernels'.
 """
 
 from __future__ import annotations
@@ -25,7 +29,12 @@ from fries_tpu_torch import dets
 from fries_tpu_torch.ops import ordered
 
 F64 = torch.float64
-DEDUP_SPARE = 4096   # spare slots that dedup_spawns spreads its dead rows over
+
+PLAIN_ON_CARD = 0
+"""Merges on the card that :func:`accumulate_best` and
+:func:`accumulate_multi_best` took off the kernels because their shapes are
+outside :func:`fries_tpu_torch.runtime.merge.kernel_fits`: a plain merge,
+or a keep mask's compaction before kernel A."""
 
 
 @dataclass(frozen=True)
@@ -237,11 +246,15 @@ def accumulate_multi(arena: Arena, spawn_keys, spawn_vals, spawn_rows, spawn_ini
     allowed = s_valid & (sini | occupied)
     nonini = (s_valid & ~sini & occupied).sum()
 
-    ukey, inv, counts = torch.unique_consecutive(skey, return_inverse=True, return_counts=True)
+    ukey, inv = torch.unique_consecutive(skey, return_inverse=True)
     n_u = ukey.shape[0]
-    by_row = sval.new_zeros((sval.shape[0], r))
-    by_row[torch.arange(sval.shape[0], device=dev), srow] = torch.where(allowed, sval, 0.0)
-    seg_sum = ordered.segment_sum(by_row, inv, counts).T
+    # each (key, row) run sums its counted spawns in the stream's order
+    key_row, order = torch.sort(inv * r + srow, stable=True)
+    kr, kr_inv, kr_counts = torch.unique_consecutive(key_row, return_inverse=True,
+                                                     return_counts=True)
+    seg_sum = sval.new_zeros((r, n_u))
+    seg_sum[kr % r, kr // r] = ordered.segment_sum(
+        torch.where(allowed, sval, 0.0)[order], kr_inv, kr_counts)
     seg_cnt = torch.zeros(n_u, dtype=torch.int64, device=dev).index_add_(
         0, inv, allowed.to(torch.int64))
     upos = torch.searchsorted(akey, ukey).clamp_max(c - 1)
@@ -262,11 +275,12 @@ def dedup_spawns(spawn_keys, spawn_vals, spawn_ini, cap: int):
     An exact-H stream repeats each target once per connected source.  Live
     rows (valid key, nonzero value) are summed per (key, initiator flag), so
     the merge's per-spawn gate sees the same sums; each segment sums its rows
-    in the stream's order.  Returns (keys (cap, W), vals (cap,), ini (cap,),
-    overflow): rows sorted by (key, flag) and sentinel-padded; ``overflow``
-    says that more than ``cap`` segments were live, and then the first
-    ``cap`` are kept.  Every shape is fixed, so nothing is read on the
-    host."""
+    one after another in the stream's order (:func:`ordered.run_sums`), so
+    the card gives the CPU's bits.  Returns (keys (cap, W), vals (cap,),
+    ini (cap,), overflow): rows sorted by (key, flag) and sentinel-padded;
+    ``overflow`` says that more than ``cap`` segments were live, and then
+    the first ``cap`` are kept.  Every shape is fixed, so nothing is read on
+    the host."""
     s = spawn_keys.shape[0]
     dev = spawn_keys.device
     (key,), sent, decode = dets.order_keys(spawn_keys)
@@ -275,38 +289,43 @@ def dedup_spawns(spawn_keys, spawn_vals, spawn_ini, cap: int):
     sval = spawn_vals[perm].to(F64)
     sini = spawn_ini[perm]
     live = skey != sent
-    # bin 2 * (index of the key among the sorted unique keys) + flag; the
-    # dead rows go to spare slots of their own, spread so that their writes
-    # and adds do not all meet at one address
-    new_key = torch.ones(s, dtype=torch.int64, device=dev)
-    new_key[1:] = (skey[1:] != skey[:-1]).to(torch.int64)
-    spare = torch.arange(s, device=dev) % DEDUP_SPARE
-    bins = torch.where(live, 2 * (torch.cumsum(new_key, 0) - 1) + sini.to(torch.int64),
-                       2 * s + spare)
-    has = torch.zeros(2 * s + DEDUP_SPARE, dtype=torch.bool, device=dev)
-    has.index_fill_(0, bins, True)   # has[bins] = True would copy the scalar from the host
-    has[2 * s:] = False
-    rank = torch.cumsum(has, 0) - 1
-    dest = torch.where(live & (rank[bins] < cap), rank[bins], cap + spare)
-    out_keys = torch.full((cap + DEDUP_SPARE,), sent, dtype=torch.int64, device=dev)
-    out_keys[dest] = skey
-    # atomics on the card, so the sums' last bits may differ from run to
-    # run: ops.ordered.index_add's fixed-order sum sorts the stream's
-    # indices and doubled this function's device time on the H100 (PERF.md)
-    out_vals = torch.zeros(cap + DEDUP_SPARE, dtype=F64, device=dev).index_add_(
-        0, dest, torch.where(live, sval, 0.0))
-    out_ini = torch.zeros(cap + DEDUP_SPARE, dtype=torch.bool, device=dev)
-    out_ini[dest] = sini
-    return (decode(out_keys[:cap]), out_vals[:cap], out_ini[:cap],
-            has.sum() > cap)
+    # the live rows lead; run j is the j-th distinct live key, and bin
+    # 2 j + flag its segment.  A dead row counts at its own index, past
+    # every run, so no index gathers the dead rows
+    first = live.clone()
+    first[1:] &= skey[1:] != skey[:-1]
+    idx = torch.where(live, torch.cumsum(first, 0) - 1, torch.arange(s, device=dev))
+    by_flag = torch.stack([live & ~sini, live & sini], dim=1)
+    counts = torch.zeros((s, 2), dtype=torch.int64, device=dev).index_add_(
+        0, idx, by_flag.to(torch.int64))
+    lengths = counts.sum(1)
+    sums = ordered.run_sums(torch.where(by_flag, sval[:, None], 0.0), lengths).view(-1)
+    # output row k takes the k-th segment
+    has = (counts > 0).view(-1)
+    n_seg = has.sum()
+    seg = torch.searchsorted(torch.cumsum(has, 0), torch.arange(1, cap + 1, device=dev))
+    seg = seg.clamp_max(2 * s - 1)
+    ok = torch.arange(cap, device=dev) < n_seg
+    start = (torch.cumsum(lengths, 0) - lengths).clamp_max(s - 1)
+    out_keys = torch.where(ok, skey[start[seg // 2]], sent)
+    return (decode(out_keys), torch.where(ok, sums[seg], 0.0), ok & (seg % 2 == 1),
+            n_seg > cap)
 
 
 def accumulate_multi_best(arena: Arena, spawn_keys, spawn_vals, spawn_rows,
                           spawn_ini):
-    """:func:`accumulate_multi` through the multi-row merge kernel on the
-    card (:func:`fries_tpu_torch.runtime.merge_multi.accumulate`)."""
-    from fries_tpu_torch.runtime import merge_multi
+    """:func:`accumulate_multi`, through the multi-row merge kernel on the
+    card (:func:`fries_tpu_torch.runtime.merge_multi.accumulate`) where its
+    shapes fit it (:func:`fries_tpu_torch.runtime.merge.kernel_fits`); the
+    plain merge on the card outside its bounds, counted in
+    :data:`PLAIN_ON_CARD`."""
+    global PLAIN_ON_CARD
+    from fries_tpu_torch.runtime import merge, merge_multi
 
+    if arena.keys.is_cuda and not merge.kernel_fits(arena.n_vecs, arena.n_words,
+                                                    arena.capacity, spawn_keys.shape[0]):
+        PLAIN_ON_CARD += 1
+        return accumulate_multi(arena, spawn_keys, spawn_vals, spawn_rows, spawn_ini)
     return merge_multi.accumulate(arena, spawn_keys, spawn_vals, spawn_rows, spawn_ini)
 
 
@@ -314,8 +333,25 @@ def accumulate_best(arena: Arena, spawn_keys, spawn_vals, spawn_ini,
                     origin_row: int = 0, dest_row: int = 0, keep_mask=None):
     """:func:`accumulate` with optional fused compaction (``keep_mask``:
     arena rows with zero origin value, a False mask bit and no allowed spawn
-    are dropped), through the sorted-merge kernel on the card."""
+    are dropped), through the sorted-merge kernel on the card where its
+    shapes fit it (:func:`fries_tpu_torch.runtime.merge.kernel_fits`).
+    Outside its bounds on the card, as the reference outside its Pallas
+    kernel's: a keep mask at another layout is a :func:`compact` first,
+    then the merge without a mask (the kernel where the rest fits); too
+    many rows or words take :func:`accumulate`.  Either route counts one in
+    :data:`PLAIN_ON_CARD`."""
+    global PLAIN_ON_CARD
     from fries_tpu_torch.runtime import merge
 
+    s = spawn_keys.shape[0]
+    layout = None if keep_mask is None else (arena.n_vecs, origin_row, dest_row)
+    if arena.keys.is_cuda and not merge.kernel_fits(arena.n_vecs, arena.n_words,
+                                                    arena.capacity, s, layout):
+        PLAIN_ON_CARD += 1
+        if keep_mask is not None:
+            arena = compact(arena, (arena.vals[origin_row] != 0) | keep_mask)
+            keep_mask = None
+        if not merge.kernel_fits(arena.n_vecs, arena.n_words, arena.capacity, s):
+            return accumulate(arena, spawn_keys, spawn_vals, spawn_ini, origin_row, dest_row)
     return merge.accumulate(arena, spawn_keys, spawn_vals, spawn_ini,
                             origin_row, dest_row, keep_mask=keep_mask)

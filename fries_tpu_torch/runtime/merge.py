@@ -27,12 +27,15 @@ required: every valid row survives, the dest row passes through whatever it
 holds and the sums add to it, as the chunked exact-H step needs, whose dest
 row carries the earlier chunks' sums; rows an earlier chunk inserted have
 origin value 0, so a non-initiator spawn onto them does not count.  Layouts
-(n_vecs, origin, dest): without a keep mask any 1 <= n_vecs <=
-:data:`fries_tpu_torch.runtime.merge_multi.MAX_ROWS` with 0 <= origin, dest <
-n_vecs, origin == dest included (the observables' four-row arena merges at
-(4, s, s) and (4, s, 3)); the rows other than dest pass through.  With a
-keep mask only (1, 0, 0) and (2, 0, 1), the layouts the fused-compaction
-condition above is shown for.
+(n_vecs, origin, dest): without a keep mask any 1 <= n_vecs <= :data:`MAX_ROWS`
+with 0 <= origin, dest < n_vecs, origin == dest included (the observables'
+four-row arena merges at (4, s, s) and (4, s, 3)); the rows other than dest
+pass through.  With a keep mask only :data:`KEEP_LAYOUTS`, (1, 0, 0) and
+(2, 0, 1), the layouts the fused-compaction condition above is shown for.
+:func:`kernel_fits` states these bounds from shapes alone; outside them the
+dispatcher :func:`fries_tpu_torch.runtime.arena.accumulate_best` takes the
+plain merge on the card, as the reference takes XLA outside its Pallas
+kernel's.
 
 On the card the spawn keys are packed and sorted with ``torch.sort``
 (:func:`sort_spawns`: one sort of the int64 key for W <= 2, one stable
@@ -59,9 +62,23 @@ TILE = 1024        # kTile in csrc/merge_common.cuh
 CTRL_HEAD = 8      # kCtrlHead: {n_out, nonini_occ_add, n_used, ...}
 MAX_WORDS = 16     # kMaxWords: keys of W <= 2 words are one int64, of W = 3, 4
                    # 128 bits, of W = 5..16 L = ceil(W / 2) 64-bit limbs (256 orbitals)
+MAX_ROWS = 32      # kMaxChannels: value rows of kernel A, value rows of kernel C
+KEEP_LAYOUTS = ((1, 0, 0), (2, 0, 1))   # (n_vecs, origin, dest) of kernel A's keep mask
 
 LAUNCHES = 0
 """Kernel launches made by :func:`accumulate` (CUDA tensors only)."""
+
+
+def kernel_fits(n_vecs: int, n_words: int, capacity: int, n_spawns: int,
+                keep_layout=None) -> bool:
+    """Whether a card merge of these shapes is one that kernel A or C
+    takes: 1 <= n_vecs <= :data:`MAX_ROWS`, 1 <= n_words <=
+    :data:`MAX_WORDS`, C + S < 2^31 and, for kernel A with a keep mask,
+    ``keep_layout`` (n_vecs, origin, dest) in :data:`KEEP_LAYOUTS`.  From
+    shapes alone, so it runs anywhere and reads nothing on the card."""
+    return (1 <= n_vecs <= MAX_ROWS and 1 <= n_words <= MAX_WORDS
+            and capacity + n_spawns < 2**31
+            and (keep_layout is None or keep_layout in KEEP_LAYOUTS))
 
 
 def accumulate(arena, spawn_keys, spawn_vals, spawn_ini, origin_row: int = 0,
@@ -163,11 +180,9 @@ def launch(kernel, entry, arena, spawn_keys, spawn_vals, spawn_ini, n_chan,
 def _accumulate_cuda(arena, spawn_keys, spawn_vals, spawn_ini, origin_row,
                      dest_row, keep_mask):
     global LAUNCHES
-    from fries_tpu_torch.runtime.merge_multi import MAX_ROWS
-
     n_vecs = arena.n_vecs
     layout = (n_vecs, origin_row, dest_row)
-    if keep_mask is not None and layout not in ((1, 0, 0), (2, 0, 1)):
+    if keep_mask is not None and layout not in KEEP_LAYOUTS:
         raise NotImplementedError(
             f"merge kernel with a keep mask takes (n_vecs, origin, dest) in "
             f"(1,0,0)|(2,0,1), got {layout}")

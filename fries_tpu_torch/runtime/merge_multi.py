@@ -12,7 +12,10 @@ through (no fused compaction: the subspace compacts before it spawns).
 The Pallas kernel's bound of 14 rows comes from its int32 flag word; kernel C
 runs kernel A's design (``csrc/merge_common.cuh``) with one channel per
 value row and takes up to :data:`MAX_ROWS`.  The spawn sort runs before it
-with ``torch.sort`` (:func:`merge.sort_spawns`).
+with ``torch.sort`` (:func:`merge.sort_spawns`).  Outside
+:func:`merge.kernel_fits`' bounds the dispatcher
+:func:`fries_tpu_torch.runtime.arena.accumulate_multi_best` takes the plain
+merge on the card.
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ from fries_tpu_torch.runtime import arena as arena_mod
 from fries_tpu_torch.runtime import merge
 
 F64 = torch.float64
-MAX_ROWS = 32      # kMaxChannels in csrc/merge_common.cuh
+MAX_ROWS = merge.MAX_ROWS
 
 LAUNCHES = 0
 """Kernel launches made by :func:`accumulate` (CUDA tensors only)."""
