@@ -178,15 +178,15 @@ Phases, in order; any failure exits non-zero:
    and frifull_hh on a half-filled 86-site chain at ph_bits 4 (516 bits,
    17 words; 6 iterations), each on the card and with ``--device cpu``:
    every stream within rtol 1e-10, atol 1e-12 of the CPU's, at least one
-   merge counted in ``arena.PLAIN_ON_CARD`` on the card, and kernel C
-   (subspace) or kernel A (chain) launched no time there;
+   merge counted in ``merge.plain_on_card`` (``profiling``) on the card, and
+   kernel C (subspace) or kernel A (chain) launched no time there;
    ``arena.accumulate_best`` with a keep mask at layout (3, 1, 2) on the
    1e6 rung's shapes (a compaction, then one kernel A launch) against
    ``merge.accumulate_plain`` on the CPU; and, after 17c's frifull_real,
    ``frifull_real`` (dedup 2^19) built and stepped 4 times, twice from one
    seed: every step's metrics and the last arena equal bit for bit.
-   ``arena.PLAIN_ON_CARD`` must be 0 after every phase before this one and
-   after the timings;
+   ``merge.plain_on_card`` (``profiling``) must be 0 after every phase
+   before this one and after the timings;
 18. the timings: each kernel's wrapper and its plain version on the inputs of
    its check at the main path's shapes (the same seeds), last, since the
    profiler that reads device times slows every later launch of the process.
@@ -285,6 +285,33 @@ def log(*args):
     print(*args, flush=True)
 
 
+def counter(name: str) -> int:
+    """The running total of a counter of :mod:`fries_tpu_torch.profiling`."""
+    from fries_tpu_torch import profiling
+
+    return profiling.total(name)
+
+
+def reset_counters(*names: str):
+    from fries_tpu_torch import profiling
+
+    profiling.reset(*names)
+
+
+def _launch_counter(mod) -> str:
+    """The counter of a kernel wrapper module's launches (``merge``,
+    ``emit``, ``merge_multi``, ``probe_reshape``)."""
+    return "launch." + mod.__name__.rsplit(".", 1)[-1]
+
+
+def kernel_launches(mod) -> int:
+    return counter(_launch_counter(mod))
+
+
+def reset_launches(*mods):
+    reset_counters(*map(_launch_counter, mods))
+
+
 def cuda_ms(fn, reps=5):
     """Median milliseconds of ``fn()`` between two CUDA events over ``reps``
     runs after one warm-up (the host's work in the call included)."""
@@ -374,7 +401,7 @@ def phase_probe_copy(dev):
     import torch
     from fries_tpu_torch import _build
 
-    out = {"launches": _build.PROBE_LAUNCHES}
+    out = {"launches": counter("launch.probe_copy")}
     if out["launches"] < 1:
         raise AssertionError("the loader did not launch the probe copy")
     x = probe_copy_tile(dev)
@@ -984,10 +1011,10 @@ def phase_probe(dev):
     if not torch.equal(got, ref):
         raise AssertionError("probe_reshape: kernel and plain version differ")
     out = {"max_abs_err": float((got.long() - ref.long()).abs().max())}
-    probe_mod.LAUNCHES = 0
+    reset_launches(probe_mod)
     if probe_mod.main([]) != 0:
         raise AssertionError("probe_reshape: the probe's column is wrong")
-    out["launches"] = probe_mod.LAUNCHES
+    out["launches"] = kernel_launches(probe_mod)
     if out["launches"] < 1:
         raise AssertionError("probe_reshape: the entry point did not launch the kernel")
     log(f"probe_reshape: agrees ({json.dumps(out)})")
@@ -1028,7 +1055,7 @@ def small_steps_match(label, dev, build, n_warm, n_steps, kernel_counts, protect
     kw = lambda aux: {"protected_keys": aux["protected_keys"]} if protected else {}
     state, _ = run_c(state, *args(aux_c), n_warm, **kw(aux_c))
     rng = np.random.default_rng(0)
-    before = {mod: mod.LAUNCHES for mod in kernel_counts}
+    before = {mod: kernel_launches(mod) for mod in kernel_counts}
     for it in range(n_steps):
         rns, rn = rng.random(6), float(rng.random())
         a = state.arena
@@ -1049,9 +1076,10 @@ def small_steps_match(label, dev, build, n_warm, n_steps, kernel_counts, protect
         if bool(mc["overflow"]):
             raise AssertionError(f"{label} step {it}: overflow")
     for mod, per_step in kernel_counts.items():
-        if mod.LAUNCHES - before[mod] != per_step * n_steps:
+        if kernel_launches(mod) - before[mod] != per_step * n_steps:
             raise AssertionError(f"{label}: {mod.__name__} counted "
-                                 f"{mod.LAUNCHES - before[mod]} launches in {n_steps} steps")
+                                 f"{kernel_launches(mod) - before[mod]} launches in "
+                                 f"{n_steps} steps")
     log(f"{label}: {n_steps} steps on the card match the CPU plain path "
         f"(n_dets {int(mc['n_dets'])}, shift {float(mc['shift']):.4f})")
 
@@ -1137,8 +1165,8 @@ def phase_main_path(dev):
             raise AssertionError("main path: overflow during warm-up")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    merge.LAUNCHES = 0
-    emit.LAUNCHES = 0
+    reset_launches(merge)
+    reset_launches(emit)
     t0 = time.perf_counter()
     metrics = []
     for _ in range(N_TIMED):
@@ -1146,7 +1174,7 @@ def phase_main_path(dev):
         metrics.append(m)
     torch.cuda.synchronize()
     s_per_step = (time.perf_counter() - t0) / N_TIMED
-    launches = {"merge": merge.LAUNCHES, "emit": emit.LAUNCHES}
+    launches = {"merge": kernel_launches(merge), "emit": kernel_launches(emit)}
     for i, m in enumerate(metrics):
         if bool(m["overflow"]):
             raise AssertionError(f"main path: overflow at timed step {i}")
@@ -1191,7 +1219,7 @@ def subspace_steps_match(label, dev, cfg, n_warm=4, n_steps=4, system=None):
     step_c, run_c, state, _ = subspace.build(ham, cfg, tk, tv, seed=4)
     step_g, _, _, _ = subspace.build(system(dev), cfg, tk, tv, seed=4)
     state, _ = run_c(state, n_warm)
-    c0, merges = merge_multi.LAUNCHES, 0
+    c0, merges = kernel_launches(merge_multi), 0
     for it in range(n_steps):
         a = state.arena
         g_state = subspace.SubspaceState(
@@ -1214,8 +1242,8 @@ def subspace_steps_match(label, dev, cfg, n_warm=4, n_steps=4, system=None):
         if bool(mc["overflow"]):
             raise AssertionError(f"{label} step {it}: overflow")
         merges += int(mc.get("n_merges", 1))
-    if merge_multi.LAUNCHES - c0 != merges:
-        raise AssertionError(f"{label}: {merge_multi.LAUNCHES - c0} kernel C launches, "
+    if kernel_launches(merge_multi) - c0 != merges:
+        raise AssertionError(f"{label}: {kernel_launches(merge_multi) - c0} kernel C launches, "
                              f"{merges} merges in {n_steps} iterations")
     log(f"{label}: {n_steps} steps on the card match the CPU plain path (n_dets "
         f"{int(mc['n_dets'][0])}), {merges} kernel C launches")
@@ -1322,9 +1350,9 @@ def frisys_real_run(name, dev, built, cfg, n_timed, system, words):
     step, state, args, aux = built
     state, _, _ = timed_block(step, state, args, N_WARM, f"{name} warm-up")
     torch.cuda.reset_peak_memory_stats()
-    merge.LAUNCHES = emit.LAUNCHES = 0
+    reset_launches(merge, emit)
     state, metrics, s_per_step = timed_block(step, state, args, n_timed, name)
-    launches = {"merge": merge.LAUNCHES, "emit": emit.LAUNCHES}
+    launches = {"merge": kernel_launches(merge), "emit": kernel_launches(emit)}
     if launches != {"merge": n_timed, "emit": 3 * n_timed}:
         raise AssertionError(f"{name}: launches {launches} in {n_timed} steps, not 1 "
                              "kernel A and 3 kernel B per step")
@@ -1552,8 +1580,8 @@ def phase_semistoch(dev):
         check_power_metrics("semistoch warm-up", [m])
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    merge.LAUNCHES = 0
-    emit.LAUNCHES = 0
+    reset_launches(merge)
+    reset_launches(emit)
     t0 = time.perf_counter()
     metrics = []
     for _ in range(N_TIMED):
@@ -1561,7 +1589,7 @@ def phase_semistoch(dev):
         metrics.append(m)
     torch.cuda.synchronize()
     s_per_step = (time.perf_counter() - t0) / N_TIMED
-    launches = {"merge": merge.LAUNCHES, "emit": emit.LAUNCHES}
+    launches = {"merge": kernel_launches(merge), "emit": kernel_launches(emit)}
     check_power_metrics("semistoch", metrics)
     if launches != {"merge": N_TIMED, "emit": 3 * N_TIMED}:
         raise AssertionError(f"semistoch did not run through the kernels: {launches}")
@@ -1613,9 +1641,9 @@ def phase_frifull(dev):
         log("frifull warm-up: n_dets / nnonz per step "
             + ", ".join(f"{int(m['n_dets'])} / {int(m['nnonz'])}" for m in ms))
     torch.cuda.reset_peak_memory_stats()
-    merge.LAUNCHES = 0
+    reset_launches(merge)
     state, metrics, s_per_step = timed_block(step, state, args, 3, "frifull")
-    launches = merge.LAUNCHES
+    launches = kernel_launches(merge)
     if launches != 3 * n_chunks:
         raise AssertionError(f"frifull: {launches} kernel A launches in 3 steps, "
                              f"expected {3 * n_chunks}")
@@ -1657,16 +1685,17 @@ def phase_frifull(dev):
     step_d, _, _, _ = rung.build_frifull(dev, dedup_cap)
     state_d, _, _ = timed_block(step_d, state, args, 1, "frifull dedup warm-up")
     torch.cuda.reset_peak_memory_stats()
-    merge.LAUNCHES = 0
+    reset_launches(merge)
     state_d, metrics_d, s_dedup = timed_block(step_d, state_d, args, 2, "frifull dedup")
     res["dedup"] = {"dedup_cap": dedup_cap, "ms_per_step": 1e3 * s_dedup,
-                    "merge_launches_per_step": merge.LAUNCHES // 2,
+                    "merge_launches_per_step": kernel_launches(merge) // 2,
                     "peak_mem_bytes": torch.cuda.max_memory_allocated(),
                     "n_dets": int(metrics_d[-1]["n_dets"])}
-    if merge.LAUNCHES != 2 * n_chunks:
-        raise AssertionError(f"frifull dedup: {merge.LAUNCHES} kernel A launches in 2 steps")
+    if kernel_launches(merge) != 2 * n_chunks:
+        raise AssertionError(f"frifull dedup: {kernel_launches(merge)} kernel A launches "
+                             "in 2 steps")
     log(f"frifull dedup: {json.dumps(res['dedup'])}")
-    res["launches"] = {"merge": launches + merge.LAUNCHES}
+    res["launches"] = {"merge": launches + kernel_launches(merge)}
     return res, (mid, *streams[1])
 
 
@@ -1690,7 +1719,7 @@ def fciqmc_steps_match(label, dev, cfg, n_warm, n_steps):
                                        cfg, seed=4, init_walkers=300)
     args_c, args_g = rung.estimator_args(aux_c), rung.estimator_args(aux_g)
     state, _ = run_c(state, *args_c, n_warm)
-    c0 = merge.LAUNCHES
+    c0 = kernel_launches(merge)
     for it in range(n_steps):
         a = state.arena
         g_state = fciqmc.FciqmcState(
@@ -1714,8 +1743,8 @@ def fciqmc_steps_match(label, dev, cfg, n_warm, n_steps):
                 raise AssertionError(f"{label} step {it}: metric {k} {x} != {y}")
         if bool(mc["overflow"]):
             raise AssertionError(f"{label} step {it}: overflow")
-    if merge.LAUNCHES - c0 != n_steps:
-        raise AssertionError(f"{label}: {merge.LAUNCHES - c0} kernel A launches in "
+    if kernel_launches(merge) - c0 != n_steps:
+        raise AssertionError(f"{label}: {kernel_launches(merge) - c0} kernel A launches in "
                              f"{n_steps} steps")
     log(f"{label}: {n_steps} steps on the card equal the CPU's (n_dets "
         f"{int(mc['n_dets'])}, norm {float(mc['norm'])}), 1 kernel A launch per step")
@@ -1761,7 +1790,7 @@ def phase_small_frimulti(dev):
         step_g, _, _, aux_g = frimulti.build(
             synth.make_system(8, 4, symm=symm, seed=3, device=dev), cfg, seed=4, init_val=30.0)
         state, _ = run_c(state, *args(aux_c), 10)
-        c0 = merge.LAUNCHES
+        c0 = kernel_launches(merge)
         for it in range(4):
             a = state.arena
             g_state = power.PowerState(
@@ -1778,8 +1807,9 @@ def phase_small_frimulti(dev):
             for k in mc:
                 if not np.isclose(float(mg[k]), float(mc[k]), rtol=1e-10, atol=1e-12):
                     raise AssertionError(f"{label} step {it}: metric {k} differs")
-        if merge.LAUNCHES - c0 != 4:
-            raise AssertionError(f"{label}: {merge.LAUNCHES - c0} kernel A launches in 4 steps")
+        if kernel_launches(merge) - c0 != 4:
+            raise AssertionError(f"{label}: {kernel_launches(merge) - c0} kernel A launches "
+                                 "in 4 steps")
         log(f"{label}: 4 steps on the card match the CPU plain path (n_dets "
             f"{int(mc['n_dets'])}), 1 kernel A launch per step")
 
@@ -1832,7 +1862,7 @@ def phase_fciqmc(dev):
             + ", ".join(f"{float(m['norm']):.0f} / {int(m['n_dets'])}" for m in ms))
     warm_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
-    merge.LAUNCHES = 0
+    reset_launches(merge)
     t0 = time.perf_counter()
     metrics = []
     for _ in range(N_TIMED):
@@ -1840,7 +1870,7 @@ def phase_fciqmc(dev):
         metrics.append(m)
     torch.cuda.synchronize()
     s_per_step = (time.perf_counter() - t0) / N_TIMED
-    launches = merge.LAUNCHES
+    launches = kernel_launches(merge)
     check_power_metrics("fciqmc", metrics)
     if launches != N_TIMED:
         raise AssertionError(f"fciqmc: {launches} kernel A launches in {N_TIMED} steps")
@@ -1886,7 +1916,7 @@ def phase_frimulti(dev):
         check_power_metrics(f"frimulti warm-up step {i}", [m])
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    merge.LAUNCHES = 0
+    reset_launches(merge)
     t0 = time.perf_counter()
     metrics = []
     for _ in range(3):
@@ -1894,7 +1924,7 @@ def phase_frimulti(dev):
         metrics.append(m)
     torch.cuda.synchronize()
     s_per_step = (time.perf_counter() - t0) / 3
-    launches = merge.LAUNCHES
+    launches = kernel_launches(merge)
     check_power_metrics("frimulti", metrics)
     if launches != 3:
         raise AssertionError(f"frimulti: {launches} kernel A launches in 3 steps")
@@ -1988,9 +2018,9 @@ def phase_frifull_hh(dev):
         f"{ham.n_bits} bits, capacity {cfg.capacity}, {n_cand} candidates per step)")
     state, warm, _ = timed_block(step, state, args, 30, "frifull_hh warm-up")
     torch.cuda.reset_peak_memory_stats()
-    merge.LAUNCHES = 0
+    reset_launches(merge)
     state, metrics, s_per_step = timed_block(step, state, args, 10, "frifull_hh")
-    launches = merge.LAUNCHES
+    launches = kernel_launches(merge)
     if launches != 10:
         raise AssertionError(f"frifull_hh: {launches} kernel A launches in 10 steps")
     last = metrics[-1]
@@ -2069,10 +2099,10 @@ def frisys_hh_run(dev, name, ham, build, plan_prefix):
         warm.append([int(ms[0]["n_dets"]), nnonz])
     log(f"{name} warm-up: {n_warm} steps, n_dets / nnonz per step {warm}")
     torch.cuda.reset_peak_memory_stats()
-    merge.LAUNCHES = 0
-    emit.LAUNCHES = 0
+    reset_launches(merge)
+    reset_launches(emit)
     state, metrics, s_per_step = timed_block(step, state, args, N_TIMED, name)
-    launches = {"merge": merge.LAUNCHES, "emit": emit.LAUNCHES}
+    launches = {"merge": kernel_launches(merge), "emit": kernel_launches(emit)}
     if launches != {"merge": N_TIMED, "emit": 2 * N_TIMED}:
         raise AssertionError(f"{name}: launches {launches} in {N_TIMED} steps")
     last = metrics[-1]
@@ -2140,7 +2170,7 @@ def subspace_run(label, step, state, n_warm, n_timed):
             raise AssertionError(f"{label}: overflow at warm-up step {i}")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    merge_multi.LAUNCHES = 0
+    reset_launches(merge_multi)
     t0 = time.perf_counter()
     metrics = []
     for _ in range(n_timed):
@@ -2154,12 +2184,12 @@ def subspace_run(label, step, state, n_warm, n_timed):
             raise AssertionError(f"{label}: overflow at timed step {i}")
         if not (torch.isfinite(m["h_mat"]).all() and torch.isfinite(m["d_mat"]).all()):
             raise AssertionError(f"{label}: non-finite h_mat / d_mat at timed step {i}")
-    if merge_multi.LAUNCHES != merges:
-        raise AssertionError(f"{label}: {merge_multi.LAUNCHES} kernel C launches, {merges} "
+    if kernel_launches(merge_multi) != merges:
+        raise AssertionError(f"{label}: {kernel_launches(merge_multi)} kernel C launches, {merges} "
                              f"merges in {n_timed} steps")
     return state, {"ms_per_step": 1e3 * s_per_step, "s_per_step": s_per_step,
                    "peak_mem_bytes": torch.cuda.max_memory_allocated(),
-                   "launches": {"merge_multi": merge_multi.LAUNCHES}, "metrics": metrics,
+                   "launches": {"merge_multi": kernel_launches(merge_multi)}, "metrics": metrics,
                    "n_dets_timed_steps": [int(m["n_dets"][0]) for m in metrics],
                    "n_nonzero_per_row": (state.arena.vals != 0).sum(1).tolist()}
 
@@ -2288,7 +2318,7 @@ def phase_small_observables(dev):
                                             btw_obs=2, replica=replica, batch=16)
         step_c, _, state_c, _ = observables.build(small_system(), cfg, seed=4)
         step_g, _, state_g, _ = observables.build(small_system(dev), cfg, seed=4)
-        m0, merges = merge.LAUNCHES, 0
+        m0, merges = kernel_launches(merge), 0
         for it in range(10):
             state_c, mc = step_c(state_c)
             state_g, mg = step_g(state_g)
@@ -2303,8 +2333,8 @@ def phase_small_observables(dev):
             if bool(mc["overflow"]):
                 raise AssertionError(f"{label} step {it}: overflow")
             merges += int(mc["n_merges"])
-        if merge.LAUNCHES - m0 != merges or float(mc["obs_num"]) == 0.0:
-            raise AssertionError(f"{label}: {merge.LAUNCHES - m0} kernel A launches for "
+        if kernel_launches(merge) - m0 != merges or float(mc["obs_num"]) == 0.0:
+            raise AssertionError(f"{label}: {kernel_launches(merge) - m0} kernel A launches for "
                                  f"{merges} merges, obs_num {float(mc['obs_num'])}")
         log(f"{label}: 10 steps on the card match the CPU plain path ({merges} kernel A "
             f"launches, obs_num / obs_den {float(mc['obs_num']) / float(mc['obs_den']):.6f})")
@@ -2381,7 +2411,7 @@ def phase_observables(dev, replica):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     counts, _, restore = recording_merges(False)
-    merge.LAUNCHES = 0
+    reset_launches(merge)
     try:
         t0 = time.perf_counter()
         metrics = []
@@ -2393,7 +2423,7 @@ def phase_observables(dev, replica):
     finally:
         restore()
     check(name, metrics)
-    launches = merge.LAUNCHES
+    launches = kernel_launches(merge)
     n_merges = sum(int(m["n_merges"]) for m in metrics)
     if launches != n_merges or launches != sum(counts.values()):
         raise AssertionError(f"{name}: {launches} kernel A launches, {n_merges} merges, "
@@ -2469,10 +2499,10 @@ def phase_unfused(dev):
     log(f"unfused rung: built in {time.perf_counter() - t0:.1f} s")
     state, _, _ = timed_block(step, state, args, N_WARM, "unfused rung warm-up")
     torch.cuda.reset_peak_memory_stats()
-    merge.LAUNCHES = 0
-    emit.LAUNCHES = 0
+    reset_launches(merge)
+    reset_launches(emit)
     state, metrics, s_per_step = timed_block(step, state, args, 3, "unfused rung")
-    launches = {"merge": merge.LAUNCHES, "emit": emit.LAUNCHES}
+    launches = {"merge": kernel_launches(merge), "emit": kernel_launches(emit)}
     if launches != {"merge": 3, "emit": 15}:
         raise AssertionError(f"unfused rung: launches {launches} in 3 steps")
     last = metrics[-1]
@@ -2594,7 +2624,7 @@ def cli_card_against_cpu(label, argv, tmp):
     """``fries_tpu_torch.cli.main(argv)`` on the card, then with ``--device
     cpu``: every stream (each ``.txt`` but params.txt) the same shape and
     within rtol 1e-10, atol 1e-12 of the CPU's; on the card at least one
-    merge taken off the kernels (``arena.PLAIN_ON_CARD``).  Returns the card
+    merge taken off the kernels (``profiling``'s ``merge.plain_on_card``).  Returns the card
     run's counts and seconds."""
     import contextlib
     import io as pyio
@@ -2620,8 +2650,8 @@ def cli_card_against_cpu(label, argv, tmp):
 
     for device, path in dirs.items():
         if device == "cuda":
-            ar.PLAIN_ON_CARD = 0
-            before = {k: mod.LAUNCHES for k, mod in mods.items()}
+            reset_counters("merge.plain_on_card")
+            before = {k: kernel_launches(mod) for k, mod in mods.items()}
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(pyio.StringIO()), patched(
                 (ar, "accumulate", keep_last("accumulate_best")),
@@ -2630,8 +2660,8 @@ def cli_card_against_cpu(label, argv, tmp):
         res[f"{device}_s"] = time.perf_counter() - t0
         if device == "cuda":
             torch.cuda.synchronize()
-            res["plain_on_card"] = ar.PLAIN_ON_CARD
-            res["launches"] = {k: mod.LAUNCHES - before[k] for k, mod in mods.items()}
+            res["plain_on_card"] = counter("merge.plain_on_card")
+            res["launches"] = {k: kernel_launches(mod) - before[k] for k, mod in mods.items()}
     if not res["plain_on_card"]:
         raise AssertionError(f"{label}: no merge left the kernels on the card")
     for name, args in last.items():     # call ms through the dispatcher, on the path's tensors
@@ -2702,10 +2732,11 @@ def phase_past_bounds(dev):
     a, sk, sv, si, keep = rung_merge_case(gen, dev)
     a = ar.Arena(keys=a.keys, vals=torch.stack([torch.zeros_like(a.vals[0]), a.vals[0],
                                                 a.vals[0].flip(0)]), n_used=a.n_used)
-    ar.PLAIN_ON_CARD, launches = 0, merge.LAUNCHES
+    reset_counters("merge.plain_on_card")
+    launches = kernel_launches(merge)
     got = ar.accumulate_best(a, sk, sv, si, 1, 2, keep_mask=keep)
     torch.cuda.synchronize()
-    routes, launches = ar.PLAIN_ON_CARD, merge.LAUNCHES - launches
+    routes, launches = counter("merge.plain_on_card"), kernel_launches(merge) - launches
     if (routes, launches) != (1, 1):
         raise AssertionError(f"keep mask at (3, 1, 2): {routes} card routes, {launches} "
                              "kernel A launches, want 1 and 1")
@@ -2817,7 +2848,7 @@ def phase_native_reader(ham):
 
 
 def phase_trace(dev):
-    """``fries_tpu_torch.profiling.trace`` and ``annotate`` around three
+    """``fries_tpu_torch.profiling.trace`` and ``span`` around three
     steps of the 65-bit frisys_hh system on the card (last: a profiler slows
     its process's later launches): the Chrome trace names the region and
     holds kernel A's and B's device work."""
@@ -2834,7 +2865,7 @@ def phase_trace(dev):
     logdir = _build.BUILD_DIR / "profiling_trace"
     t0 = time.perf_counter()
     with profiling.trace(logdir):
-        with profiling.annotate("frisys_hh 65 bits"):
+        with profiling.span("frisys_hh 65 bits"):
             state, _ = run_steps(state, *args, 3)
             torch.cuda.synchronize()
     path = logdir / profiling.TRACE_NAME
@@ -2938,7 +2969,7 @@ def power_timed(label, step, state, args, n_warm, n_timed, per_step, **step_kw):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for mod in mods.values():
-        mod.LAUNCHES = 0
+        reset_launches(mod)
     t0 = time.perf_counter()
     metrics = []
     for _ in range(n_timed):
@@ -2946,7 +2977,8 @@ def power_timed(label, step, state, args, n_warm, n_timed, per_step, **step_kw):
         metrics.append(m)
     torch.cuda.synchronize()
     s_per_step = (time.perf_counter() - t0) / n_timed
-    launches = {k: mod.LAUNCHES for k, mod in mods.items() if mod.LAUNCHES or k in per_step}
+    launches = {k: kernel_launches(mod) for k, mod in mods.items()
+                if kernel_launches(mod) or k in per_step}
     check_power_metrics(label, metrics)
     want = {k: v * n_timed for k, v in per_step.items()}
     if launches != want:
@@ -3089,12 +3121,12 @@ def phase_flagship(dev):
         runs = {}
         mods = {"merge": merge, "emit": emit, "merge_multi": merge_multi}
         for mod in mods.values():
-            mod.LAUNCHES = 0
+            reset_launches(mod)
         try:
             runs["straight"] = flagship.run(ham, (words, vals),
                                             args("straight", "--iters", str(FLAGSHIP_ITERS)),
                                             meta, e_cisd=e_cisd, log=lines.append)
-            launches = {k: mod.LAUNCHES for k, mod in mods.items()}
+            launches = {k: kernel_launches(mod) for k, mod in mods.items()}
             half = str(FLAGSHIP_ITERS // 2)
             flagship.run(ham, (words, vals), args("resumed", "--iters", half), meta,
                          e_cisd=e_cisd, log=lines.append)
@@ -3210,7 +3242,7 @@ def phase_anchor(dev):
     est = [aux[k] for k in ("num_keys", "num_vals", "den_keys", "den_vals", "ref_key")]
     mods = {"merge": merge, "emit": emit, "merge_multi": merge_multi}
     for mod in mods.values():
-        mod.LAUNCHES = 0
+        reset_launches(mod)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     trajs = []
@@ -3219,7 +3251,7 @@ def phase_anchor(dev):
         trajs.append(traj)
     torch.cuda.synchronize()
     s_per_step = (time.perf_counter() - t0) / ANCHOR_ITERS
-    launches = {k: mod.LAUNCHES for k, mod in mods.items()}
+    launches = {k: kernel_launches(mod) for k, mod in mods.items()}
     want = {"merge": ANCHOR_ITERS, "emit": 3 * ANCHOR_ITERS, "merge_multi": 0}
     if launches != want:
         raise AssertionError(f"anchor: launches {launches}, want {want}")
@@ -3294,12 +3326,12 @@ def phase_fcidump_tools(dev):
             raise AssertionError(f"make_fcidump: the file is {err} from the card's integrals")
         res["make_fcidump"] = {"line": out.getvalue().strip(), "max_abs_err": err}
         store = {}
-        merge.LAUNCHES = emit.LAUNCHES = 0
+        reset_launches(merge, emit)
         run_dir = os.path.join(tmp, "run")
         with capture_kernel_inputs(store), contextlib.redirect_stdout(pyio.StringIO()):
             cli.main(["frisys_mol", "--fcidump_path", path, *FCIDUMP_FLAGS, "--max_iter",
                       str(FCIDUMP_ITERS), "--result_dir", run_dir])
-        launches = {"merge": merge.LAUNCHES, "emit": emit.LAUNCHES}
+        launches = {"merge": kernel_launches(merge), "emit": kernel_launches(emit)}
         if launches != {"merge": FCIDUMP_ITERS, "emit": 3 * FCIDUMP_ITERS}:
             raise AssertionError(f"frisys_mol on the FCIDUMP: launches {launches}")
         num = np.loadtxt(os.path.join(run_dir, "projnum.txt"))
@@ -3448,7 +3480,7 @@ def phase_real_profiles(dev):
                                       "host_syncs_per_step")}
         res[w]["top_phases_ms_per_step"] = phases
         res[w]["exchange_ms_per_step"] = {k: v for k, v in rep["phase_busy_ms_per_step"].items()
-                                          if k.startswith("exchange")}
+                                          if k.startswith("fries.exchange")}
         res[w]["seconds"] = time.perf_counter() - t0
         log(f"profile {w}: {json.dumps(res[w])}")
     return res
@@ -3908,12 +3940,12 @@ def sharded_rung_real(shards, ham=None):
     draws = [torch.rand(7, dtype=torch.float64, generator=gen) for _ in range(SHARD_FIXED)]
 
     offsets, store = [], {}
-    merge.LAUNCHES = emit.LAUNCHES = 0
+    reset_launches(merge, emit)
     with shard_offsets(offsets):
         state, kern, plain = kernel_plain_steps(
             lambda st, k: step(st, *est, rns=draws[k][:6], rn_vec=draws[k][6]), state,
             SHARD_FIXED, store)
-    fixed_launches = {"merge": merge.LAUNCHES, "emit": emit.LAUNCHES}
+    fixed_launches = {"merge": kernel_launches(merge), "emit": kernel_launches(emit)}
     label = f"rung_real_sharded rank {shards.rank}"
     cmp = compare_runs(f"{label}, kernels against plain", kern, plain)
     err = check_captured(f"{label}, a fixed step's", store)
@@ -3924,7 +3956,7 @@ def sharded_rung_real(shards, ham=None):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     exch = []
-    merge.LAUNCHES = emit.LAUNCHES = 0
+    reset_launches(merge, emit)
     with timed_exchanges(exch):
         t1 = time.perf_counter()
         metrics = []
@@ -3933,7 +3965,7 @@ def sharded_rung_real(shards, ham=None):
             metrics.append(m)
         torch.cuda.synchronize()
         ms = 1e3 * (time.perf_counter() - t1) / SHARD_TIMED
-    launches = {"merge": merge.LAUNCHES, "emit": emit.LAUNCHES}
+    launches = {"merge": kernel_launches(merge), "emit": kernel_launches(emit)}
     check_power_metrics("rung_real_sharded", metrics)
     if launches != {"merge": SHARD_TIMED, "emit": 3 * SHARD_TIMED}:
         raise AssertionError(f"rung_real_sharded: timed launches {launches}")
@@ -3966,11 +3998,11 @@ def sharded_subsp(shards, ham=None):
         if bool(m["overflow"]):
             raise AssertionError(f"subsp_sharded: overflow at warm-up step {i}")
 
-    merge_multi.LAUNCHES = 0
+    reset_launches(merge_multi)
     store = {}
     state, kern, plain = kernel_plain_steps(lambda st, k: step(st), state, SHARD_FIXED,
                                             store)
-    fixed_launches = merge_multi.LAUNCHES
+    fixed_launches = kernel_launches(merge_multi)
     label = f"subsp_sharded rank {shards.rank}"
     cmp = compare_runs(f"{label}, kernels against plain", kern, plain)
     err = check_captured(f"{label}, a fixed iteration's", store)
@@ -3980,7 +4012,7 @@ def sharded_subsp(shards, ham=None):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     exch = []
-    merge_multi.LAUNCHES = 0
+    reset_launches(merge_multi)
     with timed_exchanges(exch):
         t1 = time.perf_counter()
         metrics = []
@@ -3999,7 +4031,7 @@ def sharded_subsp(shards, ham=None):
     if int(metrics[-1]["n_dets"][0]) < budget:
         raise AssertionError(f"subsp_sharded: {int(metrics[-1]['n_dets'][0])} rows after "
                              f"{SHARD_WARM + SHARD_FIXED + SUBSP_SHARD_TIMED} iterations")
-    launches = {"merge_multi": merge_multi.LAUNCHES}
+    launches = {"merge_multi": kernel_launches(merge_multi)}
     if launches["merge_multi"] != SUBSP_SHARD_TIMED:
         raise AssertionError(f"subsp_sharded: {launches} kernel C launches")
     (state, _), syncs = count_syncs(lambda: step(state))
@@ -4167,7 +4199,7 @@ def phase_sharding(dev, hams, stream):
             f"({torch.cuda.device_count()} card visible)")
     res["seconds"] = time.perf_counter() - t0
     log(f"sharding: {res['seconds']:.1f} s")
-    merge.LAUNCHES = emit.LAUNCHES = merge_multi.LAUNCHES = 0
+    reset_launches(merge, emit, merge_multi)
     return res
 
 
@@ -4411,7 +4443,7 @@ def main():
 
     t0 = time.perf_counter()
     _build.build(verbose=True)
-    _build.PROBE_LAUNCHES = 0
+    reset_counters("launch.probe_copy")
     _build.load()
     log(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s")
     if args.sharding:
@@ -4424,7 +4456,7 @@ def main():
         past_res["frifull_real twice"] = frifull_real_repeats(dev, real_systems.h2o_ccpvdz(dev))
         log(f"past bounds: {json.dumps(past_res)}")
         return 0
-    ar.PLAIN_ON_CARD = 0
+    reset_counters("merge.plain_on_card")
     pc = phase_probe_copy(dev)
     m = phase_merge(dev)
     e = phase_emit(dev)
@@ -4483,12 +4515,13 @@ def main():
         dev, hams["n2_stretched"])
     shard_res = phase_sharding(dev, hams, real_cases["rung_real"][1:4])
     del hams
-    if ar.PLAIN_ON_CARD:
-        raise AssertionError(f"{ar.PLAIN_ON_CARD} merges left the kernels on paths inside "
+    if counter("merge.plain_on_card"):
+        raise AssertionError(f"{counter('merge.plain_on_card')} merges left the kernels on "
+                             "paths inside "
                              "their bounds")
     past_res = phase_past_bounds(dev)
     past_res["frifull_real twice"] = repeats_res
-    ar.PLAIN_ON_CARD = 0
+    reset_counters("merge.plain_on_card")
     obs_cases = {f"{name} {layout}": (*captured[layout], layout[1], layout[2])
                  for name, captured, layouts in (
                      ("observables", obs_captured, ((4, 0, 0), (4, 0, 3))),
@@ -4503,8 +4536,9 @@ def main():
     del real_cases, real_plans, qz_case, qzs_case, chunk_case, fciqmc_case, ffhh_case, fshh_case
     del hh_plans, unf_plans, sub_chunk, obs_captured, repl_captured, hhw_case, hhw_plans
     del ne2_subsp_case
-    if ar.PLAIN_ON_CARD:
-        raise AssertionError(f"{ar.PLAIN_ON_CARD} merges left the kernels in the timings")
+    if counter("merge.plain_on_card"):
+        raise AssertionError(f"{counter('merge.plain_on_card')} merges left the kernels in "
+                             "the timings")
     obs_cases = list(obs_cases)     # the names; the tensors go before the child processes
     profiles = phase_real_profiles(dev)
     trace_res = phase_trace(dev)

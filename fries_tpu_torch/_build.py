@@ -30,9 +30,6 @@ PROBE_SHAPE = (16, 128)   # two blocks of (8, 128), as pallas_merge.py:77
 
 _LIB: ctypes.CDLL | None = None
 
-PROBE_LAUNCHES = 0
-"""Kernel launches made by :func:`probe_copy` (CUDA tensors only)."""
-
 
 def sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu"))
@@ -119,8 +116,9 @@ def probe_copy(x):
 
 
 def _probe_copy(lib, x):
-    global PROBE_LAUNCHES
     import torch
+
+    from fries_tpu_torch import profiling
 
     check_tensor("probe_copy", "x", x, torch.float32, PROBE_SHAPE)
     out = torch.empty_like(x)
@@ -129,7 +127,7 @@ def _probe_copy(lib, x):
     if err != 0:
         raise RuntimeError(f"probe_copy launch failed: {err} "
                            f"({lib.fries_error_string(err).decode()})")
-    PROBE_LAUNCHES += 1
+    profiling.count("launch.probe_copy")
     return out
 
 

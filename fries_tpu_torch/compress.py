@@ -54,7 +54,7 @@ import math
 import numpy as np
 import torch
 
-from fries_tpu_torch import parallel
+from fries_tpu_torch import parallel, profiling
 from fries_tpu_torch.ops import ordered
 from fries_tpu_torch.runtime import emit as emit_mod
 
@@ -82,6 +82,7 @@ def _norm_over_ranks(loc_norm, count, shards):
 # stochastic rounding and row sampling
 # ---------------------------------------------------------------------------
 
+@profiling.spanned("fries.binomial")
 def round_binomially(key, p, n):
     """Unbiased integer rounding floor(p) * n + Binomial(n, frac(p)) (int64)
     of ``p`` >= 0 with ``n`` trials per element; the draws are the key
@@ -98,6 +99,7 @@ def stochastic_round(key, p):
     return flr + (u < p - flr).to(p.dtype)
 
 
+@profiling.spanned("fries.categorical")
 def sample_categorical_rows(key, probs, valid=None):
     """One inverse-CDF index per row of (..., K) weights: the number of f32
     prefix sums at or below u * the row's f64 total, capped at K - 1.
@@ -225,6 +227,7 @@ def _seed_finish(mass_above, cost_above, n_samp, tot_mass, shards=None):
     return torch.where(tot_mass > 0, t_est, inf)
 
 
+@profiling.spanned("fries.seed")
 def _preserve_threshold_seed(parts, n_samp, tot_mass, shards=None):
     """Conservative upper bound T_est >= the final greedy preserve threshold.
 
@@ -245,6 +248,7 @@ def _preserve_threshold_seed(parts, n_samp, tot_mass, shards=None):
 # exact preservation and systematic resampling
 # ---------------------------------------------------------------------------
 
+@profiling.spanned("fries.preserve")
 def find_preserve(abs_vals: torch.Tensor, n_samp: int, max_rounds: int = 64,
                   shards=None):
     """Elements to preserve exactly before stochastic resampling.
@@ -253,25 +257,27 @@ def find_preserve(abs_vals: torch.Tensor, n_samp: int, max_rounds: int = 64,
     mass per remaining sample, iterated to a fixpoint (one host read per
     round).  Returns (keep (N,) bool, n_samp_left 0-dim int64, loc_norm 0-dim
     f64 1-norm of this rank's non-preserved elements); the budget is global
-    over ``shards``' ranks."""
+    over ``shards``' ranks and may be a 0-dim device tensor, read once."""
     abs_vals = abs_vals.to(F64)
-    n_samp = int(n_samp)
+    n_samp = (profiling.host_read(n_samp, "preserve.budget") if torch.is_tensor(n_samp)
+              else int(n_samp))
     tot_mass = parallel.gsum(shards, abs_vals.sum())
     t_est = _preserve_threshold_seed([(abs_vals, abs_vals, None)], n_samp, tot_mass,
                                      shards)
     keep = abs_vals >= t_est
     live = abs_vals > 0
     inf = torch.tensor(float("inf"), dtype=F64, device=abs_vals.device)
-    # each round reads the global preserved count (one all-reduce with the
-    # residual norm); an unchanged count means the last round added nothing
+    # each round reads the global preserved count once (one all-reduce with
+    # the residual norm); an unchanged count means the last round added nothing
     n_prev = -1
     for rounds in range(max_rounds + 1):
         rem_mask = ~keep & live
         loc_norm = torch.where(rem_mask, abs_vals, 0.0).sum()
         glob_norm, n_kept = parallel.gsum(shards, loc_norm, keep.sum())
-        if int(n_kept) == n_prev or rounds == max_rounds:
+        n_now = profiling.host_read(n_kept, "fixpoint.preserve")
+        if n_now == n_prev or rounds == max_rounds:
             break
-        n_prev = int(n_kept)
+        n_prev = n_now
         budget = (n_samp - n_kept).clamp_min(0)
         threshold = torch.where(budget > 0, glob_norm / budget.clamp_min(1).to(F64), inf)
         keep = keep | (rem_mask & (abs_vals >= threshold))
@@ -285,6 +291,7 @@ def _grid_count_below(x, rn, unit):
     return (torch.floor(x / unit - rn) + 1).clamp_min(0.0).to(torch.int64)
 
 
+@profiling.spanned("fries.sys_comp")
 def sys_comp(vals, keep, n_samp, rn, loc_norm, shards=None):
     """Systematic resampling of the non-preserved elements: each becomes
     sign * glob_norm / n_samp times the number of shared-grid points landing
@@ -334,6 +341,7 @@ def _duel(u, pa, pb, ia, ib, none):
     return new_p, new_i, fin
 
 
+@profiling.spanned("fries.piv_tree")
 def piv_select_tree(key, p):
     """Pivotal (Deville-Tille) 0/1 selection with inclusion probabilities
     ``p`` (N,) by a log-depth pairing tournament: level ``lev`` duels
@@ -358,6 +366,7 @@ def piv_select_tree(key, p):
     return sel[:n]
 
 
+@profiling.spanned("fries.piv_tree_2d")
 def piv_select_tree_2d(key, p):
     """Pivotal 0/1 selection over an (N, K) grid: duels within each row
     first (uniforms ``key.fold(lev)`` of shape (N, K/2^(lev+1)) over the
@@ -415,6 +424,7 @@ def _rank_budget(key, loc_norm, n_left, shards):
     return budgets[shards.rank], key.fold(2).fold(shards.rank)
 
 
+@profiling.spanned("fries.piv_comp")
 def piv_comp(key, vals, n_samp, shards=None):
     """Pivotal vector compression: the global find_preserve, then
     :func:`piv_comp_shard` with this rank's share of the remaining budget
@@ -458,8 +468,8 @@ def piv_comp_serial(key, vals, keep, n_samp, loc_norm):
     inf = torch.tensor(float("inf"), dtype=F64, device=dev)
     unit = torch.where(n_samp > 0, torch.as_tensor(loc_norm, dtype=F64, device=dev)
                        / n_samp.clamp_min(1), inf)
-    p = torch.where(absw > 0, absw / unit, 0.0).cpu().tolist()
-    u = key.uniform((len(p),)).cpu().tolist()
+    p = profiling.host_read(torch.where(absw > 0, absw / unit, 0.0), "pivotal.serial")
+    u = profiling.host_read(key.uniform((len(p),)), "pivotal.serial")
     res_p, res_idx = 0.0, -1
     selected = [False] * len(p)
     for i, (pi, ui) in enumerate(zip(p, u)):
@@ -475,7 +485,7 @@ def piv_comp_serial(key, vals, keep, n_samp, loc_norm):
             if fin >= 0:
                 selected[fin] = True
             res_p = tot - 1.0
-    last_u = float(key.fold(1).uniform(()))
+    last_u = profiling.host_read(key.fold(1).uniform(()), "pivotal.serial")
     if res_idx >= 0 and last_u < res_p:
         selected[res_idx] = True
     sel = torch.tensor(selected, dtype=torch.bool, device=dev)
@@ -484,6 +494,7 @@ def piv_comp_serial(key, vals, keep, n_samp, loc_norm):
     return out.to(dtype)
 
 
+@profiling.spanned("fries.multi_comp")
 def multi_comp(key, vals, keep, n_samp, loc_norm, shards=None):
     """Multinomial compression of the non-preserved elements: counts ~
     Multinomial(n_samp, |v| / glob_norm), each value sign * unit * count
@@ -522,6 +533,7 @@ def multi_comp(key, vals, keep, n_samp, loc_norm, shards=None):
 # subdivided (hierarchical) compression
 # ---------------------------------------------------------------------------
 
+@profiling.spanned("fries.fixpoint")
 def _threshold_fixpoint(counts_at, t_est, n_samp, max_rounds, shards=None):
     """The scalar-threshold fixpoint of comp_sub: thresholds descend; stop
     once the global preserved budget stops changing (one host read per
@@ -534,11 +546,12 @@ def _threshold_fixpoint(counts_at, t_est, n_samp, max_rounds, shards=None):
         budget = (n_samp - used).clamp_min(0)
         new_thr = torch.where(budget > 0, loc / budget.clamp_min(1).to(F64), thr)
         thr = torch.minimum(new_thr, thr)
-        n_prev, n_kept = n_kept, int(used)
+        n_prev, n_kept = n_kept, profiling.host_read(used, "fixpoint.comp_sub")
         rounds += 1
     return thr
 
 
+@profiling.spanned("fries.layout")
 def _grid_layout(parent_rem, kept_counts, loc_norm, kept_budget, n_samp, rn,
                  out_size, shards=None):
     """Per-parent grid starts, output offsets and totals shared by the
@@ -617,6 +630,7 @@ def comp_sub_plan(values, ndiv, sub_weights, sub_mask, n_samp, rn,
     return plan, lay["overflow"]
 
 
+@profiling.spanned("fries.comp_sub")
 def comp_sub(values, ndiv, sub_weights, sub_mask, n_samp, rn, out_size: int,
              max_rounds: int = 64, shards=None):
     """One level of hierarchical compression.
@@ -635,11 +649,13 @@ def comp_sub(values, ndiv, sub_weights, sub_mask, n_samp, rn, out_size: int,
     overflow) with M = ``out_size``; invalid slots are (0, -1, -1)."""
     plan, overflow = comp_sub_plan(values, ndiv, sub_weights, sub_mask, n_samp,
                                    rn, out_size, max_rounds, shards)
-    out_val, out_parent, out_sub = emit_mod.emit(**plan)
+    with profiling.span("fries.emit"):
+        out_val, out_parent, out_sub = emit_mod.emit(**plan)
     return (out_val, out_parent, out_sub,
             plan["total"].clamp_max(out_size), overflow)
 
 
+@profiling.spanned("fries.seed")
 def _factored_seed(chunks, u_uni, w_uni, ndiv_f, tot_norm0, n_samp, cdtype, shards=None):
     """comp_sub's histogram seed over the factored rows: the mass and count
     above each edge, inner reductions over K in the stage dtype."""
@@ -733,6 +749,7 @@ def comp_sub_factored_plan(values, ndiv, fac_a, fac_b, n_samp, rn, out_size: int
     return plan, lay["overflow"]
 
 
+@profiling.spanned("fries.comp_sub_factored")
 def comp_sub_factored(values, ndiv, fac_a, fac_b, n_samp, rn, out_size: int,
                       kill_b0=None, max_rounds: int = 64, row_chunk: int = 0,
                       shards=None):
@@ -750,11 +767,13 @@ def comp_sub_factored(values, ndiv, fac_a, fac_b, n_samp, rn, out_size: int,
     plan, overflow = comp_sub_factored_plan(values, ndiv, fac_a, fac_b, n_samp, rn,
                                             out_size, kill_b0, max_rounds, row_chunk,
                                             shards)
-    out_val, out_parent, out_sub = emit_mod.emit_factored(**plan)
+    with profiling.span("fries.emit"):
+        out_val, out_parent, out_sub = emit_mod.emit_factored(**plan)
     return (out_val, out_parent, out_sub,
             plan["total"].clamp_max(out_size), overflow)
 
 
+@profiling.spanned("fries.comp_sub_piv")
 def comp_sub_piv(values, ndiv, sub_weights, sub_mask, n_samp, key, out_size: int,
                  max_ndiv: int = 0, max_rounds: int = 64, shards=None):
     """Pivotal variant of :func:`comp_sub`: every sub of the (N, Kp) grid

@@ -25,6 +25,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from fries_tpu_torch import profiling
+
 WORD_BITS = 32
 WORD_MASK = 0xFFFFFFFF
 INT64_MIN = -(1 << 63)
@@ -291,6 +293,7 @@ def sentinel_columns(num_words: int) -> list[int]:
     return [int(c) for c in key_columns(invalid_det(num_words))]
 
 
+@profiling.spanned("fries.keys")
 def sort_dets(words: torch.Tensor) -> torch.Tensor:
     """The stable permutation that sorts the rows of ``(N, W)`` words in the
     arena's order: one stable sort per :func:`key_columns` column, least
@@ -302,6 +305,7 @@ def sort_dets(words: torch.Tensor) -> torch.Tensor:
     return perm
 
 
+@profiling.spanned("fries.keys")
 def order_keys(*words: torch.Tensor):
     """Order-preserving int64 keys of the rows of ``(..., W)`` word tensors,
     comparable across them.  Returns (keys, sentinel, decode): one key
@@ -377,6 +381,7 @@ def searchsorted_dets(sorted_words: torch.Tensor, queries: torch.Tensor) -> torc
     return torch.searchsorted(k_sorted, k_query.contiguous())
 
 
+@profiling.spanned("fries.keys")
 def lookup_dets(sorted_words: torch.Tensor, queries: torch.Tensor):
     """(positions, found) of each query determinant in a sorted table."""
     pos = searchsorted_dets(sorted_words, queries)

@@ -42,7 +42,7 @@ from dataclasses import dataclass
 
 import torch
 
-from fries_tpu_torch import compress, dets, parallel, rng
+from fries_tpu_torch import compress, dets, parallel, profiling, rng
 from fries_tpu_torch.drivers import frisys, power
 from fries_tpu_torch.ops import heat_bath as hb
 from fries_tpu_torch.ops import molecule as mol
@@ -79,6 +79,7 @@ class FciqmcState:
     iterat: int
 
 
+@profiling.spanned("fries.attempt_parents")
 def _attempt_parents(n_walk, attempt_cap: int):
     """Map attempt slots to parent rows: slot k belongs to the row whose
     interval of the running counts ``n_walk`` (int64) holds it.  Returns
@@ -90,6 +91,7 @@ def _attempt_parents(n_walk, attempt_cap: int):
     return parent.clamp(0, n_walk.shape[0] - 1), slot < total, total
 
 
+@profiling.spanned("fries.spawn_compaction")
 def _partition_spawns(words, vals, ini, cap: int):
     """The live spawns (valid key) in stream order in a ``cap``-row buffer,
     sentinel-padded; returns (words, vals, ini, overflow).  Beyond ``cap``
@@ -138,6 +140,7 @@ def make_spawner(ham: mol.MolecularHamiltonian, cfg: FciqmcConfig, p_doub: float
     a_cap, eps = cfg.attempt_cap, cfg.eps
     sentinel = dets.invalid_det(ham.n_words, dev)
 
+    @profiling.spanned("fries.spawn")
     def spawn(keys, occ, n_walk, walk_sign, parent, valid, k_split, kd, ks, k_round):
         p_occ = occ[parent]
         p_keys = keys[parent]
@@ -181,6 +184,7 @@ def make_spawner(ham: mol.MolecularHamiltonian, cfg: FciqmcConfig, p_doub: float
     return spawn
 
 
+@profiling.spanned("fries.death")
 def _death(key, death_p, n_walk, n_walk_int, integer_walkers: bool):
     """Post-death populations: each determinant's |death_p| n_walk rounded
     binomially (integer walkers) or kept (fp walkers), with death_p's sign."""
@@ -190,6 +194,7 @@ def _death(key, death_p, n_walk, n_walk_int, integer_walkers: bool):
     return death_p * n_walk
 
 
+@profiling.spanned("fries.estimator")
 def _estimate(a, num_keys, num_vals, den_keys, den_vals):
     """The projected estimator's (numerator, denominator) on arena row 0."""
     return ar.dot(a, num_keys, num_vals), ar.dot(a, den_keys, den_vals)
@@ -256,6 +261,7 @@ def build(ham: mol.MolecularHamiltonian, cfg: FciqmcConfig, seed: int,
                       n_used=a.n_used)
         return a1, words, spawn_val, ini, overflow, key_iter
 
+    @profiling.stepped
     def step(state: FciqmcState, num_keys, num_vals, den_keys, den_vals, ref_key):
         a1, words, spawn_val, ini, overflow, key_iter = merge_input(state)
         if shards is not None:

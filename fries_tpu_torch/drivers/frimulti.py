@@ -27,7 +27,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from fries_tpu_torch import compress, dets, rng
+from fries_tpu_torch import compress, dets, profiling, rng
 from fries_tpu_torch.drivers import fciqmc, frisys, power
 from fries_tpu_torch.ops import heat_bath as hb
 from fries_tpu_torch.ops import molecule as mol
@@ -74,6 +74,7 @@ def make_spawner(ham: mol.MolecularHamiltonian, syminfo: mol.SymmInfo, p_doub: f
     a_cap, m_samp = cfg.spawn_cap, cfg.matr_samp
     sentinel = dets.invalid_det(ham.n_words, dev)
 
+    @profiling.spanned("fries.spawn")
     def spawn(keys, vals, h_fac, key):
         occ = dets.occ_list(keys, n_bits, n_elec)
         absv = vals.abs()

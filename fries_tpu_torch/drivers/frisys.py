@@ -45,7 +45,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from fries_tpu_torch import compress, dets, parallel
+from fries_tpu_torch import compress, dets, parallel, profiling
 from fries_tpu_torch.drivers import power
 from fries_tpu_torch.ops import heat_bath as hb
 from fries_tpu_torch.ops import molecule as mol
@@ -141,19 +141,25 @@ def make_hbpp_spawner(ham: mol.MolecularHamiltonian, tens: hb.HeatBathTensors,
                     else max(1, (256_000_000 // kj_bytes) // 8192 * 8192))
     sentinel = dets.invalid_det(ham.n_words, dev)
     cols_e = torch.arange(n_elec, device=dev)
+    # the spans of the rounds, by level: A+B and C+D where fused
+    stage_span = ("fries.stage.a", "fries.stage.ab" if cfg.fuse_ab else "fries.stage.b",
+                  "fries.stage.cd" if cfg.fuse_cd else "fries.stage.c", "fries.stage.d",
+                  "fries.stage.e")
 
     def stage_comp_sub(level, vals_in, ndiv_in, w_in, rand, max_ndiv):
-        if cfg.pivotal:
-            return compress.comp_sub_piv(vals_in, ndiv_in, w_in.to(stage), w_in != 0,
-                                         m_samp, rand[level], s_cap, max_ndiv=max_ndiv,
-                                         shards=shards)
-        return compress.comp_sub(vals_in, ndiv_in, w_in.to(stage), w_in != 0,
-                                 m_samp, rand[level], s_cap, shards=shards)
+        with profiling.span(stage_span[level]):
+            if cfg.pivotal:
+                return compress.comp_sub_piv(vals_in, ndiv_in, w_in.to(stage), w_in != 0,
+                                             m_samp, rand[level], s_cap, max_ndiv=max_ndiv,
+                                             shards=shards)
+            return compress.comp_sub(vals_in, ndiv_in, w_in.to(stage), w_in != 0,
+                                     m_samp, rand[level], s_cap, shards=shards)
 
     def source(keys, occ, det_idx):
         s_keys = keys[det_idx]
         return occ[det_idx], s_keys, dets.unpack_bits(s_keys, n_bits)
 
+    @profiling.spanned("fries.spawn")
     def spawn(keys, vals, h_fac, rand, thresh=None):
         c = keys.shape[0]
         rand = rand.fold(77).split(5) if cfg.pivotal else rand
@@ -259,9 +265,10 @@ def make_hbpp_spawner(ham: mol.MolecularHamiltonian, tens: hb.HeatBathTensors,
                     2, val_c, ndiv_c, joint.reshape(-1, n_elec * n_virt), rand,
                     max(n_virt, n_elec * n_virt))
             else:
-                val, parent, sub, _, ovf = compress.comp_sub_factored(
-                    val_c, ndiv_c, fac_a, fac_b, m_samp, rand[2], s_cap,
-                    kill_b0=kill_b0, row_chunk=cd_row_chunk, shards=shards)
+                with profiling.span("fries.stage.cd"):
+                    val, parent, sub, _, ovf = compress.comp_sub_factored(
+                        val_c, ndiv_c, fac_a, fac_b, m_samp, rand[2], s_cap,
+                        kill_b0=kill_b0, row_chunk=cd_row_chunk, shards=shards)
             overflow = overflow | ovf
             live = parent >= 0
             pidx = torch.where(live, parent, 0)
@@ -335,79 +342,80 @@ def make_hbpp_spawner(ham: mol.MolecularHamiltonian, tens: hb.HeatBathTensors,
         is_sing = ~is_doub & live
         u2_slot = torch.where(is_doub, sub, 0)
 
-        # ---- finalize: doubles ----
-        s_occ, s_keys, occ_bits = source(keys, occ, det_idx)
-        pval = vals[det_idx]
-        sign = torch.sign(pval)
-        o1_orb, u1_orb = first_virtual(s_occ, occ_bits, o1_idx, u1_slot)
-        o2_orb = _at(s_occ, o2_idx)
-        spin2 = o2_orb // n_orb
-        g = symm[o1_orb % n_orb] ^ symm[o2_orb % n_orb] ^ symm[u1_orb % n_orb]
-        u2_sp = _at(lookup[g], u2_slot.clamp(0, lookup.shape[1] - 1))
-        u2_valid = u2_sp < n_orb
-        u2_orb = torch.where(u2_valid, u2_sp, 0) + spin2 * n_orb
-        u2_occupied = hb.dets_read(occ_bits, u2_orb[:, None], n_bits)[:, 0]
-        doub_ok = is_doub & u2_valid & ~u2_occupied & (u1_orb != u2_orb)
-        o_lo, o_hi = torch.minimum(o1_orb, o2_orb), torch.maximum(o1_orb, o2_orb)
-        u_lo, u_hi = torch.minimum(u1_orb, u2_orb), torch.maximum(u1_orb, u2_orb)
-        if unnorm:
-            tot = hb.unnorm_weight(tens, n_orb, o_lo, o_hi, u_lo, u_hi)
-        else:
-            tot = hb.norm_weight(tens, n_orb, n_elec, symm, lookup, s_occ,
-                                 occ_bits, o_lo, o_hi, u_lo, u_hi)
-        dval = val / tot.clamp_min(1e-300)
-        dmel = mol.doub_matr_el(ham, o_lo, o_hi, u_lo, u_hi)
-        dwords, dsign = dets.double_parity(s_keys, o_lo, o_hi, u_lo, u_hi)
-        damp = torch.where(doub_ok & (tot > 0),
-                           h_fac * dmel * dsign * sign * dval / p_doub, 0.0)
+        with profiling.span("fries.finalize"):
+            # ---- finalize: doubles ----
+            s_occ, s_keys, occ_bits = source(keys, occ, det_idx)
+            pval = vals[det_idx]
+            sign = torch.sign(pval)
+            o1_orb, u1_orb = first_virtual(s_occ, occ_bits, o1_idx, u1_slot)
+            o2_orb = _at(s_occ, o2_idx)
+            spin2 = o2_orb // n_orb
+            g = symm[o1_orb % n_orb] ^ symm[o2_orb % n_orb] ^ symm[u1_orb % n_orb]
+            u2_sp = _at(lookup[g], u2_slot.clamp(0, lookup.shape[1] - 1))
+            u2_valid = u2_sp < n_orb
+            u2_orb = torch.where(u2_valid, u2_sp, 0) + spin2 * n_orb
+            u2_occupied = hb.dets_read(occ_bits, u2_orb[:, None], n_bits)[:, 0]
+            doub_ok = is_doub & u2_valid & ~u2_occupied & (u1_orb != u2_orb)
+            o_lo, o_hi = torch.minimum(o1_orb, o2_orb), torch.maximum(o1_orb, o2_orb)
+            u_lo, u_hi = torch.minimum(u1_orb, u2_orb), torch.maximum(u1_orb, u2_orb)
+            if unnorm:
+                tot = hb.unnorm_weight(tens, n_orb, o_lo, o_hi, u_lo, u_hi)
+            else:
+                tot = hb.norm_weight(tens, n_orb, n_elec, symm, lookup, s_occ,
+                                     occ_bits, o_lo, o_hi, u_lo, u_hi)
+            dval = val / tot.clamp_min(1e-300)
+            dmel = mol.doub_matr_el(ham, o_lo, o_hi, u_lo, u_hi)
+            dwords, dsign = dets.double_parity(s_keys, o_lo, o_hi, u_lo, u_hi)
+            damp = torch.where(doub_ok & (tot > 0),
+                               h_fac * dmel * dsign * sign * dval / p_doub, 0.0)
 
-        # ---- finalize: singles ----
-        counts = hb.unocc_symm_counts(n_orb, n_elec, symm, symm_counts, s_occ)
-        per_elec, n_occ_allowed = hb.sing_allowed(n_orb, n_elec, symm, counts, s_occ)
-        so_orb = _at(s_occ, s_elec)
-        so_spin = so_orb // n_orb
-        orb_row = lookup[symm[so_orb % n_orb]]
-        cand_bit = (orb_row + so_spin[:, None] * n_orb).clamp(0, n_bits - 1)
-        cand_unocc = (orb_row < n_orb) & ~hb.dets_read(occ_bits, cand_bit, n_bits)
-        su_col, su_found = _rank_to_index(cand_unocc, virt_rank)
-        su_sp = _at(orb_row, su_col.clamp(0, orb_row.shape[1] - 1))
-        su_orb = torch.where(su_found & (su_sp < n_orb), su_sp + so_spin * n_orb, 0)
-        sing_ok = is_sing & su_found & (su_sp < n_orb)
-        s_nvirt = _at(per_elec, s_elec)
-        smel = mol.sing_matr_el(ham, so_orb, su_orb, s_occ)
-        swords, ssign = dets.single_parity(s_keys, so_orb, su_orb)
-        samp = torch.where(
-            sing_ok,
-            h_fac * smel * ssign * sign * val * n_occ_allowed * s_nvirt / (1.0 - p_doub),
-            0.0)
+            # ---- finalize: singles ----
+            counts = hb.unocc_symm_counts(n_orb, n_elec, symm, symm_counts, s_occ)
+            per_elec, n_occ_allowed = hb.sing_allowed(n_orb, n_elec, symm, counts, s_occ)
+            so_orb = _at(s_occ, s_elec)
+            so_spin = so_orb // n_orb
+            orb_row = lookup[symm[so_orb % n_orb]]
+            cand_bit = (orb_row + so_spin[:, None] * n_orb).clamp(0, n_bits - 1)
+            cand_unocc = (orb_row < n_orb) & ~hb.dets_read(occ_bits, cand_bit, n_bits)
+            su_col, su_found = _rank_to_index(cand_unocc, virt_rank)
+            su_sp = _at(orb_row, su_col.clamp(0, orb_row.shape[1] - 1))
+            su_orb = torch.where(su_found & (su_sp < n_orb), su_sp + so_spin * n_orb, 0)
+            sing_ok = is_sing & su_found & (su_sp < n_orb)
+            s_nvirt = _at(per_elec, s_elec)
+            smel = mol.sing_matr_el(ham, so_orb, su_orb, s_occ)
+            swords, ssign = dets.single_parity(s_keys, so_orb, su_orb)
+            samp = torch.where(
+                sing_ok,
+                h_fac * smel * ssign * sign * val * n_occ_allowed * s_nvirt / (1.0 - p_doub),
+                0.0)
 
-        if cfg.spin_parity:
-            # fold the sampled excitations: the direct and the reverse
-            # (spin-flipped) elements and selection weights combine
-            direct_mel = torch.where(is_doub, dmel * dsign, smel * ssign)
-            w_doub = tot.clamp_min(1e-300) * p_doub
-            w_sing = (1.0 - p_doub) / (n_occ_allowed * s_nvirt).to(F64).clamp_min(1e-300)
-            ok = torch.where(is_doub, doub_ok & (tot > 0), sing_ok)
-            new_words, t_mel, t_w, t_keep = tr_mod.adjust_sampled(
-                ham, tens, symm, counts, n_occ_allowed, s_keys, s_occ, occ_bits,
-                torch.where(is_doub[:, None], dwords, swords), direct_mel,
-                torch.where(is_doub, w_doub, w_sing), cfg.spin_parity, p_doub, unnorm)
-            amps = torch.where(ok & t_keep & live,
-                               h_fac * sign * val * t_mel / t_w.clamp_min(1e-300), 0.0)
-        else:
-            amps = torch.where(is_doub, damp, samp)
-            new_words = torch.where(is_doub[:, None], dwords, swords)
-        new_words = torch.where((amps != 0)[:, None], new_words, sentinel)
-        ini = pval.abs() >= (cfg.init_thresh if thresh is None else thresh)
-        if determ is not None:
-            # exact multiplication by the dense block: amp = h_fac H_elem v[from]
-            v_from = torch.where(dfound, vals_full[dpos], 0.0)[determ["from"]]
-            d_amp = h_fac * determ["amp"] * v_from
-            new_words = torch.cat([new_words, torch.where((d_amp != 0)[:, None],
-                                                          determ["words"], sentinel)])
-            amps = torch.cat([amps, d_amp])
-            ini = torch.cat([ini, torch.ones_like(d_amp, dtype=torch.bool)])
-        return new_words, amps, ini
+            if cfg.spin_parity:
+                # fold the sampled excitations: the direct and the reverse
+                # (spin-flipped) elements and selection weights combine
+                direct_mel = torch.where(is_doub, dmel * dsign, smel * ssign)
+                w_doub = tot.clamp_min(1e-300) * p_doub
+                w_sing = (1.0 - p_doub) / (n_occ_allowed * s_nvirt).to(F64).clamp_min(1e-300)
+                ok = torch.where(is_doub, doub_ok & (tot > 0), sing_ok)
+                new_words, t_mel, t_w, t_keep = tr_mod.adjust_sampled(
+                    ham, tens, symm, counts, n_occ_allowed, s_keys, s_occ, occ_bits,
+                    torch.where(is_doub[:, None], dwords, swords), direct_mel,
+                    torch.where(is_doub, w_doub, w_sing), cfg.spin_parity, p_doub, unnorm)
+                amps = torch.where(ok & t_keep & live,
+                                   h_fac * sign * val * t_mel / t_w.clamp_min(1e-300), 0.0)
+            else:
+                amps = torch.where(is_doub, damp, samp)
+                new_words = torch.where(is_doub[:, None], dwords, swords)
+            new_words = torch.where((amps != 0)[:, None], new_words, sentinel)
+            ini = pval.abs() >= (cfg.init_thresh if thresh is None else thresh)
+            if determ is not None:
+                # exact multiplication by the dense block: amp = h_fac H_elem v[from]
+                v_from = torch.where(dfound, vals_full[dpos], 0.0)[determ["from"]]
+                d_amp = h_fac * determ["amp"] * v_from
+                new_words = torch.cat([new_words, torch.where((d_amp != 0)[:, None],
+                                                              determ["words"], sentinel)])
+                amps = torch.cat([amps, d_amp])
+                ini = torch.cat([ini, torch.ones_like(d_amp, dtype=torch.bool)])
+            return new_words, amps, ini
 
     return spawn
 

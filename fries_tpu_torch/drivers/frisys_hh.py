@@ -30,7 +30,7 @@ from dataclasses import dataclass
 
 import torch
 
-from fries_tpu_torch import compress, dets
+from fries_tpu_torch import compress, dets, profiling
 from fries_tpu_torch.drivers import frifull_hh, power
 from fries_tpu_torch.drivers.frisys import _at, _rank_to_index
 from fries_tpu_torch.ops import hubbard as hub
@@ -61,6 +61,7 @@ class FrisysHHConfig:
             n_shards=self.n_shards, exchange_cap=self.exchange_cap)
 
 
+@profiling.spanned("fries.hh.level1")
 def level_one(absv, chan_w, m_samp: int, rn, s_cap: int, shards=None):
     """Level 1: each parent's |v| over the (t, g) channel row.  Returns
     (values, parent, is_phonon, live) of the ``s_cap`` slots."""
@@ -73,6 +74,7 @@ def level_one(absv, chan_w, m_samp: int, rn, s_cap: int, shards=None):
     return val, torch.where(live, parent, 0), (sub == 1) & live, live
 
 
+@profiling.spanned("fries.hh.level2")
 def level_two(ham: hub.HubbardHolstein, keys, val, det_idx, is_ph, live, from_bit, to_bit,
               m_samp: int, rn, s_cap: int, shards=None):
     """Level 2: each slot's value times its branch count, divided
@@ -91,6 +93,7 @@ def level_two(ham: hub.HubbardHolstein, keys, val, det_idx, is_ph, live, from_bi
     return (val, det_idx[pidx], is_ph[pidx] & live, live, torch.where(live, sub, 0))
 
 
+@profiling.spanned("fries.finalize")
 def finalize(ham: hub.HubbardHolstein, keys, vals, occ, h_fac, val, det_idx, is_ph, live,
              branch, from_bit, to_bit):
     """The sampled branches' targets and amplitudes: (words, amps), the
@@ -131,6 +134,7 @@ def make_spawner(ham: hub.HubbardHolstein, cfg: FrisysHHConfig, e_ref=None, devi
     from_bit, to_bit = hub.hop_tensors(ham.n_sites, torch.device(device or "cpu"))
     chan_w = torch.tensor([[ham.t, ham.g]], dtype=F64, device=device)
 
+    @profiling.spanned("fries.spawn")
     def spawn(keys, vals, h_fac, rns):
         occ = hub.occ_list(ham, keys)
         val, det_idx, is_ph, live = level_one(vals.abs(), chan_w, cfg.matr_samp, rns[0],

@@ -49,7 +49,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from fries_tpu_torch import compress, dets, parallel, rng
+from fries_tpu_torch import compress, dets, parallel, profiling, rng
 from fries_tpu_torch.drivers import frisys, power, subspace
 from fries_tpu_torch.ops import molecule as mol
 from fries_tpu_torch.runtime import arena as ar
@@ -106,6 +106,7 @@ def _route(cfg, shards, words, amps):
     return words, amps, over
 
 
+@profiling.spanned("fries.one_elec")
 def apply_one_elec(cfg: ObservablesConfig, n_orb: int, a: ar.Arena, src_row: int,
                    dest_row: int, shards=None):
     """dest_row <- O src_row in one merge (all spawns initiators, origin
@@ -164,7 +165,7 @@ def build(ham: mol.MolecularHamiltonian, cfg: ObservablesConfig, seed: int,
         n_src = src.shape[0]
         n_chunks = -(-n_src // cfg.batch)
         if shards is not None:
-            n_chunks = int(shards.max(torch.tensor(n_chunks)))
+            n_chunks = profiling.host_read(shards.max(torch.tensor(n_chunks)), "exact.chunks")
         for i in range(n_chunks):
             rows = slice(i * cfg.batch, (i + 1) * cfg.batch)
             w, amp = subspace.exact_spawn(ham, tmpl, src_keys[rows], src_vals[rows],
@@ -195,6 +196,7 @@ def build(ham: mol.MolecularHamiltonian, cfg: ObservablesConfig, seed: int,
         norm = gsum(valid_row(a, row).abs().sum())
         return ar.set_row(a, row, a.vals[row] / norm.clamp_min(1e-300)), norm
 
+    @profiling.stepped
     def step(state: ObsState):
         a = state.arena
         key_iter = state.key.fold(state.iterat)

@@ -49,7 +49,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from fries_tpu_torch import compress, dets, parallel
+from fries_tpu_torch import compress, dets, parallel, profiling
 from fries_tpu_torch.runtime import arena as ar
 from fries_tpu_torch.runtime import shard as sh
 
@@ -171,6 +171,7 @@ def make_stepper(spawn_fn, diag_fn, cfg: PowerConfig,
         mask.index_fill_(0, torch.where(found, pos, c), True)
         return mask[:c]
 
+    @profiling.stepped
     def step(state: PowerState, num_keys, num_vals, den_keys, den_vals,
              ref_key, rns=None, rn_vec=None, protected_keys=None):
         a = state.arena
@@ -245,20 +246,21 @@ def make_stepper(spawn_fn, diag_fn, cfg: PowerConfig,
         # one lookup serves the estimator dots and the protected mask; the
         # merge passes the origin row through, so a2.vals[0] at the merged
         # positions is the vector before the multiply
-        n_num = num_keys.shape[0]
-        n_den = den_keys.shape[0]
-        queries = [num_keys, den_keys]
-        if protected_keys is not None:
-            queries.append(protected_keys)
-        qpos, qfound = ar.lookup(a2, torch.cat(queries))
-        gathered = torch.where(qfound, new_v[qpos], 0.0)
-        den_sl = slice(n_num, n_num + n_den)
-        den_after = (gathered[den_sl] * den_vals.to(F64)).sum()
-        if estimator == "before_after":
-            gathered0 = torch.where(qfound, a2.vals[0][qpos], 0.0)
-            den_other = (gathered0[den_sl] * den_vals.to(F64)).sum()
-        else:
-            den_other = (gathered[:n_num] * num_vals.to(F64)).sum()
+        with profiling.span("fries.estimator"):
+            n_num = num_keys.shape[0]
+            n_den = den_keys.shape[0]
+            queries = [num_keys, den_keys]
+            if protected_keys is not None:
+                queries.append(protected_keys)
+            qpos, qfound = ar.lookup(a2, torch.cat(queries))
+            gathered = torch.where(qfound, new_v[qpos], 0.0)
+            den_sl = slice(n_num, n_num + n_den)
+            den_after = (gathered[den_sl] * den_vals.to(F64)).sum()
+            if estimator == "before_after":
+                gathered0 = torch.where(qfound, a2.vals[0][qpos], 0.0)
+                den_other = (gathered0[den_sl] * den_vals.to(F64)).sum()
+            else:
+                den_other = (gathered[:n_num] * num_vals.to(F64)).sum()
 
         if protected_keys is not None:
             prot = protected_mask(qpos[n_num + n_den:], qfound[n_num + n_den:],

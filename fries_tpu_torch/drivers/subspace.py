@@ -63,7 +63,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from fries_tpu_torch import compress, dets, linalg, parallel, rng
+from fries_tpu_torch import compress, dets, linalg, parallel, profiling, rng
 from fries_tpu_torch.drivers import frisys, power
 from fries_tpu_torch.ops import heat_bath as hb
 from fries_tpu_torch.ops import molecule as mol
@@ -143,6 +143,7 @@ def exact_spawn(ham: mol.MolecularHamiltonian, tmpl: mol.ExcitationTemplate, key
     return w, amp
 
 
+@profiling.spanned("fries.lowmem_h_row")
 def lowmem_h_mat(ham: mol.MolecularHamiltonian, tmpl: mol.ExcitationTemplate, trial_keys,
                  trial_vals, trial_diag, spin_parity: int, keys, vals):
     """(T_query, T_vec) <trial_i| (H - e_ref) |v_j> with H|trial_i>
@@ -270,10 +271,10 @@ def build(ham: mol.MolecularHamiltonian, cfg: SubspaceConfig, trial_keys,
         Returns (merged arena, overflow, rows spawned from, merges)."""
         a2 = ar.Arena(a.keys, dvals, a.n_used)
         overflow = torch.zeros((), dtype=torch.bool, device=dev)
-        n_rows = int(a.n_used[0])
+        n_rows = profiling.host_read(a.n_used[0], "exact.n_used")
         n_chunks = -(-n_rows // cfg.batch)
         if shards is not None:
-            n_chunks = int(shards.max(torch.tensor(n_chunks)))
+            n_chunks = profiling.host_read(shards.max(torch.tensor(n_chunks)), "exact.chunks")
         for i in range(n_chunks):
             rows = slice(i * cfg.batch, (i + 1) * cfg.batch)
             words, amps = zip(*(exact_spawn(ham, tmpl, a.keys[rows], vrows[j, rows],
@@ -286,6 +287,7 @@ def build(ham: mol.MolecularHamiltonian, cfg: SubspaceConfig, trial_keys,
             overflow = overflow | st["overflow"] | over
         return a2, overflow, n_rows, n_chunks
 
+    @profiling.stepped
     def step(state: SubspaceState):
         a = state.arena
         key_iter = state.key.fold(state.iterat)

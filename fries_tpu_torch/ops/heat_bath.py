@@ -18,7 +18,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from fries_tpu_torch import dets
+from fries_tpu_torch import dets, profiling
 from fries_tpu_torch.ops import molecule as mol
 
 
@@ -168,6 +168,7 @@ def unnorm_weight(tens: HeatBathTensors, n_orb, o1, o2, u1, u2):
             / tens.s_norm / tens.exch_norms[o1s] / tens.exch_norms[o2s])
 
 
+@profiling.spanned("fries.norm_weight")
 def norm_weight(tens: HeatBathTensors, n_orb, n_elec, symm, lookup,
                 occ, occ_bits, o1, o2, u1, u2):
     """calc_norm_wt, batched: total probability of selecting

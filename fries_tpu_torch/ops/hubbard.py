@@ -27,7 +27,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from fries_tpu_torch import dets
+from fries_tpu_torch import dets, profiling
 
 F64 = torch.float64
 
@@ -183,6 +183,7 @@ def with_phonon(ham: HubbardHolstein, words, site, new_num) -> torch.Tensor:
 # diagonal
 # ---------------------------------------------------------------------------
 
+@profiling.spanned("fries.diagonal")
 def diag_matrel(ham: HubbardHolstein, words) -> torch.Tensor:
     """U * n_doubly_occupied + omega * n_phonons (absolute, unshifted)."""
     n = ham.n_sites
@@ -200,6 +201,7 @@ def diag_matrel(ham: HubbardHolstein, words) -> torch.Tensor:
 # spawning: every off-diagonal term as a static masked candidate grid
 # ---------------------------------------------------------------------------
 
+@profiling.spanned("fries.offdiag")
 def offdiag_batch(ham: HubbardHolstein, words, vals, h_fac):
     """All off-diagonal spawns of a batch of determinants.
 

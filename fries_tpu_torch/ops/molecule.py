@@ -19,7 +19,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from fries_tpu_torch import dets
+from fries_tpu_torch import dets, profiling
 
 N_IRREPS = 8
 
@@ -75,6 +75,7 @@ def _slices(ham: MolecularHamiltonian):
             e[t[:, None], t[None, :], t[None, :], t[:, None]])
 
 
+@profiling.spanned("fries.matrel")
 def doub_matr_el(ham: MolecularHamiltonian, o1, o2, u1, u2):
     """Sign-free double-excitation element <o1 o2||u1 u2> (batched)."""
     same_sp = _spin(ham, o1) == _spin(ham, o2)
@@ -91,6 +92,7 @@ def _counts(idx, weights, t):
     return out.scatter_add_(-1, idx, weights.to(torch.float64))
 
 
+@profiling.spanned("fries.matrel")
 def sing_matr_el(ham: MolecularHamiltonian, o, u, occ):
     """Sign-free single-excitation element, batched over leading dims.
 
@@ -157,6 +159,7 @@ def diag_matrel(ham: MolecularHamiltonian, occ):
     return total
 
 
+@profiling.spanned("fries.diagonal")
 def diag_matrel_chunked(ham: MolecularHamiltonian, occ, chunk: int = 1 << 20):
     """diag_matrel over row chunks of ``occ`` (bounds the (chunk, T)
     temporaries for multi-million-row arenas)."""
@@ -290,6 +293,7 @@ def enumerate_singles(ham: MolecularHamiltonian, tmpl: ExcitationTemplate,
     return o, u, unocc & allowed
 
 
+@profiling.spanned("fries.exact_spawn")
 def exact_offdiag_batch(ham: MolecularHamiltonian, tmpl: ExcitationTemplate,
                         det_words, occ, vals, h_fac):
     """Exact off-diagonal H action of a batch of source determinants.

@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import torch
 
-from fries_tpu_torch import compress, dets
+from fries_tpu_torch import compress, dets, profiling
 from fries_tpu_torch.ops import heat_bath as hb
 
 F64 = torch.float64
@@ -63,6 +63,7 @@ def _counts_at(counts, irrep, spin):
     return flat.gather(-1, idx).reshape(irrep.shape)
 
 
+@profiling.spanned("fries.sampler.nu_doubles")
 def sample_doubles(key, n_orb, n_elec, symm, lookup, occ, occ_bits, counts):
     """One uniform symmetry-allowed double excitation per attempt.
 
@@ -122,6 +123,7 @@ def sample_doubles(key, n_orb, n_elec, symm, lookup, occ, occ_bits, counts):
             "prob": torch.where(valid, prob, 1.0), "valid": valid}
 
 
+@profiling.spanned("fries.sampler.singles")
 def sample_singles(key, n_orb, n_elec, symm, lookup, occ, occ_bits, counts):
     """One uniform symmetry-allowed single excitation per attempt: dict(o,
     u, prob, valid)."""
@@ -148,6 +150,7 @@ def sample_singles(key, n_orb, n_elec, symm, lookup, occ, occ_bits, counts):
     return {"o": o, "u": u, "prob": torch.where(valid, prob, 1.0), "valid": valid}
 
 
+@profiling.spanned("fries.sampler.hb_doubles")
 def sample_doubles_heat_bath(key, tens, n_orb, n_elec, symm, lookup, occ, occ_bits):
     """One heat-bath Power-Pitzer double excitation per attempt, with the
     total normalized selection weight

@@ -18,13 +18,10 @@ import ctypes
 
 import torch
 
-from fries_tpu_torch import _build
+from fries_tpu_torch import _build, profiling
 
 RB, LANES = 8, 128
 TB = RB * LANES
-
-LAUNCHES = 0
-"""Kernel launches made by :func:`reshape` (CUDA tensors only)."""
 
 
 def reshape_plain(x):
@@ -35,7 +32,6 @@ def reshape_plain(x):
 def reshape(x):
     """The relayout: the CUDA kernel for a tensor on the card, the plain
     version for a tensor on the CPU."""
-    global LAUNCHES
     if not x.is_cuda:
         return reshape_plain(x)
     _build.check_tensor("probe_reshape", "x", x, torch.int32, (RB, LANES))
@@ -45,7 +41,7 @@ def reshape(x):
         ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream))
     if err != 0:
         raise RuntimeError(f"probe_reshape launch failed: {_build.error_string(err)}")
-    LAUNCHES += 1
+    profiling.count("launch.probe_reshape")
     return out
 
 

@@ -17,43 +17,32 @@ real molecules ``rung_real`` (the 1e6 rung on N2/cc-pVDZ),
 ``semistoch_cisd`` (with the 150-determinant CISD space), ``frifull_real``
 (H2O/cc-pVDZ's (10e, 12o)) and ``fciqmc_real`` (stretched N2); the
 hash-sharded ``rung_real_sharded`` and ``subsp_sharded``, each in a
-one-rank NCCL world, where the exchange shows as four phases: ``exchange:
-bucket build``, ``exchange: count all-gather``, ``exchange: host read`` and
-``exchange: payload``), runs
+one-rank NCCL world, where the exchange shows as its four spans), runs
 warm-up steps (frifull, subspfull, frisys_hh and frisys_hh_wide: until the vectors hold
 their budgets of nonzeros; fciqmc and fciqmc_real: bench.py's 60; the
 observables: the 6 of their burn-in; the others 3), then
 
 * counts the host synchronizations of one step (``torch.cuda`` sync debug
-  mode, one warning per synchronizing call),
+  mode, one warning per synchronizing call) and the program's host reads of
+  that step by site (:func:`fries_tpu_torch.profiling.last_step_counts`),
 * profiles a few steps with ``torch.profiler`` and prints the device time of
-  each labelled phase (the spawn and its compression rounds, the emissions,
-  C+D's histogram seed, the threshold fixpoints, norm_weight, the merges
-  and their spawn sort, the exact spawn, the dedup and the compaction of
-  the chunked exact-H step, the diagonal, the vector compressions, the
-  pivotal tournaments; for FCIQMC and frimulti the attempt parents, the
-  excitation samplers and their categorical rows, the matrix elements, the
-  binomial rounding, the spawn compaction, death, the estimator; for the
-  Hubbard-Holstein paths ``offdiag_batch`` and frisys_hh's level 1, level
-  2 and finalize; for the subspace modes the lowmem h rows and
-  ``multi_comp``; for the observables ``one_elec``, the exact spawn and the
-  merges), the
-  device time inside each pair of nested phases (``"C+D & threshold
-  fixpoint"``: the fixpoint rounds of the C+D stage), the top kernels, the
-  device's busy time and its idle share of the traced span (from the chrome
-  trace, written to ``build/fries_tpu_torch/step_trace.json`` by default).
+  each of the program's spans (:mod:`fries_tpu_torch.profiling`, the
+  ``fries.*`` names: the step, the spawn and its compression stages, the
+  seeds, the threshold fixpoints and their reads, the grid layouts, the
+  emissions, the finalize, norm_weight, the merges with their spawn sort and
+  kernel entry, the keys, the diagonal, the estimator, the vector's
+  preservation and compression, the exchange's four phases, the pivotal
+  tournaments, and the FCIQMC, subspace, Hubbard-Holstein and observable
+  phases), the device time inside each pair of nested spans
+  (``"fries.comp_sub_factored & fries.fixpoint"``: the fixpoint rounds of
+  the C+D stage), the top kernels, the device's busy time and its idle
+  share of the traced span (from the chrome trace, written to
+  ``build/fries_tpu_torch/step_trace.json`` by default).
 
-The phase labels are ``record_function`` wrappers installed by this script
-around the package's functions; the package itself carries no
-instrumentation.  The profiler ties a device operation to the innermost
-range that launched it, and a range's span on the device runs from its own
-first operation to its last: a range whose work begins with a nested one
-shows without it.  So a merge's wrapper is two rows, ``merge: spawn sort``
-(shared by both merges) and ``merge: kernel entry`` (kernel A) or
-``merge_multi: kernel entry`` (kernel C), to be summed.  A function the
-imported package lacks gets no label, so the script also profiles an older
-checkout of the package put first on ``PYTHONPATH`` (its C+D emission is
-labelled ``emit_plain``).  Usage (needs a CUDA device)::
+A span's device time is that of the operations launched inside it: the
+profiler links each device operation to the runtime call that launched it,
+and the spans are host ranges around those calls.  Nested spans count in
+each enclosing one.  Usage (needs a CUDA device)::
 
     python -m fries_tpu_torch.profile_step [--workload frifull] [--steps 3] [--trace out.json]
 """
@@ -62,87 +51,25 @@ from __future__ import annotations
 
 import argparse
 import bisect
-import functools
 import itertools
 import json
 import time
 import warnings
 from pathlib import Path
 
-
-def _labelled(label, fn):
-    import torch
-
-    @functools.wraps(fn)
-    def wrapper(*args, **kwargs):
-        with torch.profiler.record_function(label):
-            return fn(*args, **kwargs)
-    return wrapper
+PREFIX = "fries."                       # the program's span names
+HOST_CATS = ("cpu_op", "user_annotation")
+ENCLOSING = {"fries.step", "fries.spawn"}   # left out of the pairs
 
 
-def install_labels():
-    """Wrap the phases in profiler ranges (module attributes are looked up at
-    call time, so the step picks the wrappers up); returns the labels."""
-    from fries_tpu_torch import compress
-    from fries_tpu_torch.drivers import fciqmc, frimulti, frisys, frisys_hh, observables, subspace
-    from fries_tpu_torch.ops import heat_bath, hubbard, molecule, near_uniform
-    from fries_tpu_torch.runtime import arena, emit, merge, merge_multi, shard
-
-    phases = (
-        (compress, "comp_sub", "comp_sub (A+B, E)"),
-        (compress, "comp_sub_factored", "C+D"),
-        (compress, "_factored_seed", "C+D histogram seed"),
-        (compress, "_threshold_fixpoint", "threshold fixpoint"),
-        (compress, "comp_sub_piv", "comp_sub_piv (A+B, C+D, E)"),
-        (compress, "piv_comp", "piv_comp (vector)"),
-        (compress, "piv_select_tree", "piv_select_tree (1-D)"),
-        (compress, "piv_select_tree_2d", "piv_select_tree_2d"),
-        (compress, "find_preserve", "find_preserve"),
-        (compress, "sys_comp", "sys_comp"),
-        (emit, "emit", "emit, dense rows (A+B, E)"),
-        (emit, "emit_factored", "emit_factored (C+D)"),
-        (emit, "emit_plain", "emit_plain"),
-        (merge, "accumulate", "merge: kernel entry"),
-        (merge, "sort_spawns", "merge: spawn sort"),
-        (arena, "dedup_spawns", "dedup_spawns"),
-        (arena, "compact", "compact"),
-        (molecule, "exact_offdiag_batch", "exact spawn"),
-        (merge_multi, "accumulate", "merge_multi: kernel entry"),
-        (molecule, "diag_matrel_chunked", "diagonal"),
-        (heat_bath, "norm_weight", "norm_weight"),
-        (near_uniform, "sample_doubles", "sampler: NU doubles"),
-        (near_uniform, "sample_doubles_heat_bath", "sampler: HB doubles"),
-        (near_uniform, "sample_singles", "sampler: singles"),
-        (compress, "sample_categorical_rows", "categorical rows"),
-        (molecule, "doub_matr_el", "matrix elements"),
-        (molecule, "sing_matr_el", "matrix elements"),
-        (compress, "round_binomially", "binomial rounding"),
-        (fciqmc, "_attempt_parents", "attempt parents"),
-        (fciqmc, "_partition_spawns", "spawn compaction"),
-        (fciqmc, "_death", "death"),
-        (fciqmc, "_estimate", "estimator"),
-        (hubbard, "offdiag_batch", "offdiag_batch"),
-        (hubbard, "diag_matrel", "diagonal"),
-        (frisys_hh, "level_one", "frisys_hh level 1"),
-        (frisys_hh, "level_two", "frisys_hh level 2"),
-        (frisys_hh, "finalize", "frisys_hh finalize"),
-        (subspace, "lowmem_h_mat", "lowmem h_row"),
-        (compress, "multi_comp", "multi_comp"),
-        (observables, "apply_one_elec", "one_elec"),
-        (shard, "bucket_rows", "exchange: bucket build"),
-        (shard, "gather_counts", "exchange: count all-gather"),
-        (shard, "read_counts", "exchange: host read"),
-        (shard, "payload", "exchange: payload"))
-    phases = [(mod, name, label) for mod, name, label in phases if hasattr(mod, name)]
-    for mod, name, label in phases:
-        setattr(mod, name, _labelled(label, getattr(mod, name)))
-    for mod, name in ((frisys, "make_hbpp_spawner"), (fciqmc, "make_spawner"),
-                      (frimulti, "make_spawner"), (frisys_hh, "make_spawner")):
-        if hasattr(mod, name):
-            make = getattr(mod, name)
-            setattr(mod, name, lambda *a, make=make, **k: _labelled("spawn (total)",
-                                                                   make(*a, **k)))
-    return {label for *_, label in phases} | {"spawn (total)"}
+def program_spans(path) -> set:
+    """The names of the program's spans (``fries.*`` host ranges) in a
+    chrome trace."""
+    with open(path) as f:
+        trace = json.load(f)
+    events = trace["traceEvents"] if isinstance(trace, dict) else trace
+    return {e["name"] for e in events if e.get("cat") in HOST_CATS
+            and str(e.get("name", "")).startswith(PREFIX)}
 
 
 def trace_device_activity(path, n_steps, labels):
@@ -150,30 +77,54 @@ def trace_device_activity(path, n_steps, labels):
     busy ms per step of each labelled phase, busy ms per step inside each
     pair of labelled phases) from a chrome trace: the union of kernel /
     memcpy / memset intervals, and per phase the summed time of the device
-    operations that start inside the phase's ranges on the device timeline
-    (nested phases count in each enclosing one; the spawn, which encloses
-    most phases, is left out of the pairs)."""
+    operations that belong to it: those that start inside the phase's ranges
+    on the device timeline (``gpu_user_annotation``), and those launched
+    (the runtime call of the same correlation id) inside its host ranges
+    (the program's spans, ``cpu_op`` events).  Nested phases count in each
+    enclosing one; the step and the spawn, which enclose most phases, are
+    left out of the pairs."""
     with open(path) as f:
         trace = json.load(f)
     events = trace["traceEvents"] if isinstance(trace, dict) else trace
-    gpu = [e for e in events
-           if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e]
+    gpu = sorted((e for e in events
+                  if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e),
+                 key=lambda e: e["ts"])
     if not gpu:
         return 0.0, 1.0, 0.0, {}, {}, {}
-    starts = sorted((e["ts"], e["dur"]) for e in gpu)
-    ts = [t for t, _ in starts]
-    inside = [set() for _ in starts]
+    ts = [e["ts"] for e in gpu]
+    inside = [set() for _ in gpu]
+    launched = {}      # correlation id -> (host time, thread) of the runtime call
+    host = []          # the labelled host ranges: (start, end, name, thread)
     for e in events:
-        if e.get("cat") == "gpu_user_annotation" and e.get("name") in labels:
+        cat, name = e.get("cat"), e.get("name")
+        if "dur" not in e:
+            continue
+        if cat == "gpu_user_annotation" and name in labels:
             lo = bisect.bisect_left(ts, e["ts"])
             hi = bisect.bisect_left(ts, e["ts"] + e["dur"])
             for i in range(lo, hi):
-                inside[i].add(e["name"])
+                inside[i].add(name)
+        elif cat in HOST_CATS and name in labels:
+            host.append((e["ts"], e["ts"] + e["dur"], name, e.get("tid")))
+        elif cat in ("cuda_runtime", "cuda_driver") and "correlation" in e.get("args", {}):
+            launched[e["args"]["correlation"]] = (e["ts"], e.get("tid"))
+    # a sweep over the launches in time order, holding the host ranges open at each
+    host.sort()
+    order = sorted((launched[c], i) for i, c in enumerate(
+        e.get("args", {}).get("correlation") for e in gpu) if c in launched)
+    active, nxt = [], 0
+    for (t, tid), i in order:
+        while nxt < len(host) and host[nxt][0] <= t:
+            active.append(host[nxt])
+            nxt += 1
+        active = [h for h in active if h[1] >= t]
+        inside[i].update(name for _, _, name, h_tid in active if h_tid == tid)
     phase, pairs = {}, {}
-    for (_, dur), names in zip(starts, inside):
+    for e, names in zip(gpu, inside):
+        dur = e["dur"]
         for name in names:
             phase[name] = phase.get(name, 0.0) + dur
-        for pair in itertools.combinations(sorted(names - {"spawn (total)"}), 2):
+        for pair in itertools.combinations(sorted(names - ENCLOSING), 2):
             key = " & ".join(pair)
             pairs[key] = pairs.get(key, 0.0) + dur
     spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in gpu)
@@ -216,8 +167,7 @@ def main(argv=None):
 
     if not torch.cuda.is_available():
         raise SystemExit("profile_step needs a CUDA device")
-    labels = install_labels()
-    from fries_tpu_torch import rung
+    from fries_tpu_torch import profiling, rung
 
     dev = torch.device("cuda")
     kw = {}
@@ -308,6 +258,7 @@ def main(argv=None):
         torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("default")
     syncs = sum("synchroniz" in str(w.message) for w in caught)
+    reads = profiling.last_step_counts()
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -319,7 +270,7 @@ def main(argv=None):
     Path(args.trace).parent.mkdir(parents=True, exist_ok=True)
     prof.export_chrome_trace(args.trace)
     busy_ms, idle, n_ops, top, phases, pairs = trace_device_activity(
-        args.trace, args.steps, labels)
+        args.trace, args.steps, program_spans(args.trace))
     report = {
         "device": torch.cuda.get_device_name(0), "workload": args.workload,
         "steps": args.steps,
@@ -328,6 +279,7 @@ def main(argv=None):
         "device_idle_share": idle,
         "device_ops_per_step": n_ops,
         "host_syncs_per_step": syncs,
+        "host_reads_per_step": reads,
         "phase_busy_ms_per_step": phases,
         "nested_phase_busy_ms_per_step": pairs,
         "top_kernels_ms_per_step": top,

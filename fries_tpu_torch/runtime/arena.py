@@ -25,16 +25,10 @@ from dataclasses import dataclass, replace
 
 import torch
 
-from fries_tpu_torch import dets
+from fries_tpu_torch import dets, profiling
 from fries_tpu_torch.ops import ordered
 
 F64 = torch.float64
-
-PLAIN_ON_CARD = 0
-"""Merges on the card that :func:`accumulate_best` and
-:func:`accumulate_multi_best` took off the kernels because their shapes are
-outside :func:`fries_tpu_torch.runtime.merge.kernel_fits`: a plain merge,
-or a keep mask's compaction before kernel A."""
 
 
 @dataclass(frozen=True)
@@ -91,6 +85,7 @@ def from_unsorted(arena: Arena, keys: torch.Tensor, vals: torch.Tensor) -> Arena
                  n_used=(~dets.is_invalid(keys)).sum()[None])
 
 
+@profiling.spanned("fries.compact")
 def compact(arena: Arena, keep_mask: torch.Tensor) -> Arena:
     """Drop entries where ``keep_mask`` is False (stable, stays sorted)."""
     c = arena.capacity
@@ -191,7 +186,8 @@ def accumulate(arena: Arena, spawn_keys, spawn_vals, spawn_ini,
     vals = arena.vals.clone()
     vals[dest_row, upos[u_found]] += seg_sum[u_found]
     is_new = u_valid & ~u_found & (seg_cnt > 0)
-    new_vals = vals.new_zeros((arena.n_vecs, int(is_new.sum())))
+    n_new = profiling.host_read(is_new.sum(), "merge.plain_new")
+    new_vals = vals.new_zeros((arena.n_vecs, n_new))
     new_vals[dest_row] = seg_sum[is_new]
     return _insert(arena, akey, vals, ukey[is_new], new_vals, nonini, sent, decode)
 
@@ -268,6 +264,7 @@ def accumulate_multi(arena: Arena, spawn_keys, spawn_vals, spawn_rows, spawn_ini
                    decode)
 
 
+@profiling.spanned("fries.dedup")
 def dedup_spawns(spawn_keys, spawn_vals, spawn_ini, cap: int):
     """Collapse duplicate spawn targets into at most ``cap`` rows before a
     merge (plain torch, as the reference's is plain XLA).
@@ -312,23 +309,24 @@ def dedup_spawns(spawn_keys, spawn_vals, spawn_ini, cap: int):
             n_seg > cap)
 
 
+@profiling.spanned("fries.merge")
 def accumulate_multi_best(arena: Arena, spawn_keys, spawn_vals, spawn_rows,
                           spawn_ini):
     """:func:`accumulate_multi`, through the multi-row merge kernel on the
     card (:func:`fries_tpu_torch.runtime.merge_multi.accumulate`) where its
     shapes fit it (:func:`fries_tpu_torch.runtime.merge.kernel_fits`); the
     plain merge on the card outside its bounds, counted in
-    :data:`PLAIN_ON_CARD`."""
-    global PLAIN_ON_CARD
+    ``profiling``'s ``merge.plain_on_card``."""
     from fries_tpu_torch.runtime import merge, merge_multi
 
     if arena.keys.is_cuda and not merge.kernel_fits(arena.n_vecs, arena.n_words,
                                                     arena.capacity, spawn_keys.shape[0]):
-        PLAIN_ON_CARD += 1
+        profiling.count("merge.plain_on_card")
         return accumulate_multi(arena, spawn_keys, spawn_vals, spawn_rows, spawn_ini)
     return merge_multi.accumulate(arena, spawn_keys, spawn_vals, spawn_rows, spawn_ini)
 
 
+@profiling.spanned("fries.merge")
 def accumulate_best(arena: Arena, spawn_keys, spawn_vals, spawn_ini,
                     origin_row: int = 0, dest_row: int = 0, keep_mask=None):
     """:func:`accumulate` with optional fused compaction (``keep_mask``:
@@ -339,15 +337,14 @@ def accumulate_best(arena: Arena, spawn_keys, spawn_vals, spawn_ini,
     kernel's: a keep mask at another layout is a :func:`compact` first,
     then the merge without a mask (the kernel where the rest fits); too
     many rows or words take :func:`accumulate`.  Either route counts one in
-    :data:`PLAIN_ON_CARD`."""
-    global PLAIN_ON_CARD
+    ``profiling``'s ``merge.plain_on_card``."""
     from fries_tpu_torch.runtime import merge
 
     s = spawn_keys.shape[0]
     layout = None if keep_mask is None else (arena.n_vecs, origin_row, dest_row)
     if arena.keys.is_cuda and not merge.kernel_fits(arena.n_vecs, arena.n_words,
                                                     arena.capacity, s, layout):
-        PLAIN_ON_CARD += 1
+        profiling.count("merge.plain_on_card")
         if keep_mask is not None:
             arena = compact(arena, (arena.vals[origin_row] != 0) | keep_mask)
             keep_mask = None

@@ -38,13 +38,9 @@ import ctypes
 
 import torch
 
-from fries_tpu_torch import _build
+from fries_tpu_torch import _build, profiling
 
 F64 = torch.float64
-
-LAUNCHES = 0
-"""Kernel launches made by :func:`emit` and :func:`emit_factored` (CUDA
-tensors only)."""
 
 _EMIT_CHUNK_ELEMS = 1 << 26   # bounds the (slots, K) temporaries of the plain path
 
@@ -151,8 +147,8 @@ def _launch(kernel, rows, dims, offsets, kept_counts, g_start, ndiv, uniform,
             cum_parent, parent_rem, u_val, rn, unit, thr, w_floor, total,
             out_size):
     """Check the per-parent arrays, allocate the outputs and launch the C
-    entry ``kernel`` with the row pointers ``rows`` and row sizes ``dims``."""
-    global LAUNCHES
+    entry ``kernel`` with the row pointers ``rows`` and row sizes ``dims``;
+    each launch counts one in ``profiling``'s ``launch.emit``."""
     n = offsets.shape[0]
     if n < 1:
         raise ValueError(f"{kernel}: at least one parent row is required")
@@ -181,7 +177,7 @@ def _launch(kernel, rows, dims, offsets, kept_counts, g_start, ndiv, uniform,
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     if err != 0:
         raise RuntimeError(f"{kernel} launch failed: {_build.error_string(err)}")
-    LAUNCHES += 1
+    profiling.count("launch.emit")
     return out_val, out_parent, out_sub
 
 

@@ -54,7 +54,7 @@ import ctypes
 
 import torch
 
-from fries_tpu_torch import _build, dets
+from fries_tpu_torch import _build, dets, profiling
 from fries_tpu_torch.runtime import arena as arena_mod
 
 F64 = torch.float64
@@ -64,9 +64,6 @@ MAX_WORDS = 16     # kMaxWords: keys of W <= 2 words are one int64, of W = 3, 4
                    # 128 bits, of W = 5..16 L = ceil(W / 2) 64-bit limbs (256 orbitals)
 MAX_ROWS = 32      # kMaxChannels: value rows of kernel A, value rows of kernel C
 KEEP_LAYOUTS = ((1, 0, 0), (2, 0, 1))   # (n_vecs, origin, dest) of kernel A's keep mask
-
-LAUNCHES = 0
-"""Kernel launches made by :func:`accumulate` (CUDA tensors only)."""
 
 
 def kernel_fits(n_vecs: int, n_words: int, capacity: int, n_spawns: int,
@@ -103,6 +100,7 @@ def accumulate_plain(arena, spawn_keys, spawn_vals, spawn_ini,
                                 origin_row, dest_row)
 
 
+@profiling.spanned("fries.merge.sort")
 def sort_spawns(spawn_keys):
     """The spawn stream's keys sorted (stable) and the permutation: the work
     a CUDA merge does before its kernel entry.  W <= 2: the (S,) packed
@@ -154,23 +152,24 @@ def launch(kernel, entry, arena, spawn_keys, spawn_vals, spawn_ini, n_chan,
     _build.check_tensor(kernel, "spawn values", spawn_vals, F64, (s,))
     _build.check_tensor(kernel, "spawn initiator flags", spawn_ini, torch.bool, (s,))
     skey, perm = sort_spawns(spawn_keys)
-    nt_r, nt_m = -(-s // TILE), -(-(c + s) // TILE)
-    key_words = 1 if dets.packable(w) else dets.n_limbs(w)      # int64 words per key
-    scratch = (torch.empty(key_words * s, dtype=torch.int64, device=dev),   # unique keys
-               torch.empty(2 * n_chan * s, dtype=F64, device=dev),          # their sums
-               torch.empty((n_chan + 1) * s, dtype=torch.int32, device=dev),  # their counts
-               torch.empty(2 * nt_r * (2 + 3 * n_chan), dtype=F64, device=dev))  # look-back
-    ctrl = torch.empty(CTRL_HEAD + nt_r + nt_m, dtype=torch.int64, device=dev)
-    okw = torch.empty((c, w), dtype=torch.int64, device=dev)
-    ovals = torch.empty((arena.n_vecs, c), dtype=F64, device=dev)
-    overflow = torch.empty((), dtype=torch.bool, device=dev)
-    err = getattr(_build.load(), entry)(
-        ptr(keys), ptr(vals), ctypes.c_int64(c), ctypes.c_int(w), ctypes.c_int(arena.n_vecs),
-        *arena_args, ptr(skey), ptr(perm), ptr(spawn_vals), *spawn_args, ptr(spawn_ini),
-        ctypes.c_int64(s), ctypes.c_int64(dets.sentinel_key(w) if key_words == 1 else 0),
-        *map(ptr, scratch),
-        ptr(ctrl), ptr(okw), ptr(ovals), ptr(overflow),
-        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    with profiling.span("fries.merge.kernel"):
+        nt_r, nt_m = -(-s // TILE), -(-(c + s) // TILE)
+        key_words = 1 if dets.packable(w) else dets.n_limbs(w)      # int64 words per key
+        scratch = (torch.empty(key_words * s, dtype=torch.int64, device=dev),   # unique keys
+                   torch.empty(2 * n_chan * s, dtype=F64, device=dev),          # their sums
+                   torch.empty((n_chan + 1) * s, dtype=torch.int32, device=dev),  # their counts
+                   torch.empty(2 * nt_r * (2 + 3 * n_chan), dtype=F64, device=dev))  # look-back
+        ctrl = torch.empty(CTRL_HEAD + nt_r + nt_m, dtype=torch.int64, device=dev)
+        okw = torch.empty((c, w), dtype=torch.int64, device=dev)
+        ovals = torch.empty((arena.n_vecs, c), dtype=F64, device=dev)
+        overflow = torch.empty((), dtype=torch.bool, device=dev)
+        err = getattr(_build.load(), entry)(
+            ptr(keys), ptr(vals), ctypes.c_int64(c), ctypes.c_int(w), ctypes.c_int(arena.n_vecs),
+            *arena_args, ptr(skey), ptr(perm), ptr(spawn_vals), *spawn_args, ptr(spawn_ini),
+            ctypes.c_int64(s), ctypes.c_int64(dets.sentinel_key(w) if key_words == 1 else 0),
+            *map(ptr, scratch),
+            ptr(ctrl), ptr(okw), ptr(ovals), ptr(overflow),
+            ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     if err != 0:
         raise RuntimeError(f"{kernel} kernel launch failed: {_build.error_string(err)}")
     return (arena_mod.Arena(keys=okw, vals=ovals, n_used=ctrl[2:3]),
@@ -179,7 +178,6 @@ def launch(kernel, entry, arena, spawn_keys, spawn_vals, spawn_ini, n_chan,
 
 def _accumulate_cuda(arena, spawn_keys, spawn_vals, spawn_ini, origin_row,
                      dest_row, keep_mask):
-    global LAUNCHES
     n_vecs = arena.n_vecs
     layout = (n_vecs, origin_row, dest_row)
     if keep_mask is not None and layout not in KEEP_LAYOUTS:
@@ -196,5 +194,5 @@ def _accumulate_cuda(arena, spawn_keys, spawn_vals, spawn_ini, origin_row,
     out = launch("merge", "fries_merge", arena, spawn_keys, spawn_vals.to(F64).contiguous(),
                  spawn_ini.contiguous(), 1,
                  arena_args=(ptr(keep_mask), ctypes.c_int(origin_row), ctypes.c_int(dest_row)))
-    LAUNCHES += 1
+    profiling.count("launch.merge")
     return out

@@ -22,15 +22,12 @@ from __future__ import annotations
 
 import torch
 
-from fries_tpu_torch import _build
+from fries_tpu_torch import _build, profiling
 from fries_tpu_torch.runtime import arena as arena_mod
 from fries_tpu_torch.runtime import merge
 
 F64 = torch.float64
 MAX_ROWS = merge.MAX_ROWS
-
-LAUNCHES = 0
-"""Kernel launches made by :func:`accumulate` (CUDA tensors only)."""
 
 
 def accumulate(arena, spawn_keys, spawn_vals, spawn_rows, spawn_ini):
@@ -45,7 +42,6 @@ def accumulate(arena, spawn_keys, spawn_vals, spawn_rows, spawn_ini):
 
 
 def _accumulate_cuda(arena, spawn_keys, spawn_vals, spawn_rows, spawn_ini):
-    global LAUNCHES
     r = arena.n_vecs
     if not 1 <= r <= MAX_ROWS:
         raise NotImplementedError(f"merge_multi kernel takes 1..{MAX_ROWS} rows, got {r}")
@@ -55,5 +51,5 @@ def _accumulate_cuda(arena, spawn_keys, spawn_vals, spawn_rows, spawn_ini):
     out = merge.launch("merge_multi", "fries_merge_multi", arena, spawn_keys,
                        spawn_vals.to(F64).contiguous(), spawn_ini.contiguous(), r,
                        spawn_args=(merge.ptr(spawn_rows),))
-    LAUNCHES += 1
+    profiling.count("launch.merge_multi")
     return out

@@ -34,7 +34,7 @@ import os
 import numpy as np
 import torch
 
-from fries_tpu_torch import dets
+from fries_tpu_torch import dets, profiling
 
 FNV_PRIME = 0x01000193
 FNV_SEED = 0x811C9DC5
@@ -74,6 +74,7 @@ def exchange(arrays: dict, target: torch.Tensor, n_shards: int, per_pair_cap: in
     return exchange_ragged(arrays, target, n_shards, n_shards * per_pair_cap, shards)
 
 
+@profiling.spanned("fries.exchange.bucket")
 def bucket_rows(keys, target, n_shards: int):
     """(order, count): the stable sort of the rows by destination (invalid
     rows last, in bucket ``n_shards``) and each destination's row count
@@ -84,14 +85,16 @@ def bucket_rows(keys, target, n_shards: int):
     return order, count
 
 
+@profiling.spanned("fries.exchange.counts")
 def gather_counts(count, shards):
     """(n, n) device tensor, row i what rank i sends to each destination."""
     return shards.gather(count)
 
 
+@profiling.spanned("fries.exchange.read")
 def read_counts(all_counts) -> np.ndarray:
     """The count matrix on the host: the exchange's one host read."""
-    return all_counts.cpu().numpy().astype(np.int64)
+    return np.asarray(profiling.host_read(all_counts, "exchange.counts"), dtype=np.int64)
 
 
 def _pack(arrays: dict, rows):
@@ -134,6 +137,7 @@ def _unpack(buf, layout, n_rows: int, cap: int):
     return out
 
 
+@profiling.spanned("fries.exchange.payload")
 def payload(shards, send, recv_rows: int, out_splits, in_splits):
     """The all-to-all of the packed rows: ``send`` grouped by destination,
     ``recv_rows`` received in sender order."""

@@ -14,8 +14,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from fries_tpu_torch import cisd, flagship, synth  # noqa: E402
-from fries_tpu_torch.runtime import emit, merge  # noqa: E402
+from fries_tpu_torch import cisd, flagship, profiling, synth  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 SYMM = np.array([0, 1, 0, 1, 0, 1, 2, 3])
@@ -41,9 +40,9 @@ def test_flagship_card_matches_cpu(cuda, tmp_path):
         ham = synth.make_system(8, 4, symm=SYMM, seed=3, device=dev)
         args = flagship.parser().parse_args(
             [*FLAGS, "--device", dev, "--result_dir", str(tmp_path / dev)])
-        merge.LAUNCHES = emit.LAUNCHES = 0
+        profiling.reset("launch.merge", "launch.emit")
         out[dev] = flagship.run(ham, trial, args, META, e_cisd=e, log=lambda s: None)
-        out[dev]["launches"] = (merge.LAUNCHES, emit.LAUNCHES)
+        out[dev]["launches"] = (profiling.total("launch.merge"), profiling.total("launch.emit"))
     assert out["cuda"]["launches"] == (N_ITERS, 3 * N_ITERS)
     assert out["cpu"]["launches"] == (0, 0)
     for name in flagship.STREAMS:

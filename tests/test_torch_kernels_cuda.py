@@ -13,7 +13,8 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
-from fries_tpu_torch import _build, compress, dets, probe_reshape, rng as trng, rung, synth  # noqa: E402
+from fries_tpu_torch import (_build, compress, dets, probe_reshape, profiling,  # noqa: E402
+                             rng as trng, rung, synth)
 from fries_tpu_torch.drivers import (fciqmc, frifull, frifull_hh, frimulti, frisys,  # noqa: E402
                                      frisys_hh, observables, power, subspace)
 from fries_tpu_torch.ops import hubbard, molecule as mol  # noqa: E402
@@ -78,12 +79,12 @@ def run_merge(cuda, a, sk, sv, si, layout, keep=None):
         a = ar.Arena(keys=a.keys, vals=torch.cat([a.vals[:1], torch.zeros_like(a.vals[:1])]),
                      n_used=a.n_used)
     ref, rstats = merge.accumulate(a, sk, sv, si, origin, dest, keep_mask=keep)
-    before = merge.LAUNCHES
+    before = profiling.total("launch.merge")
     got, gstats = merge.accumulate(
         to_dev(a, cuda), sk.to(cuda), sv.to(cuda), si.to(cuda), origin, dest,
         keep_mask=None if keep is None else keep.to(cuda))
     torch.cuda.synchronize()
-    assert merge.LAUNCHES == before + 1
+    assert profiling.total("launch.merge") == before + 1
     assert_merge_equal(got, gstats, ref, rstats)
 
 
@@ -215,12 +216,12 @@ def test_merge_chunked_regime(cuda, capacity, s_ratio, sentinel_frac):
             vals[1] = dest_row
         arena = ar.Arena(keys=a.keys, vals=vals, n_used=a.n_used)
         ref, rstats = merge.accumulate(arena, sk, sv, si, 0, 1, keep_mask=mask)
-        before = merge.LAUNCHES
+        before = profiling.total("launch.merge")
         got, gstats = merge.accumulate(to_dev(arena, cuda), sk.to(cuda), sv.to(cuda),
                                        si.to(cuda), 0, 1,
                                        keep_mask=None if mask is None else mask.to(cuda))
         torch.cuda.synchronize()
-        assert merge.LAUNCHES == before + 1
+        assert profiling.total("launch.merge") == before + 1
         assert_merge_equal(got, gstats, ref, rstats)
         if mask is None:
             assert int(got.n_used[0]) >= n   # every valid row survives
@@ -250,11 +251,11 @@ def test_merge_fciqmc_regime_exact(cuda, sentinel_frac):
     sv[sk[:, 0] == dets.WORD_MASK] = 0.0
     si = torch.as_tensor(rng.random(s) < 0.3)
     ref, rstats = merge.accumulate(a, sk, sv, si, 0, 0)
-    before = merge.LAUNCHES
+    before = profiling.total("launch.merge")
     got, gstats = merge.accumulate(to_dev(a, cuda), sk.to(cuda), sv.to(cuda), si.to(cuda),
                                    0, 0)
     torch.cuda.synchronize()
-    assert merge.LAUNCHES == before + 1
+    assert profiling.total("launch.merge") == before + 1
     assert_merge_equal(got, gstats, ref, rstats)
     assert torch.equal(got.vals.cpu(), ref.vals)
     assert int(got.n_used[0]) >= n
@@ -285,11 +286,11 @@ def multi_case(rng, n_words, n_rows, capacity=1024, n_occ=400, n_spawn=700,
 
 def run_merge_multi(cuda, a, sk, sv, sr, si):
     ref, rstats = merge_multi.accumulate(a, sk, sv, sr, si)
-    before = merge_multi.LAUNCHES
+    before = profiling.total("launch.merge_multi")
     got, gstats = merge_multi.accumulate(to_dev(a, cuda), sk.to(cuda), sv.to(cuda),
                                          sr.to(cuda), si.to(cuda))
     torch.cuda.synchronize()
-    assert merge_multi.LAUNCHES == before + 1
+    assert profiling.total("launch.merge_multi") == before + 1
     assert_merge_equal(got, gstats, ref, rstats)
     return gstats
 
@@ -392,10 +393,10 @@ def test_emit_matches_plain(cuda, dtype, n, k, n_samp, out_size, uniform_frac):
     ref = emit.emit(**plan)
     dev_plan = {key: v.to(cuda) if isinstance(v, torch.Tensor) else v
                 for key, v in plan.items()}
-    before = emit.LAUNCHES
+    before = profiling.total("launch.emit")
     got = emit.emit(**dev_plan)
     torch.cuda.synchronize()
-    assert emit.LAUNCHES == before + 1
+    assert profiling.total("launch.emit") == before + 1
     assert_emission_close(plan, got, ref)
 
 
@@ -475,10 +476,10 @@ def test_emit_factored_matches_plain(cuda, dtype, kill, case):
     ref = emit.emit_factored(**plan)
     dev_plan = {key: v.to(cuda) if isinstance(v, torch.Tensor) else v
                 for key, v in plan.items()}
-    before = emit.LAUNCHES
+    before = profiling.total("launch.emit")
     got = emit.emit_factored(**dev_plan)
     torch.cuda.synchronize()
-    assert emit.LAUNCHES == before + 1
+    assert profiling.total("launch.emit") == before + 1
     assert_emission_close(plan, got, ref)
     # the dense kernel over the materialized joint gives the same slots
     joint = emit.factored_rows(dev_plan["fa"], dev_plan["fb"], dev_plan["kill_b0"])
@@ -506,10 +507,10 @@ def test_emit_factored_unaligned_spans(cuda):
 def test_probe_reshape_kernel(cuda):
     x = torch.randint(-2**31, 2**31 - 1, (probe_reshape.RB, probe_reshape.LANES),
                       dtype=torch.int32, device=cuda)
-    before = probe_reshape.LAUNCHES
+    before = profiling.total("launch.probe_reshape")
     got = probe_reshape.reshape(x)
     torch.cuda.synchronize()
-    assert probe_reshape.LAUNCHES == before + 1
+    assert profiling.total("launch.probe_reshape") == before + 1
     assert torch.equal(got, probe_reshape.reshape_plain(x))
     assert probe_reshape.probe(cuda)
 
@@ -518,12 +519,12 @@ def test_probe_copy_kernel(cuda):
     """Kernel #5, the backend probe: the loader has launched it once; a copy
     of a random (16, 128) tile equals the plain version."""
     _build.load()
-    assert _build.PROBE_LAUNCHES >= 1
+    assert profiling.total("launch.probe_copy") >= 1
     x = torch.randn(_build.PROBE_SHAPE, device=cuda)
-    before = _build.PROBE_LAUNCHES
+    before = profiling.total("launch.probe_copy")
     got = _build.probe_copy(x)
     torch.cuda.synchronize()
-    assert _build.PROBE_LAUNCHES == before + 1
+    assert profiling.total("launch.probe_copy") == before + 1
     assert torch.equal(got, _build.probe_copy_plain(x))
 
 
@@ -544,7 +545,7 @@ def test_frisys_step_cuda_matches_cpu(cuda):
                         aux["den_vals"], aux["ref_key"])
     state, _ = run_c(state, *args(aux_c), 20)
     rng = np.random.default_rng(0)
-    m0, e0 = merge.LAUNCHES, emit.LAUNCHES
+    m0, e0 = profiling.total("launch.merge"), profiling.total("launch.emit")
     for _ in range(5):
         rns, rn = rng.random(6), float(rng.random())
         g_state = frisys.power.PowerState(to_dev(state.arena, cuda),
@@ -560,7 +561,7 @@ def test_frisys_step_cuda_matches_cpu(cuda):
         for key in mc:
             np.testing.assert_allclose(float(mg[key]), float(mc[key]), rtol=1e-10,
                                        atol=1e-12, err_msg=key)
-    assert merge.LAUNCHES - m0 == 5 and emit.LAUNCHES - e0 == 15
+    assert profiling.total("launch.merge") - m0 == 5 and profiling.total("launch.emit") - e0 == 15
 
 
 @pytest.mark.parametrize("spin_parity", [0, 1])
@@ -582,7 +583,7 @@ def test_subspace_step_cuda_matches_cpu(cuda, spin_parity):
     step_c, run_c, state, _ = built["cpu"]
     step_g = built[cuda][0]
     state, _ = run_c(state, 4)
-    c0 = merge_multi.LAUNCHES
+    c0 = profiling.total("launch.merge_multi")
     for _ in range(4):
         g_state = subspace.SubspaceState(to_dev(state.arena, cuda),
                                          state.norm_factors.to(cuda),
@@ -597,7 +598,7 @@ def test_subspace_step_cuda_matches_cpu(cuda, spin_parity):
         for key in mc:
             np.testing.assert_allclose(mg[key].cpu().numpy(), mc[key].numpy(),
                                        rtol=1e-10, atol=1e-12, err_msg=key)
-    assert merge_multi.LAUNCHES - c0 == 4
+    assert profiling.total("launch.merge_multi") - c0 == 4
 
 
 def card_steps_match_cpu(cuda, built, n_warm, n_steps, **step_kw):
@@ -640,10 +641,10 @@ def test_frisys_options_step_cuda_matches_cpu(cuda, path):
     built = {dev: frisys.build(synth.make_system(8, 4, symm=SYMM8, seed=3, device=dev), cfg,
                                seed=4, determ_keys=space if path == "semistoch" else None)
              for dev in ("cpu", cuda)}
-    m0, e0 = merge.LAUNCHES, emit.LAUNCHES
+    m0, e0 = profiling.total("launch.merge"), profiling.total("launch.emit")
     kw = dict(protected_keys="protected_keys") if path == "semistoch" else {}
     mc = card_steps_match_cpu(cuda, built, 20, 4, **kw)
-    assert merge.LAUNCHES - m0 == 4 and emit.LAUNCHES - e0 == 12
+    assert profiling.total("launch.merge") - m0 == 4 and profiling.total("launch.emit") - e0 == 12
     assert float(mc["shift"]) != 0.0
 
 
@@ -658,9 +659,9 @@ def test_frifull_step_cuda_matches_cpu(cuda, spin_parity, dedup_cap):
     built = {dev: frifull.build(synth.make_system(8, 4, symm=SYMM8, seed=3, device=dev), cfg,
                                 seed=4, spin_parity=spin_parity)
              for dev in ("cpu", cuda)}
-    m0 = merge.LAUNCHES
+    m0 = profiling.total("launch.merge")
     mc = card_steps_match_cpu(cuda, built, 12, 4)
-    assert merge.LAUNCHES - m0 == 4 * 8
+    assert profiling.total("launch.merge") - m0 == 4 * 8
     assert not bool(mc["overflow"]) and int(mc["nnonz"]) > 30
 
 
@@ -680,7 +681,7 @@ def test_fciqmc_step_cuda_matches_cpu(cuda, dist, integer):
     step_c, run_c, state, aux_c = built["cpu"]
     step_g, _, _, aux_g = built[cuda]
     state, _ = run_c(state, *rung.estimator_args(aux_c), 20)
-    m0 = merge.LAUNCHES
+    m0 = profiling.total("launch.merge")
     for _ in range(4):
         g_state = fciqmc.FciqmcState(to_dev(state.arena, cuda), state.en_shift.to(cuda),
                                      state.last_norm.to(cuda), state.key, state.iterat)
@@ -698,7 +699,7 @@ def test_fciqmc_step_cuda_matches_cpu(cuda, dist, integer):
         for key in ("proj_num", "proj_den", "norm", "shift"):
             np.testing.assert_allclose(float(mg[key]), float(mc[key]), rtol=1e-12, atol=0,
                                        err_msg=key)
-    assert merge.LAUNCHES - m0 == 4
+    assert profiling.total("launch.merge") - m0 == 4
 
 
 @pytest.mark.parametrize("dist", ["NU", "HB"])
@@ -716,7 +717,7 @@ def test_frimulti_step_cuda_matches_cpu(cuda, dist):
     args = lambda aux: (aux["num_keys"], aux["num_vals"], aux["den_keys"], aux["den_vals"],
                         aux["ref_key"])
     state, _ = run_c(state, *args(aux_c), 10)
-    m0 = merge.LAUNCHES
+    m0 = profiling.total("launch.merge")
     for _ in range(4):
         g_state = power.PowerState(to_dev(state.arena, cuda), state.en_shift.to(cuda),
                                    state.last_norm.to(cuda), state.iterat, state.generator,
@@ -730,7 +731,7 @@ def test_frimulti_step_cuda_matches_cpu(cuda, dist):
         for key in mc:
             np.testing.assert_allclose(float(mg[key]), float(mc[key]), rtol=1e-10,
                                        atol=1e-12, err_msg=key)
-    assert merge.LAUNCHES - m0 == 4
+    assert profiling.total("launch.merge") - m0 == 4
 
 
 # ---------------------------------------------------------------------------
@@ -818,11 +819,11 @@ def test_emit_hh_level_two(cuda):
 
 def run_emit(cuda, plan):
     ref = emit.emit(**plan)
-    before = emit.LAUNCHES
+    before = profiling.total("launch.emit")
     got = emit.emit(**{key: v.to(cuda) if isinstance(v, torch.Tensor) else v
                        for key, v in plan.items()})
     torch.cuda.synchronize()
-    assert emit.LAUNCHES == before + 1
+    assert profiling.total("launch.emit") == before + 1
     assert_emission_close(plan, got, ref)
 
 
@@ -856,11 +857,11 @@ def test_merge_multi_exact_chunks(cuda, order):
             sk, sv, sr = sk[perm], sv[perm], sr[perm]
         si = torch.ones(sk.shape[0], dtype=torch.bool)
         ref, rstats = merge_multi.accumulate(ref, sk, sv, sr, si)
-        before = merge_multi.LAUNCHES
+        before = profiling.total("launch.merge_multi")
         got, gstats = merge_multi.accumulate(got, sk.to(cuda), sv.to(cuda), sr.to(cuda),
                                              si.to(cuda))
         torch.cuda.synchronize()
-        assert merge_multi.LAUNCHES == before + 1
+        assert profiling.total("launch.merge_multi") == before + 1
         assert_merge_equal(got, gstats, ref, rstats)
     assert int(ref.n_used[0]) > n
 
@@ -887,10 +888,10 @@ def test_hh_step_cuda_matches_cpu(cuda, driver, g, ph_bits):
                                        spawn_cap=64, target_norm=150.0, shift_interval=2)
         built = {dev: frisys_hh.build(ham, 0.1, cfg, seed=3, device=dev)
                  for dev in ("cpu", cuda)}
-    m0, e0 = merge.LAUNCHES, emit.LAUNCHES
+    m0, e0 = profiling.total("launch.merge"), profiling.total("launch.emit")
     mc = card_steps_match_cpu(cuda, built, 12, 4)
-    assert merge.LAUNCHES - m0 == 4
-    assert emit.LAUNCHES - e0 == (8 if driver == "frisys_hh" else 0)
+    assert profiling.total("launch.merge") - m0 == 4
+    assert profiling.total("launch.emit") - e0 == (8 if driver == "frisys_hh" else 0)
     assert int(mc["n_dets"]) > 5
 
 
@@ -914,7 +915,7 @@ def test_subspace_mode_step_cuda_matches_cpu(cuda, mode):
     step_c, run_c, state, _ = built["cpu"]
     step_g = built[cuda][0]
     state, _ = run_c(state, 4)
-    c0, merges = merge_multi.LAUNCHES, 0
+    c0, merges = profiling.total("launch.merge_multi"), 0
     for _ in range(4):
         g_state = subspace.SubspaceState(to_dev(state.arena, cuda),
                                          state.norm_factors.to(cuda),
@@ -930,7 +931,7 @@ def test_subspace_mode_step_cuda_matches_cpu(cuda, mode):
             np.testing.assert_allclose(mg[key].cpu().numpy(), mc[key].numpy(),
                                        rtol=1e-10, atol=1e-12, err_msg=key)
         merges += int(mc.get("n_merges", 1))
-    assert merge_multi.LAUNCHES - c0 == merges
+    assert profiling.total("launch.merge_multi") - c0 == merges
     assert merges >= (12 if mode == "exact_h" else 4)
 
 
@@ -960,11 +961,11 @@ def test_merge_general_layouts(cuda, layout, n_words, sentinel_frac):
     vals[:, n:] = 0.0
     a = ar.Arena(keys=a.keys, vals=torch.as_tensor(vals), n_used=a.n_used)
     ref, rstats = merge.accumulate_plain(a, sk, sv, si, origin, dest)
-    before = merge.LAUNCHES
+    before = profiling.total("launch.merge")
     got, gstats = merge.accumulate(to_dev(a, cuda), sk.to(cuda), sv.to(cuda), si.to(cuda),
                                    origin, dest)
     torch.cuda.synchronize()
-    assert merge.LAUNCHES == before + 1
+    assert profiling.total("launch.merge") == before + 1
     assert_merge_equal(got, gstats, ref, rstats)
     others = [r for r in range(n_vecs) if r != dest]
     assert torch.equal(got.vals[others].cpu(), ref.vals[others])
@@ -978,7 +979,7 @@ def test_merge_refuses_layouts_outside_its_contract(cuda):
     vals = torch.zeros(4, dtype=torch.float64, device=cuda)
     ini = torch.ones(4, dtype=torch.bool, device=cuda)
     keep = torch.ones(64, dtype=torch.bool, device=cuda)
-    before = merge.LAUNCHES
+    before = profiling.total("launch.merge")
     for origin, dest, mask in ((0, 3, keep), (0, 0, keep), (1, 1, keep), (0, 4, None),
                                (4, 0, None), (-1, 0, None)):
         with pytest.raises(NotImplementedError):
@@ -986,7 +987,7 @@ def test_merge_refuses_layouts_outside_its_contract(cuda):
     a33 = to_dev(ar.make(64, 2, 33), cuda)
     with pytest.raises(NotImplementedError):
         merge.accumulate(a33, keys, vals, ini, 0, 0)
-    assert merge.LAUNCHES == before
+    assert profiling.total("launch.merge") == before
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -999,11 +1000,11 @@ def test_emit_unfused_levels(cuda, dtype, k, uniform_frac):
     rng = np.random.default_rng(50 + k)
     plan = emission_case(rng, 20000, k, 15000, 20480, uniform_frac, dtype)
     ref = emit.emit(**plan)
-    before = emit.LAUNCHES
+    before = profiling.total("launch.emit")
     got = emit.emit(**{key: v.to(cuda) if isinstance(v, torch.Tensor) else v
                        for key, v in plan.items()})
     torch.cuda.synchronize()
-    assert emit.LAUNCHES == before + 1
+    assert profiling.total("launch.emit") == before + 1
     assert_emission_close(plan, got, ref)
 
 
@@ -1017,9 +1018,10 @@ def test_frisys_unfused_step_cuda_matches_cpu(cuda, stages):
     built = {dev: frisys.build(synth.make_system(8, 4, symm=SYMM8, seed=3, device=dev), cfg,
                                seed=4)
              for dev in ("cpu", cuda)}
-    m0, e0 = merge.LAUNCHES, emit.LAUNCHES
+    m0, e0 = profiling.total("launch.merge"), profiling.total("launch.emit")
     card_steps_match_cpu(cuda, built, 20, 4)
-    assert merge.LAUNCHES - m0 == 4 and emit.LAUNCHES - e0 == 4 * (3 + len(stages))
+    assert profiling.total("launch.merge") - m0 == 4
+    assert profiling.total("launch.emit") - e0 == 4 * (3 + len(stages))
 
 
 @pytest.mark.parametrize("target_nonz", [256, 30])
@@ -1036,7 +1038,7 @@ def test_observables_step_cuda_matches_cpu(cuda, replica, target_nonz):
              for dev in ("cpu", cuda)}
     step_c, _, state_c, _ = built["cpu"]
     step_g, _, state_g, _ = built[cuda]
-    m0, merges = merge.LAUNCHES, 0
+    m0, merges = profiling.total("launch.merge"), 0
     for _ in range(10):
         state_c, mc = step_c(state_c)
         state_g, mg = step_g(state_g)
@@ -1049,7 +1051,7 @@ def test_observables_step_cuda_matches_cpu(cuda, replica, target_nonz):
                                        atol=1e-13, err_msg=key)
         assert not bool(mc["overflow"])
         merges += int(mc["n_merges"])
-    assert merge.LAUNCHES - m0 == merges and merges > 20
+    assert profiling.total("launch.merge") - m0 == merges and merges > 20
     assert float(mc["obs_num"]) != 0.0
 
 
@@ -1144,9 +1146,9 @@ def test_wide_frisys_step_cuda_matches_cpu(cuda):
     cfg = frisys.FrisysConfig(eps=0.01, vec_nonz=400, matr_samp=2000, capacity=8192,
                               spawn_cap=2600, target_norm=2000.0, shift_interval=2)
     built = {dev: frisys.build(wide_system(dev), cfg, seed=4) for dev in ("cpu", cuda)}
-    m0, e0 = merge.LAUNCHES, emit.LAUNCHES
+    m0, e0 = profiling.total("launch.merge"), profiling.total("launch.emit")
     card_steps_match_cpu(cuda, built, 3, 3)
-    assert merge.LAUNCHES - m0 == 3 and emit.LAUNCHES - e0 == 9
+    assert profiling.total("launch.merge") - m0 == 3 and profiling.total("launch.emit") - e0 == 9
 
 
 def test_wide_subspace_step_cuda_matches_cpu(cuda):
@@ -1163,7 +1165,7 @@ def test_wide_subspace_step_cuda_matches_cpu(cuda):
     step_c, run_c, state, _ = built["cpu"]
     step_g = built[cuda][0]
     state, _ = run_c(state, 1)
-    c0 = merge_multi.LAUNCHES
+    c0 = profiling.total("launch.merge_multi")
     for _ in range(3):
         g_state = subspace.SubspaceState(to_dev(state.arena, cuda),
                                          state.norm_factors.to(cuda),
@@ -1178,4 +1180,4 @@ def test_wide_subspace_step_cuda_matches_cpu(cuda):
         for key in mc:
             np.testing.assert_allclose(mg[key].cpu().numpy(), mc[key].numpy(),
                                        rtol=1e-10, atol=1e-12, err_msg=key)
-    assert merge_multi.LAUNCHES - c0 == 3
+    assert profiling.total("launch.merge_multi") - c0 == 3

@@ -7,9 +7,9 @@ machine with ``python -m pytest --noconftest tests/test_torch_merge_route_cuda.p
 on keys of 17 words and with a keep mask at layout (3, 1, 2), each against
 the plain merge of the same inputs on the CPU (keys, counts and flags
 exact, values at rtol 1e-12), each counting one card route in
-``arena.PLAIN_ON_CARD``; calls inside the bounds count none and launch their
-kernel; ``arena.dedup_spawns`` twice on one stream on the card, equal bit
-for bit to each other and to the CPU.
+``profiling``'s ``merge.plain_on_card``; calls inside the bounds count
+none and launch their kernel; ``arena.dedup_spawns`` twice on one stream
+on the card, equal bit for bit to each other and to the CPU.
 """
 
 import numpy as np
@@ -17,8 +17,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from fries_tpu_torch import dets  # noqa: E402
-from fries_tpu_torch.runtime import arena as ar, merge, merge_multi  # noqa: E402
+from fries_tpu_torch import dets, profiling  # noqa: E402
+from fries_tpu_torch.runtime import arena as ar, merge  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -65,11 +65,11 @@ def assert_same(got, ref):
 
 def counted(fn):
     """(result, card routes, kernel A launches, kernel C launches) of one call."""
-    before = ar.PLAIN_ON_CARD, merge.LAUNCHES, merge_multi.LAUNCHES
+    names = ("merge.plain_on_card", "launch.merge", "launch.merge_multi")
+    before = [profiling.total(n) for n in names]
     out = fn()
     torch.cuda.synchronize()
-    return (out, ar.PLAIN_ON_CARD - before[0], merge.LAUNCHES - before[1],
-            merge_multi.LAUNCHES - before[2])
+    return (out, *(profiling.total(n) - b for n, b in zip(names, before)))
 
 
 def test_multi_best_33_rows(cuda):

@@ -17,7 +17,7 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 from jax.experimental import pallas as pl  # noqa: E402
 
-from fries_tpu_torch import _build  # noqa: E402
+from fries_tpu_torch import _build, profiling  # noqa: E402
 from fries_tpu_torch import probe_reshape as probe_mod  # noqa: E402
 
 
@@ -56,10 +56,10 @@ def test_reshape_plain_matches_pallas_direct(case):
 
 
 def test_probe_cli_on_cpu_takes_plain(capsys):
-    before = probe_mod.LAUNCHES
+    before = profiling.total("launch.probe_reshape")
     assert probe_mod.main(["--device", "cpu"]) == 0
     assert "direct reshape (8,128)->(1024,1): OK" in capsys.readouterr().out
-    assert probe_mod.LAUNCHES == before
+    assert profiling.total("launch.probe_reshape") == before
 
 
 def reference_probe_copy(x):
@@ -80,8 +80,8 @@ def test_probe_copy_plain_matches_pallas_probe(case):
     rng = np.random.default_rng(5)
     x = (np.arange(16 * 128, dtype=np.float32).reshape(_build.PROBE_SHAPE) if case == "arange"
          else rng.standard_normal(_build.PROBE_SHAPE).astype(np.float32))
-    before = _build.PROBE_LAUNCHES
+    before = profiling.total("launch.probe_copy")
     got = _build.probe_copy(torch.as_tensor(x))
-    assert _build.PROBE_LAUNCHES == before   # the CPU takes the plain version
+    assert profiling.total("launch.probe_copy") == before   # the CPU takes the plain version
     assert got.dtype == torch.float32
     np.testing.assert_array_equal(got.numpy(), reference_probe_copy(x))

@@ -16,7 +16,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from fries_tpu_torch import dets, parallel, rung, synth  # noqa: E402
+from fries_tpu_torch import dets, parallel, profiling, rung, synth  # noqa: E402
 from fries_tpu_torch.drivers import frisys  # noqa: E402
 from fries_tpu_torch.ops import ordered  # noqa: E402
 from fries_tpu_torch.runtime import arena as ar  # noqa: E402
@@ -81,9 +81,9 @@ def assert_repeatable(fn):
 
 def test_kernel_a_repeatable(cuda):
     a, sk, sv, si, _ = long_run_case(cuda)
-    before = merge.LAUNCHES
+    before = profiling.total("launch.merge")
     got = assert_repeatable(lambda: merge.accumulate(a, sk, sv, si, 0, 0))
-    assert merge.LAUNCHES == before + REPEATS
+    assert profiling.total("launch.merge") == before + REPEATS
     ref = merge.accumulate_plain(a, sk, sv, si, 0, 0)
     assert torch.equal(got[0].keys, ref[0].keys)
     torch.testing.assert_close(got[0].vals, ref[0].vals, rtol=1e-12, atol=1e-12)
@@ -91,9 +91,9 @@ def test_kernel_a_repeatable(cuda):
 
 def test_kernel_c_repeatable(cuda):
     a, sk, sv, si, sr = long_run_case(cuda, n_rows=3, seed=1)
-    before = merge_multi.LAUNCHES
+    before = profiling.total("launch.merge_multi")
     got = assert_repeatable(lambda: merge_multi.accumulate(a, sk, sv, sr, si))
-    assert merge_multi.LAUNCHES == before + REPEATS
+    assert profiling.total("launch.merge_multi") == before + REPEATS
     ref = ar.accumulate_multi(a, sk, sv, sr, si)
     assert torch.equal(got[0].keys, ref[0].keys)
     torch.testing.assert_close(got[0].vals, ref[0].vals, rtol=1e-12, atol=1e-12)

@@ -15,9 +15,8 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
-from fries_tpu_torch import synth  # noqa: E402
+from fries_tpu_torch import profiling, synth  # noqa: E402
 from fries_tpu_torch.drivers import frisys  # noqa: E402
-from fries_tpu_torch.runtime import emit, merge  # noqa: E402
 from test_torch_kernels_cuda import (WIDE_CASES, card_steps_match_cpu, run_merge,  # noqa: E402
                                      run_merge_multi, wide_regime)
 
@@ -59,6 +58,6 @@ def test_five_word_frisys_step_cuda_matches_cpu(cuda):
     built = {dev: frisys.build(synth.make_system(65, 4, symm=np.arange(65) % 4, seed=5,
                                                  scale_two=0.1, device=dev), cfg, seed=4)
              for dev in ("cpu", cuda)}
-    m0, e0 = merge.LAUNCHES, emit.LAUNCHES
+    m0, e0 = profiling.total("launch.merge"), profiling.total("launch.emit")
     card_steps_match_cpu(cuda, built, 3, 3)
-    assert merge.LAUNCHES - m0 == 3 and emit.LAUNCHES - e0 == 9
+    assert profiling.total("launch.merge") - m0 == 3 and profiling.total("launch.emit") - e0 == 9
