@@ -1,7 +1,13 @@
 #!/usr/bin/env python3
 """Drive the PyTorch / CUDA port (fries_tpu_torch) once on one NVIDIA GPU.
 
-Phases, in order; any failure exits non-zero:
+Phases, in order; any failure exits non-zero.  Around the timed steps of
+every frisys path (the rung, ``semistoch``, the unfused rung, ``ne_qz``,
+``ne2_qz``, ``rung_real``, ``semistoch_cisd``, the flagship, the anchor and
+the sharded step) kernel F's launches are counted and must be R + 3 for
+each C+D plan of R fixpoint rounds (``fixpoint.comp_sub`` reads inside
+``compress.comp_sub_factored_plan``), one plan a step, none in the unfused
+rung; the phases log them per step (``launches_per_step``).
 
 1. require a CUDA device; print the card's name and power limit
    (``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``);
@@ -310,6 +316,43 @@ def kernel_launches(mod) -> int:
 
 def reset_launches(*mods):
     reset_counters(*map(_launch_counter, mods))
+
+
+@contextlib.contextmanager
+def cd_plans():
+    """Kernel F's launch count reset, then the C+D rounds' plans
+    (``compress.comp_sub_factored_plan`` calls) and their fixpoint rounds
+    (the ``fixpoint.comp_sub`` reads made inside them) counted while open;
+    yields {"plans": P, "rounds": R} for :func:`check_plan_launches`."""
+    from fries_tpu_torch import compress
+
+    seen = {"plans": 0, "rounds": 0}
+
+    def wrap(fn):
+        def counted(*args, **kwargs):
+            reads = counter("fixpoint.comp_sub")
+            out = fn(*args, **kwargs)
+            seen["plans"] += 1
+            seen["rounds"] += counter("fixpoint.comp_sub") - reads
+            return out
+        return counted
+
+    reset_counters("launch.plan")
+    with patched((compress, "comp_sub_factored_plan", wrap)):
+        yield seen
+
+
+def check_plan_launches(label, seen, n_steps, plans_per_step):
+    """Kernel F's launches in :func:`cd_plans`' block: R + 3 for each C+D
+    plan of R fixpoint rounds, ``plans_per_step`` plans a step.  Returns
+    {"plan": launches, "cd_rounds": R} per step."""
+    got = counter("launch.plan")
+    want = seen["rounds"] + 3 * seen["plans"]
+    if seen["plans"] != plans_per_step * n_steps or got != want:
+        raise AssertionError(f"{label}: {got} kernel F launches for {seen['plans']} C+D plans "
+                             f"of {seen['rounds']} fixpoint rounds in {n_steps} steps, want "
+                             f"{plans_per_step * n_steps} plans and R + 3 launches each")
+    return {"plan": got / n_steps, "cd_rounds": seen["rounds"] / n_steps}
 
 
 def cuda_ms(fn, reps=5):
@@ -985,6 +1028,132 @@ def phase_emit(dev):
 
 
 # ---------------------------------------------------------------------------
+# kernel F: the factored C+D plan's reductions
+# ---------------------------------------------------------------------------
+
+PLAN_SHAPES = {   # name: (N, E, V, n_samp), the benchmark cells' C+D rounds
+    "n2_ccpvdz_synth.fri_1m": (1_032_768, 10, 21, 1_000_000),
+    "ne_ccpvqz_synth.fri_500k": (532_768, 8, 50, 500_000),
+}
+
+
+def plan_inputs(gen, dev, n, e_k, v_k, uniform_frac=0.1, heavy_frac=1e-3, heavy=1000.0):
+    """comp_sub_factored's inputs over random parents (heavy ones among them)
+    and f32 factor rows: (values, ndiv, fac_a, fac_b)."""
+    import torch
+
+    r = lambda *s: torch.rand(*s, generator=gen, device=dev, dtype=torch.float64)
+    values = torch.where(r(n) < 0.8, -torch.log(r(n)), 0.0)
+    values = torch.where(r(n) < heavy_frac, heavy * values, values)
+    fa = r(n, e_k) * (r(n, e_k) < 0.8) + 1e-6
+    fb = r(n, v_k) + 1e-3
+    ndiv = torch.where(r(n) < uniform_frac,
+                       torch.randint(1, 17, (n,), generator=gen, device=dev), 0)
+    return (values, ndiv, (fa / fa.sum(1, keepdim=True)).float(),
+            (fb / fb.sum(1, keepdim=True)).float())
+
+
+def plain_plan_targets():
+    """Kernel F's dispatchers replaced by the plain version, which runs on
+    card tensors as they are (for the comparison only)."""
+    from fries_tpu_torch.runtime import plan
+
+    return [(plan, name, lambda _, f=getattr(plan, name + "_plain"): f)
+            for name in ("total", "seed", "counts", "parents")]
+
+
+def plain_plan():
+    return patched(*plain_plan_targets())
+
+
+def phase_plan(dev):
+    """Kernel F at the benchmark cells' C+D shapes (f32 stage, no kill bits,
+    as their rounds run): every mode against its plain version on the card
+    (at the frisys driver's row chunk), call and device times of both and
+    the bound; then the whole plan, ``comp_sub_factored_plan``, with the
+    kernel and with the plain version (R + 3 launches for R fixpoint rounds
+    asserted)."""
+    import torch
+    from fries_tpu_torch import compress, profiling
+    from fries_tpu_torch.runtime import plan
+
+    res = {}
+    for name, (n, e_k, v_k, n_samp) in PLAN_SHAPES.items():
+        gen = torch.Generator(device=dev).manual_seed(20)
+        values, ndiv, fac_a, fac_b = plan_inputs(gen, dev, n, e_k, v_k)
+        chunk = (256_000_000 // (e_k * v_k * 4)) // 8192 * 8192   # drivers/frisys.py
+        out_size = n_samp + 32_768
+        whole = lambda: compress.comp_sub_factored_plan(values, ndiv, fac_a, fac_b, n_samp, 0.37,
+                                                        out_size, row_chunk=chunk)
+        launches, reads = profiling.total("launch.plan"), profiling.total("fixpoint.comp_sub")
+        p, _ = whole()
+        torch.cuda.synchronize()
+        rounds = profiling.total("fixpoint.comp_sub") - reads
+        if profiling.total("launch.plan") - launches != rounds + 3:
+            raise AssertionError(f"plan {name}: {profiling.total('launch.plan') - launches} "
+                                 f"launches for {rounds} rounds")
+        with plain_plan():
+            q, _ = whole()
+        # the two plans' f64 sums differ in their order, so their thresholds
+        # may differ in the last bits: reported, each mode checked below at
+        # one threshold
+        out = {"rounds": rounds, "total": int(p["total"]), "kept": int(p["kept_counts"].sum()),
+               "thr_rel_to_plain": abs(float(p["thr"]) / float(q["thr"]) - 1.0),
+               "kept_counts_equal_plain": torch.equal(p["kept_counts"], q["kept_counts"]),
+               "total_equal_plain": torch.equal(p["total"], q["total"])}
+        fa, fb, thr = p["fa"], p["fb"], p["thr"]
+        w_floor = p["w_floor"].float()
+        w_uni = torch.where(p["uniform"], values, 0.0)
+        uni = (w_uni / ndiv.clamp_min(1).to(torch.float64), w_uni, ndiv)
+        edges = compress._seed_edges(plan.total_plain(fa, fb, None, chunk), n_samp)
+        modes = {
+            "total": ((plan.TOTAL, {}), lambda: (plan.total_plain(fa, fb, None, chunk),)),
+            "seed": ((plan.SEED, {"uni": uni, "edges": edges}),
+                     lambda: plan.seed_plain(fa, fb, None, uni, edges, chunk)),
+            "counts": ((plan.COUNTS, {"uni": uni, "w_floor": w_floor, "thr": thr}),
+                       lambda: plan.counts_plain(fa, fb, None, uni, w_floor, thr, chunk)),
+            "parents": ((plan.PARENTS, {"w_floor": w_floor, "thr": thr}),
+                        lambda: plan.parents_plain(fa, fb, None, w_floor, thr, chunk)),
+        }
+        factor_bytes = n * (e_k + v_k) * fa.element_size()
+        for mode_name, ((mode, kw), plain_fn) in modes.items():
+            kernel_fn = lambda m=mode, k=kw: plan.launch(m, fa, fb, None, **k)
+            got = kernel_fn()
+            got = got if isinstance(got, tuple) else (got,)
+            errs = []
+            for i, (g, r) in enumerate(zip(got, plain_fn())):
+                if g.dtype == torch.int64 or (mode == plan.SEED and i == 1):
+                    if not torch.equal(g, r.to(g.dtype)):
+                        raise AssertionError(f"plan {name} {mode_name}: counts differ")
+                else:
+                    rel = float(((g - r).abs() / r.abs().clamp_min(1e-300)).max())
+                    if rel > (1e-6 if mode == plan.SEED else 1e-12):
+                        raise AssertionError(f"plan {name} {mode_name}: sums differ ({rel})")
+                    errs.append(rel)
+            ops = n * e_k * v_k * (1 + compress._SEED_EDGES if mode == plan.SEED else 1)
+            row_bytes = {plan.SEED: 24, plan.COUNTS: 24, plan.PARENTS: 16}.get(mode, 0)
+            out[mode_name] = {"max_rel_err": max(errs, default=0.0), "ms": cuda_ms(kernel_fn),
+                              "plain_ms": cuda_ms(plain_fn),
+                              **bound(factor_bytes + row_bytes * n, ops)}
+        out["plan_ms"] = cuda_ms(whole)
+        with plain_plan():
+            out["plan_plain_ms"] = cuda_ms(whole)
+        for mode_name, ((mode, kw), plain_fn) in modes.items():
+            ms, ops, _ = device_profile(lambda m=mode, k=kw: plan.launch(m, fa, fb, None, **k))
+            out[mode_name].update(device_ms=ms, device_ops=ops,
+                                  plain_device_ms=device_profile(plain_fn)[0])
+        out["plan_device_ms"], out["plan_device_ops"], _ = device_profile(whole)
+        with plain_plan():
+            out["plan_plain_device_ms"], out["plan_plain_device_ops"], _ = device_profile(whole)
+        log(f"plan {name} (N={n}, E={e_k}, V={v_k}): {json.dumps(out)}")
+        res[name] = out
+        del values, ndiv, fac_a, fac_b, p, q, fa, fb, uni, w_uni
+        gc.collect()
+        torch.cuda.empty_cache()
+    return res
+
+
+# ---------------------------------------------------------------------------
 # kernel #6: the probe relayout
 # ---------------------------------------------------------------------------
 
@@ -1169,12 +1338,14 @@ def phase_main_path(dev):
     reset_launches(emit)
     t0 = time.perf_counter()
     metrics = []
-    for _ in range(N_TIMED):
-        state, m = step(state, *args)
-        metrics.append(m)
-    torch.cuda.synchronize()
+    with cd_plans() as seen:
+        for _ in range(N_TIMED):
+            state, m = step(state, *args)
+            metrics.append(m)
+        torch.cuda.synchronize()
     s_per_step = (time.perf_counter() - t0) / N_TIMED
     launches = {"merge": kernel_launches(merge), "emit": kernel_launches(emit)}
+    per_step = check_plan_launches("main path", seen, N_TIMED, 1)
     for i, m in enumerate(metrics):
         if bool(m["overflow"]):
             raise AssertionError(f"main path: overflow at timed step {i}")
@@ -1188,7 +1359,7 @@ def phase_main_path(dev):
         "rung": "1e6", "ms_per_step": 1e3 * s_per_step,
         "sampled_nonzeros_per_s": n_samp / s_per_step,
         "peak_mem_bytes": torch.cuda.max_memory_allocated(),
-        "launches": launches, "n_dets": int(last["n_dets"]),
+        "launches": launches, "launches_per_step": per_step, "n_dets": int(last["n_dets"]),
         "norm": float(last["norm"]),
         "e_corr_est": float(last["proj_num"]) / float(last["proj_den"]),
         "longest_spawn_segment": longest_spawn_segment(aux["spawn"], state),
@@ -1351,15 +1522,18 @@ def frisys_real_run(name, dev, built, cfg, n_timed, system, words):
     state, _, _ = timed_block(step, state, args, N_WARM, f"{name} warm-up")
     torch.cuda.reset_peak_memory_stats()
     reset_launches(merge, emit)
-    state, metrics, s_per_step = timed_block(step, state, args, n_timed, name)
+    with cd_plans() as seen:
+        state, metrics, s_per_step = timed_block(step, state, args, n_timed, name)
     launches = {"merge": kernel_launches(merge), "emit": kernel_launches(emit)}
     if launches != {"merge": n_timed, "emit": 3 * n_timed}:
         raise AssertionError(f"{name}: launches {launches} in {n_timed} steps, not 1 "
                              "kernel A and 3 kernel B per step")
+    per_step = check_plan_launches(name, seen, n_timed, 1)
     last = metrics[-1]
     r = {"config": name, "ms_per_step": 1e3 * s_per_step,
          "sampled_nonzeros_per_s": cfg.matr_samp / s_per_step,
          "peak_mem_bytes": torch.cuda.max_memory_allocated(), "launches": launches,
+         "launches_per_step": per_step,
          "n_dets_timed_steps": [int(m["n_dets"]) for m in metrics],
          "arena_rows": int(state.arena.n_used[0]), "norm": float(last["norm"]),
          "e_corr_est": float(last["proj_num"]) / float(last["proj_den"])}
@@ -1584,12 +1758,14 @@ def phase_semistoch(dev):
     reset_launches(emit)
     t0 = time.perf_counter()
     metrics = []
-    for _ in range(N_TIMED):
-        state, m = step(state, *args, protected_keys=prot)
-        metrics.append(m)
-    torch.cuda.synchronize()
+    with cd_plans() as seen:
+        for _ in range(N_TIMED):
+            state, m = step(state, *args, protected_keys=prot)
+            metrics.append(m)
+        torch.cuda.synchronize()
     s_per_step = (time.perf_counter() - t0) / N_TIMED
     launches = {"merge": kernel_launches(merge), "emit": kernel_launches(emit)}
+    per_step = check_plan_launches("semistoch", seen, N_TIMED, 1)
     check_power_metrics("semistoch", metrics)
     if launches != {"merge": N_TIMED, "emit": 3 * N_TIMED}:
         raise AssertionError(f"semistoch did not run through the kernels: {launches}")
@@ -1601,6 +1777,7 @@ def phase_semistoch(dev):
         "ms_per_step": 1e3 * s_per_step,
         "sampled_nonzeros_per_s": (rung.N_SAMP - n_el) / s_per_step,
         "peak_mem_bytes": torch.cuda.max_memory_allocated(), "launches": launches,
+        "launches_per_step": per_step,
         "n_dets": int(last["n_dets"]), "norm": float(last["norm"]),
         "e_corr_est": float(last["proj_num"]) / float(last["proj_den"]),
     }
@@ -2501,10 +2678,12 @@ def phase_unfused(dev):
     torch.cuda.reset_peak_memory_stats()
     reset_launches(merge)
     reset_launches(emit)
-    state, metrics, s_per_step = timed_block(step, state, args, 3, "unfused rung")
+    with cd_plans() as seen:
+        state, metrics, s_per_step = timed_block(step, state, args, 3, "unfused rung")
     launches = {"merge": kernel_launches(merge), "emit": kernel_launches(emit)}
     if launches != {"merge": 3, "emit": 15}:
         raise AssertionError(f"unfused rung: launches {launches} in 3 steps")
+    check_plan_launches("unfused rung", seen, 3, 0)
     last = metrics[-1]
     res = {"config": "1e6 rung, fuse_ab=False, fuse_cd=False",
            "ms_per_step": 1e3 * s_per_step,
@@ -2954,11 +3133,14 @@ def phase_integrals(dev):
     return res, hams
 
 
-def power_timed(label, step, state, args, n_warm, n_timed, per_step, **step_kw):
+def power_timed(label, step, state, args, n_warm, n_timed, per_step, cd_per_step=0,
+                **step_kw):
     """``n_warm`` + ``n_timed`` steps of a power-method workload with the
     kernels' counts reset just before the timed ones, and the launches per
-    step asserted to be ``per_step`` ({module name: launches}); every
-    step's overflow flag and estimator read.  Returns (state, results)."""
+    step asserted to be ``per_step`` ({module name: launches}) and
+    ``cd_per_step`` C+D plans of R + 3 kernel F launches each
+    (:func:`check_plan_launches`); every step's overflow flag and
+    estimator read.  Returns (state, results)."""
     import torch
     from fries_tpu_torch.runtime import emit, merge, merge_multi
 
@@ -2972,10 +3154,11 @@ def power_timed(label, step, state, args, n_warm, n_timed, per_step, **step_kw):
         reset_launches(mod)
     t0 = time.perf_counter()
     metrics = []
-    for _ in range(n_timed):
-        state, m = step(state, *args, **step_kw)
-        metrics.append(m)
-    torch.cuda.synchronize()
+    with cd_plans() as seen:
+        for _ in range(n_timed):
+            state, m = step(state, *args, **step_kw)
+            metrics.append(m)
+        torch.cuda.synchronize()
     s_per_step = (time.perf_counter() - t0) / n_timed
     launches = {k: kernel_launches(mod) for k, mod in mods.items()
                 if kernel_launches(mod) or k in per_step}
@@ -2983,11 +3166,13 @@ def power_timed(label, step, state, args, n_warm, n_timed, per_step, **step_kw):
     want = {k: v * n_timed for k, v in per_step.items()}
     if launches != want:
         raise AssertionError(f"{label}: launches {launches} in {n_timed} steps, want {want}")
+    plan_per_step = check_plan_launches(label, seen, n_timed, cd_per_step)
     last = metrics[-1]
     return state, {
         "ms_per_step": 1e3 * s_per_step, "s_per_step": s_per_step,
         "peak_mem_bytes": torch.cuda.max_memory_allocated(), "launches": launches,
-        "launches_per_step": per_step, "warm_up_steps": n_warm, "timed_steps": n_timed,
+        "launches_per_step": {**per_step, **plan_per_step}, "warm_up_steps": n_warm,
+        "timed_steps": n_timed,
         "overflow": any(bool(m["overflow"]) for m in metrics),
         "n_dets_timed_steps": [int(m["n_dets"]) for m in metrics],
         "norm": float(last["norm"]), "shift": float(last["shift"]),
@@ -3010,7 +3195,7 @@ def phase_rung_real(dev, ham):
         f"{ham.n_orb} orbitals, {ham.n_elec} electrons, {ham.n_frozen} frozen, capacity "
         f"{rung.CAPACITY}, spawn_cap {rung.SPAWN_CAP})")
     state, r = power_timed("rung_real", step, state, args, N_WARM, N_TIMED,
-                           {"merge": 1, "emit": 3})
+                           {"merge": 1, "emit": 3}, cd_per_step=1)
     r.update(config="rung_real", sampled_nonzeros_per_s=rung.N_SAMP / r.pop("s_per_step"))
     log(f"rung_real: {json.dumps(r)}")
     gen = torch.Generator(device="cpu")
@@ -3065,7 +3250,7 @@ def phase_semistoch_cisd(dev, ham):
     if prot.shape[0] != rung.N_DETERM or not 0 < n_el < rung.DETERM_MAX_SHARE * rung.N_SAMP:
         raise AssertionError(f"semistoch_cisd: {prot.shape[0]} determinants, {n_el} elements")
     state, r = power_timed("semistoch_cisd", step, state, args, N_WARM, N_TIMED,
-                           {"merge": 1, "emit": 3}, protected_keys=prot)
+                           {"merge": 1, "emit": 3}, cd_per_step=1, protected_keys=prot)
     if not bool(ar.lookup(state.arena, prot)[1].all()):
         raise AssertionError("semistoch_cisd: a protected determinant left the arena")
     r.update(config="semistoch_cisd", n_determ=prot.shape[0], n_elements=n_el,
@@ -3123,10 +3308,12 @@ def phase_flagship(dev):
         for mod in mods.values():
             reset_launches(mod)
         try:
-            runs["straight"] = flagship.run(ham, (words, vals),
-                                            args("straight", "--iters", str(FLAGSHIP_ITERS)),
-                                            meta, e_cisd=e_cisd, log=lines.append)
+            with cd_plans() as seen:
+                runs["straight"] = flagship.run(ham, (words, vals),
+                                                args("straight", "--iters", str(FLAGSHIP_ITERS)),
+                                                meta, e_cisd=e_cisd, log=lines.append)
             launches = {k: kernel_launches(mod) for k, mod in mods.items()}
+            plan_per_step = check_plan_launches("flagship", seen, FLAGSHIP_ITERS, 1)
             half = str(FLAGSHIP_ITERS // 2)
             flagship.run(ham, (words, vals), args("resumed", "--iters", half), meta,
                          e_cisd=e_cisd, log=lines.append)
@@ -3158,7 +3345,7 @@ def phase_flagship(dev):
         res = {"config": r["config"], "iterations": FLAGSHIP_ITERS,
                "ms_per_step": 1e3 * r["sec_per_iter"], "peak_mem_bytes": r["peak_mem_bytes"],
                "launches": {k: v for k, v in launches.items() if v},
-               "launches_per_step": {"merge": 1, "emit": 3},
+               "launches_per_step": {"merge": 1, "emit": 3, **plan_per_step},
                "build_s": info["build_s"], "cisd_s": info["cisd_s"],
                "frisys_build_s": r["build_s"], "n_cisd": info["n_cisd"],
                "e_hf_total": info["e_hf_total"], "e_cisd_corr": e_cisd,
@@ -3246,15 +3433,17 @@ def phase_anchor(dev):
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     trajs = []
-    for _ in range(ANCHOR_ITERS // ANCHOR_BLOCK):
-        state, traj = run_steps(state, *est, ANCHOR_BLOCK)
-        trajs.append(traj)
-    torch.cuda.synchronize()
+    with cd_plans() as seen:
+        for _ in range(ANCHOR_ITERS // ANCHOR_BLOCK):
+            state, traj = run_steps(state, *est, ANCHOR_BLOCK)
+            trajs.append(traj)
+        torch.cuda.synchronize()
     s_per_step = (time.perf_counter() - t0) / ANCHOR_ITERS
     launches = {k: kernel_launches(mod) for k, mod in mods.items()}
     want = {"merge": ANCHOR_ITERS, "emit": 3 * ANCHOR_ITERS, "merge_multi": 0}
     if launches != want:
         raise AssertionError(f"anchor: launches {launches}, want {want}")
+    plan_per_step = check_plan_launches("anchor", seen, ANCHOR_ITERS, 1)
     traj = {k: torch.cat([t[k].reshape(-1) for t in trajs]) for k in trajs[0]}
     if bool(traj["overflow"].any()):
         raise AssertionError("anchor: arena overflow")
@@ -3267,7 +3456,7 @@ def phase_anchor(dev):
            "ms_per_step": 1e3 * s_per_step, "s_per_step": s_per_step,
            "peak_mem_bytes": torch.cuda.max_memory_allocated(),
            "launches": {k: v for k, v in launches.items() if v},
-           "launches_per_step": {"merge": 1, "emit": 3},
+           "launches_per_step": {"merge": 1, "emit": 3, **plan_per_step},
            "n_dets_final": int(traj["n_dets"][-1]), "norm_final": float(traj["norm"][-1]),
            "e_corr_last_100": float(num.sum() / den.sum()),
            "exact_corr": e0 - float(aux["e_ref"])}
@@ -3513,14 +3702,15 @@ def patched(*targets):
 
 
 def plain_kernels():
-    """The three kernel wrappers replaced by their plain versions, which run
-    on card tensors as they are (for the kernels' comparison only)."""
+    """The kernel wrappers replaced by their plain versions, which run on
+    card tensors as they are (for the kernels' comparison only)."""
     from fries_tpu_torch.runtime import arena, emit, merge, merge_multi
 
     return patched((merge, "accumulate", lambda _: merge.accumulate_plain),
                    (emit, "emit", lambda _: emit.emit_plain),
                    (emit, "emit_factored", lambda _: emit.emit_factored_plain),
-                   (merge_multi, "accumulate", lambda _: arena.accumulate_multi))
+                   (merge_multi, "accumulate", lambda _: arena.accumulate_multi),
+                   *plain_plan_targets())
 
 
 def timed_exchanges(times):
@@ -3957,7 +4147,7 @@ def sharded_rung_real(shards, ham=None):
     torch.cuda.reset_peak_memory_stats()
     exch = []
     reset_launches(merge, emit)
-    with timed_exchanges(exch):
+    with timed_exchanges(exch), cd_plans() as seen:
         t1 = time.perf_counter()
         metrics = []
         for _ in range(SHARD_TIMED):
@@ -3969,6 +4159,7 @@ def sharded_rung_real(shards, ham=None):
     check_power_metrics("rung_real_sharded", metrics)
     if launches != {"merge": SHARD_TIMED, "emit": 3 * SHARD_TIMED}:
         raise AssertionError(f"rung_real_sharded: timed launches {launches}")
+    plan_per_step = check_plan_launches(label, seen, SHARD_TIMED, 1)
     (state, _), syncs = count_syncs(lambda: step(state, *est))
     last = metrics[-1]
     return {"rank": shards.rank, "ranks": shards.size, "backend": shards.backend,
@@ -3976,7 +4167,7 @@ def sharded_rung_real(shards, ham=None):
             "exchange_ms_per_step": sum(a.elapsed_time(b) for a, b in exch) / SHARD_TIMED,
             "host_syncs_per_step": syncs,
             "peak_mem_bytes": torch.cuda.max_memory_allocated(), "launches": launches,
-            "fixed_step_launches": fixed_launches, "kernel_vs_plain_max_abs_err": err,
+            "launches_per_step": plan_per_step, "fixed_step_launches": fixed_launches, "kernel_vs_plain_max_abs_err": err,
             "steps_kernels_vs_plain": cmp,
             "min_grid_offset": min(offsets), "max_grid_offset": max(offsets),
             "n_used_rank": int(state.arena.n_used[0]),
@@ -4422,6 +4613,8 @@ def main():
                     help="only phase 17d, N times")
     ap.add_argument("--past_bounds", action="store_true",
                     help="only phase 17g (the regimes past kernels A and C's bounds)")
+    ap.add_argument("--plan", action="store_true",
+                    help="only kernel F at the benchmark cells' C+D shapes")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4451,6 +4644,9 @@ def main():
     from fries_tpu_torch import real_systems
     from fries_tpu_torch.runtime import arena as ar
 
+    if args.plan:
+        log(f"kernel F: {json.dumps(phase_plan(dev))}")
+        return 0
     if args.past_bounds:
         past_res = phase_past_bounds(dev)
         past_res["frifull_real twice"] = frifull_real_repeats(dev, real_systems.h2o_ccpvdz(dev))
@@ -4540,6 +4736,7 @@ def main():
         raise AssertionError(f"{counter('merge.plain_on_card')} merges left the kernels in "
                              "the timings")
     obs_cases = list(obs_cases)     # the names; the tensors go before the child processes
+    plan_res = phase_plan(dev)
     profiles = phase_real_profiles(dev)
     trace_res = phase_trace(dev)
 
@@ -4712,6 +4909,7 @@ def main():
     log(f"native reader: {json.dumps(native_res)}")
     log(f"past bounds: {json.dumps(past_res)}")
     log(f"profiling trace: {json.dumps(trace_res)}")
+    log(f"kernel F: {json.dumps(plan_res)}")
     log(f"chip_smoke: total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

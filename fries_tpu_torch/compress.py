@@ -56,10 +56,10 @@ import torch
 
 from fries_tpu_torch import parallel, profiling
 from fries_tpu_torch.ops import ordered
-from fries_tpu_torch.runtime import emit as emit_mod
+from fries_tpu_torch.runtime import emit as emit_mod, plan as plan_mod
 
 F64 = torch.float64
-_SEED_EDGES = 20
+_SEED_EDGES = plan_mod.SEED_EDGES
 _SEED_TILE = 8192
 
 
@@ -656,21 +656,14 @@ def comp_sub(values, ndiv, sub_weights, sub_mask, n_samp, rn, out_size: int,
 
 
 @profiling.spanned("fries.seed")
-def _factored_seed(chunks, u_uni, w_uni, ndiv_f, tot_norm0, n_samp, cdtype, shards=None):
-    """comp_sub's histogram seed over the factored rows: the mass and count
-    above each edge, inner reductions over K in the stage dtype."""
+def _factored_seed(fa, fb, kill_b0, uni, row_chunk, tot_norm0, n_samp, shards=None):
+    """comp_sub's histogram seed over the factored rows and the uniformly
+    split parents ``uni``: the mass and count above each edge
+    (:func:`fries_tpu_torch.runtime.plan.seed`), inner reductions over K in
+    the stage dtype."""
     edges = _seed_edges(tot_norm0, n_samp)
-    edges_c = edges.to(cdtype)
-    zero_c = torch.zeros((), dtype=cdtype, device=edges.device)
-    mass_above = torch.zeros(_SEED_EDGES, dtype=F64, device=edges.device)
-    cost_above = torch.zeros_like(mass_above)
-    for _, w in chunks():
-        for e in range(_SEED_EDGES):
-            ge = w >= edges_c[e]
-            mass_above[e] += torch.where(ge, w, zero_c).sum(1).sum(dtype=F64)
-            cost_above[e] += ge.sum(1).sum(dtype=F64)
-    m, c = _seed_hist_part(u_uni, w_uni, ndiv_f, edges)
-    return _seed_finish(mass_above + m, cost_above + c, n_samp, tot_norm0, shards)
+    mass_above, cost_above = plan_mod.seed(fa, fb, kill_b0, uni, edges, row_chunk)
+    return _seed_finish(mass_above, cost_above, n_samp, tot_norm0, shards)
 
 
 def comp_sub_factored_plan(values, ndiv, fac_a, fac_b, n_samp, rn, out_size: int,
@@ -678,9 +671,9 @@ def comp_sub_factored_plan(values, ndiv, fac_a, fac_b, n_samp, rn, out_size: int
                            shards=None):
     """:func:`comp_sub_factored` up to its emission.  Returns (the keyword
     arguments of :func:`fries_tpu_torch.runtime.emit.emit_factored`,
-    overflow flag)."""
+    overflow flag).  The reductions over the joint go through
+    :mod:`fries_tpu_torch.runtime.plan` (kernel F on the card)."""
     dev = values.device
-    n = fac_a.shape[0]
     values = values.to(F64)
     cdtype = torch.float32 if fac_a.dtype == torch.float32 else F64
     n_samp = int(n_samp)
@@ -695,44 +688,21 @@ def comp_sub_factored_plan(values, ndiv, fac_a, fac_b, n_samp, rn, out_size: int
     w_uni = torch.where(uniform, values, 0.0)
     ndiv_f = ndiv.clamp_min(1).to(F64)
     u_uni = w_uni / ndiv_f
-    row_chunk = n if not row_chunk or row_chunk >= n else row_chunk
 
-    def chunks():
-        for s in range(0, n, row_chunk):
-            sl = slice(s, s + row_chunk)
-            yield sl, emit_mod.factored_rows(fa[sl], fb[sl],
-                                             None if kill_b0 is None else kill_b0[sl])
-
-    tot_norm0 = parallel.gsum(shards,
-                              sum(w.sum(dtype=F64) for _, w in chunks()) + w_uni.sum())
+    tot_norm0 = parallel.gsum(shards, plan_mod.total(fa, fb, kill_b0, row_chunk)
+                              + w_uni.sum())
     w_floor = (1e-14 * tot_norm0).to(cdtype)
-    t_est = _factored_seed(chunks, u_uni, w_uni, ndiv_f, tot_norm0, n_samp, cdtype,
-                           shards)
-
-    def keep_of(w, thr):
-        return (w > w_floor) & (w.to(F64) >= thr)
+    uni = (u_uni, w_uni, ndiv)
+    t_est = _factored_seed(fa, fb, kill_b0, uni, row_chunk, tot_norm0, n_samp, shards)
 
     def counts_at(thr):
-        loc = torch.zeros((), dtype=F64, device=dev)
-        used = torch.zeros((), dtype=torch.int64, device=dev)
-        for _, w in chunks():
-            kept = keep_of(w, thr)
-            loc = loc + torch.where(kept, zero_c, w).sum(dtype=F64)
-            used = used + kept.sum()
-        kept_uni = (w_uni > 0) & (u_uni >= thr)
-        loc = loc + torch.where(kept_uni, 0.0, w_uni).sum()
-        return loc, used + torch.where(kept_uni, ndiv, 0).sum()
+        return plan_mod.counts(fa, fb, kill_b0, uni, w_floor, thr, row_chunk)
 
     thr_f = _threshold_fixpoint(counts_at, t_est, n_samp, max_rounds, shards)
     keep_uni = (w_uni > 0) & (u_uni >= thr_f)
     rem_uni = torch.where(keep_uni, 0.0, w_uni)
 
-    parent_rem_w = torch.empty(n, dtype=F64, device=dev)
-    kept_counts_w = torch.empty(n, dtype=torch.int64, device=dev)
-    for sl, w in chunks():
-        kept = keep_of(w, thr_f)
-        parent_rem_w[sl] = torch.where(kept, zero_c, w).sum(1, dtype=F64)
-        kept_counts_w[sl] = kept.sum(1)
+    parent_rem_w, kept_counts_w = plan_mod.parents(fa, fb, kill_b0, w_floor, thr_f, row_chunk)
     # scalars derived from the per-parent arrays (self-consistent grid)
     loc_norm = parent_rem_w.sum() + rem_uni.sum()
     kept_budget = kept_counts_w.sum() + torch.where(keep_uni, ndiv, 0).sum()
@@ -758,8 +728,10 @@ def comp_sub_factored(values, ndiv, fac_a, fac_b, n_samp, rn, out_size: int,
 
         w_sub[i, e*V + v] = values[i] * fac_a[i, e] * fac_b[i, v]
 
-    with the v = 0 column zeroed where ``kill_b0[i, e]``.  Every (N, K)
-    quantity of the plan is recomputed from the factors in ``row_chunk``-row
+    with the v = 0 column zeroed where ``kill_b0[i, e]``.  The plan's
+    reductions over the joint (:mod:`fries_tpu_torch.runtime.plan`) run in
+    kernel F on the card, which forms each joint value in registers; the
+    plain version recomputes the joint from the factors in ``row_chunk``-row
     chunks (0 = one pass), with identical elementwise expressions so keep
     masks agree across passes; the emission
     (:func:`fries_tpu_torch.runtime.emit.emit_factored`) reads the factors.

@@ -27,8 +27,9 @@ read.  The counts are Python ints: no device work, no added sync.
 
 Counters.  ``count(name)`` adds to a running total (``total``, ``reset``):
 the kernels' launches (``launch.merge``, ``launch.emit``,
-``launch.merge_multi``, ``launch.probe_copy``, ``launch.probe_reshape``)
-and the merges taken off the kernels on the card (``merge.plain_on_card``).
+``launch.merge_multi``, ``launch.plan``, ``launch.probe_copy``,
+``launch.probe_reshape``) and the merges taken off the kernels on the card
+(``merge.plain_on_card``).
 Reads count there too, and per step: the exit of the outermost
 ``step(index)`` moves the reads made since its entry to
 ``last_step_counts()``.

@@ -19,7 +19,7 @@ from fries_tpu_torch.drivers import (fciqmc, frifull, frifull_hh, frimulti, fris
                                      frisys_hh, observables, power, subspace)
 from fries_tpu_torch.ops import hubbard, molecule as mol  # noqa: E402
 from fries_tpu_torch.runtime import arena as ar  # noqa: E402
-from fries_tpu_torch.runtime import emit, merge, merge_multi  # noqa: E402
+from fries_tpu_torch.runtime import emit, merge, merge_multi, plan as plan_mod  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -422,11 +422,12 @@ def test_emit_unaligned_rows(cuda):
     assert_emission_close(plan, emit.emit(**dev_plan), ref)
 
 
-def factored_case(rng, n, e_k, v_k, n_samp, out_size, uniform_frac, dtype, kill,
-                  zero=False, one_heavy=False):
-    """comp_sub_factored's plan over random factors; 1% of the parents carry
-    300x the mass (kept subs), and with ``one_heavy`` one parent with no zero
-    sub carries nearly all of it, so that it keeps all of its K subs."""
+def factored_inputs(rng, n, e_k, v_k, uniform_frac, dtype, kill, zero=False,
+                    one_heavy=False):
+    """comp_sub_factored's inputs (values, ndiv, fac_a, fac_b, kill_b0), CPU
+    tensors: random factors; 1% of the parents carry 300x the mass (kept
+    subs), and with ``one_heavy`` one parent with no zero sub carries nearly
+    all of it, so that it keeps all of its K subs."""
     values = np.where(rng.random(n) < 0.8, rng.gamma(1.0, 1.0, n), 0.0)
     values = np.where(rng.random(n) < 0.01, 300.0 * values, values)
     if one_heavy:
@@ -444,10 +445,17 @@ def factored_case(rng, n, e_k, v_k, n_samp, out_size, uniform_frac, dtype, kill,
     if one_heavy:
         ndiv[n // 2] = 0
     kill_b0 = torch.as_tensor(rng.random((n, e_k)) < 0.4) if kill else None
-    plan, _ = compress.comp_sub_factored_plan(
-        torch.as_tensor(values), torch.as_tensor(ndiv), torch.as_tensor(fa).to(dtype),
-        torch.as_tensor(fb).to(dtype), n_samp, float(rng.random()), out_size,
-        kill_b0=kill_b0)
+    return (torch.as_tensor(values), torch.as_tensor(ndiv), torch.as_tensor(fa).to(dtype),
+            torch.as_tensor(fb).to(dtype), kill_b0)
+
+
+def factored_case(rng, n, e_k, v_k, n_samp, out_size, uniform_frac, dtype, kill,
+                  zero=False, one_heavy=False):
+    """comp_sub_factored's plan over :func:`factored_inputs`."""
+    values, ndiv, fa, fb, kill_b0 = factored_inputs(rng, n, e_k, v_k, uniform_frac, dtype,
+                                                    kill, zero, one_heavy)
+    plan, _ = compress.comp_sub_factored_plan(values, ndiv, fa, fb, n_samp,
+                                              float(rng.random()), out_size, kill_b0=kill_b0)
     return plan
 
 
@@ -502,6 +510,168 @@ def test_emit_factored_unaligned_spans(cuda):
         assert padded.data_ptr() % 16 != 0
         dev_plan[key] = padded.view(dev_plan[key].shape)
     assert_emission_close(plan, emit.emit_factored(**dev_plan), ref)
+
+
+# ---------------------------------------------------------------------------
+# kernel F: the factored C+D plan's reductions
+# ---------------------------------------------------------------------------
+
+def split_parents(values, ndiv, uniform):
+    """The plan's (u_uni, w_uni, ndiv) of the uniformly split parents."""
+    w_uni = torch.where(uniform, values.to(torch.float64), 0.0)
+    return w_uni / ndiv.clamp_min(1).to(torch.float64), w_uni, ndiv
+
+
+def plan_case(case, dtype, kill):
+    """The factors, kill bits, split parents and (stage-dtype) floor of
+    FACTORED_CASES' plan (the same draws as :func:`factored_case`), on the
+    CPU, with the plan."""
+    n, e_k, v_k, n_samp, out_size, uf, extra = FACTORED_CASES[case]
+    rng = np.random.default_rng(n + e_k + kill)
+    values, ndiv, fac_a, fac_b, kill_b0 = factored_inputs(rng, n, e_k, v_k, uf, dtype, kill,
+                                                          **extra)
+    p, _ = compress.comp_sub_factored_plan(values, ndiv, fac_a, fac_b, n_samp,
+                                           float(rng.random()), out_size, kill_b0=kill_b0)
+    uni = split_parents(values, ndiv, p["uniform"])
+    return p["fa"], p["fb"], kill_b0, uni, p["w_floor"].to(dtype), p
+
+
+def on_card(cuda, *tensors):
+    return [None if t is None else t.to(cuda) for t in tensors]
+
+
+def straddling_thresholds(fa, fb, kill_b0, thr_f):
+    """Five f64 thresholds around the kept set: the plan's own, two joint
+    values (ties with ``>=``), the f64 successor of one (between two f32
+    values) and infinity."""
+    joint = emit.factored_rows(fa, fb, kill_b0).to(torch.float64).reshape(-1)
+    pos = joint[joint > 0].sort().values
+    if pos.numel() == 0:
+        return [float(thr_f), 0.0, 1e-30, 1.0, float("inf")]
+    a, b = float(pos[int(0.9 * (pos.numel() - 1))]), float(pos[int(0.999 * (pos.numel() - 1))])
+    return [float(thr_f), a, float(np.nextafter(a, np.inf)), b, float("inf")]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("kill", [False, True])
+@pytest.mark.parametrize("case", sorted(FACTORED_CASES))
+def test_plan_total_and_seed_match_plain(cuda, dtype, kill, case):
+    fa, fb, kill_b0, uni, _, p = plan_case(case, dtype, kill)
+    d_fa, d_fb, d_kill = on_card(cuda, fa, fb, kill_b0)
+    tot = plan_mod.total_plain(fa, fb, kill_b0)
+    got_tot = plan_mod.launch(plan_mod.TOTAL, d_fa, d_fb, d_kill)
+    np.testing.assert_allclose(float(got_tot), float(tot), rtol=1e-13, atol=0)
+    n_samp = FACTORED_CASES[case][3]
+    edges = compress._seed_edges(tot, n_samp)
+    mass, cost = plan_mod.seed_plain(fa, fb, kill_b0, uni, edges)
+    g_mass, g_cost = plan_mod.launch(plan_mod.SEED, d_fa, d_fb, d_kill, uni=on_card(cuda, *uni),
+                                     edges=edges.to(cuda))
+    assert torch.equal(g_cost.cpu(), cost)
+    np.testing.assert_allclose(g_mass.cpu().numpy(), mass.numpy(), rtol=1e-6, atol=0)
+    assert float(compress._seed_finish(g_mass.cpu(), g_cost.cpu(), n_samp, tot)) == float(
+        compress._seed_finish(mass, cost, n_samp, tot))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("kill", [False, True])
+@pytest.mark.parametrize("case", sorted(FACTORED_CASES))
+def test_plan_counts_and_parents_match_plain(cuda, dtype, kill, case):
+    fa, fb, kill_b0, uni, w_floor, p = plan_case(case, dtype, kill)
+    d_fa, d_fb, d_kill, d_floor = on_card(cuda, fa, fb, kill_b0, w_floor)
+    d_uni = on_card(cuda, *uni)
+    for thr in straddling_thresholds(fa, fb, kill_b0, p["thr"]):
+        thr = torch.tensor(thr, dtype=torch.float64)
+        loc, used = plan_mod.counts_plain(fa, fb, kill_b0, uni, w_floor, thr)
+        g_loc, g_used = plan_mod.launch(plan_mod.COUNTS, d_fa, d_fb, d_kill, uni=d_uni,
+                                        w_floor=d_floor, thr=thr.to(cuda))
+        assert int(g_used) == int(used), float(thr)
+        np.testing.assert_allclose(float(g_loc), float(loc), rtol=1e-13, atol=0)
+        rem, kept = plan_mod.parents_plain(fa, fb, kill_b0, w_floor, thr)
+        g_rem, g_kept = plan_mod.launch(plan_mod.PARENTS, d_fa, d_fb, d_kill, w_floor=d_floor,
+                                        thr=thr.to(cuda))
+        assert torch.equal(g_kept.cpu(), kept), float(thr)
+        np.testing.assert_allclose(g_rem.cpu().numpy(), rem.numpy(), rtol=1e-13, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("kill", [False, True])
+@pytest.mark.parametrize("case", sorted(FACTORED_CASES))
+def test_comp_sub_factored_kernels_match_plain(cuda, dtype, kill, case):
+    """The whole round on the card (kernel F's plan, kernel B's emission)
+    against the plain plan and emission on the CPU; kernel F launches R + 3
+    times for R fixpoint rounds."""
+    n, e_k, v_k, n_samp, out_size, uf, extra = FACTORED_CASES[case]
+    rng = np.random.default_rng(n + e_k + kill)
+    values, ndiv, fa, fb, kill_b0 = factored_inputs(rng, n, e_k, v_k, uf, dtype, kill, **extra)
+    rn = float(rng.random())
+    ref_plan, _ = compress.comp_sub_factored_plan(values, ndiv, fa, fb, n_samp, rn, out_size,
+                                                  kill_b0=kill_b0)
+    ref = compress.comp_sub_factored(values, ndiv, fa, fb, n_samp, rn, out_size, kill_b0=kill_b0)
+    before = {c: profiling.total(c) for c in ("launch.plan", "fixpoint.comp_sub")}
+    got = compress.comp_sub_factored(*on_card(cuda, values, ndiv, fa, fb), n_samp, rn,
+                                     out_size, kill_b0=None if kill_b0 is None
+                                     else kill_b0.to(cuda))
+    torch.cuda.synchronize()
+    rounds = profiling.total("fixpoint.comp_sub") - before["fixpoint.comp_sub"]
+    assert rounds >= 1
+    assert profiling.total("launch.plan") - before["launch.plan"] == rounds + 3
+    assert int(got[3]) == int(ref[3]) and bool(got[4]) == bool(ref[4])
+    assert_emission_close(ref_plan, got[:3], ref[:3])
+
+
+@pytest.mark.parametrize("n,e_k,v_k,dtype", [
+    (64, 900, 1000, torch.float32),          # a tile of 32 parents past shared memory
+    (64, 500, 500, torch.float64),
+    (0, 10, 21, torch.float32),              # no parent
+])
+def test_plan_raises_past_its_bounds(cuda, n, e_k, v_k, dtype):
+    """Card factors the kernel takes no tile of raise; nothing runs plain."""
+    fa = torch.ones(n, e_k, dtype=dtype, device=cuda)
+    fb = torch.ones(n, v_k, dtype=dtype, device=cuda)
+    before = profiling.total("launch.plan")
+    with pytest.raises(ValueError, match="kernel F takes no"):
+        plan_mod.total(fa, fb)
+    assert profiling.total("launch.plan") == before
+
+
+def test_plan_repeats_bit_for_bit(cuda):
+    """At the N2 cell's widths over many tiles a block: every mode, and the
+    whole round, twice from the same inputs give the same bits; each mode
+    against the plain version on the card (counts exact, f64 sums at 1e-12,
+    the seed's masses at 1e-6)."""
+    rng = np.random.default_rng(77)
+    n, e_k, v_k, n_samp = 300_000, 10, 21, 290_000
+    values, ndiv, fac_a, fac_b, kill_b0 = on_card(cuda, *factored_inputs(
+        rng, n, e_k, v_k, 0.3, torch.float32, True))
+    p, _ = compress.comp_sub_factored_plan(values, ndiv, fac_a, fac_b, n_samp, 0.3,
+                                           n_samp + 4096, kill_b0=kill_b0)
+    fa, fb, w_floor, thr = p["fa"], p["fb"], p["w_floor"].float(), p["thr"]
+    uni = split_parents(values, ndiv, p["uniform"])
+    edges = compress._seed_edges(plan_mod.total_plain(fa, fb, kill_b0), n_samp)
+    for mode, kw, plain in (
+            (plan_mod.TOTAL, {}, lambda: [plan_mod.total_plain(fa, fb, kill_b0)]),
+            (plan_mod.SEED, {"uni": uni, "edges": edges},
+             lambda: plan_mod.seed_plain(fa, fb, kill_b0, uni, edges)),
+            (plan_mod.COUNTS, {"uni": uni, "w_floor": w_floor, "thr": thr},
+             lambda: plan_mod.counts_plain(fa, fb, kill_b0, uni, w_floor, thr)),
+            (plan_mod.PARENTS, {"w_floor": w_floor, "thr": thr},
+             lambda: plan_mod.parents_plain(fa, fb, kill_b0, w_floor, thr))):
+        first, second = (plan_mod.launch(mode, fa, fb, kill_b0, **kw) for _ in range(2))
+        if mode == plan_mod.TOTAL:
+            first, second = [first], [second]
+        exact = [mode == plan_mod.SEED and i == 1 or a.dtype == torch.int64
+                 for i, a in enumerate(first)]
+        for a, b, r, ex in zip(first, second, plain(), exact):
+            assert torch.equal(a, b), mode
+            if ex:
+                assert torch.equal(a, r.to(a.dtype)), mode
+            else:
+                torch.testing.assert_close(a, r, atol=0,
+                                           rtol=1e-6 if mode == plan_mod.SEED else 1e-12)
+    runs = [compress.comp_sub_factored(values, ndiv, fac_a, fac_b, n_samp, 0.3, n_samp + 4096,
+                                       kill_b0=kill_b0) for _ in range(2)]
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
 
 
 def test_probe_reshape_kernel(cuda):
