@@ -78,9 +78,11 @@ rung; the phases log them per step (``launches_per_step``).
    exact; then the ``fciqmc`` configuration of ``fries_tpu_torch.rung``
    (bench.py's 5M-walker rung: 12 blocks of 5 warm-up steps, 5 timed, 1
    kernel A launch per step asserted; ms/step, walker-iterations/s, peak
-   memory) and two real steps' merge inputs (the post-death one-row arena
-   and the spawn stream, layout (1, 0, 0): the first step's, all attempts
-   from HF, and the one after the timed steps) through kernel A and its
+   memory; then 3 steps under a profiler, whose device counter
+   ``sampler.fallback`` is logged) and two real steps' merge inputs (the
+   post-death one-row arena and the spawn stream, layout (1, 0, 0): the
+   first step's, all attempts from HF, and the one after the profiled
+   steps) through kernel A and its
    plain version, equal exactly, values included; phase 13 times the
    second;
 12. the frimulti path: small systems card against CPU (NU, HB), then the
@@ -282,6 +284,7 @@ import sys
 import time
 
 N_WARM, N_TIMED = 2, 5
+N_FALLBACK = 3     # profiled fciqmc steps that read the sampler.fallback counter
 STRESS_SPAWNS = 200_000
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM: device memory rate
 F32_OPS_PER_S = 67e12        # H100 SXM: f32 outside the tensor cores
@@ -2007,10 +2010,12 @@ def merge_stream_stats(a, sk):
 
 def phase_fciqmc(dev):
     """bench.py's fciqmc configuration as bench.py runs it (12 blocks of 5
-    warm-up steps, then 5 timed), then one real step's merge input through
-    kernel A and its plain version; returns the results and that input."""
+    warm-up steps, then 5 timed), then 3 steps under a profiler that read
+    the device counter ``sampler.fallback``, then one real step's merge
+    input through kernel A and its plain version; returns the results and
+    that input."""
     import torch
-    from fries_tpu_torch import rung
+    from fries_tpu_torch import profiling, rung
     from fries_tpu_torch.runtime import merge
 
     cfg = rung.fciqmc_config()
@@ -2051,6 +2056,16 @@ def phase_fciqmc(dev):
     check_power_metrics("fciqmc", metrics)
     if launches != N_TIMED:
         raise AssertionError(f"fciqmc: {launches} kernel A launches in {N_TIMED} steps")
+    # the heat-bath draws past every f32 prefix that took the last column of
+    # positive weight: a device counter, added to only while a profiler records
+    profiling.reset("sampler.fallback")
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        for _ in range(N_FALLBACK):
+            state, m = step(state, *args)
+    check_power_metrics("fciqmc, profiled", [m])
+    fallback = profiling.device_total("sampler.fallback")
+    if not 0 <= fallback <= N_FALLBACK * 4 * cfg.attempt_cap:   # 4 draws a double
+        raise AssertionError(f"fciqmc: sampler.fallback {fallback} in {N_FALLBACK} steps")
     last = metrics[-1]
     norm = float(last["norm"])
     res = {
@@ -2064,6 +2079,7 @@ def phase_fciqmc(dev):
         "n_dets": int(last["n_dets"]), "nnonz": int(last["nnonz"]), "norm": norm,
         "shift": float(last["shift"]), "overflow": any(bool(m["overflow"]) for m in metrics),
         "e_corr_est": float(last["proj_num"]) / float(last["proj_den"]),
+        "sampler_fallback": {"profiled_steps": N_FALLBACK, "draws": fallback},
     }
     log(f"fciqmc: {json.dumps(res)}")
     case = aux["merge_input"](state)

@@ -102,17 +102,27 @@ def stochastic_round(key, p):
 @profiling.spanned("fries.categorical")
 def sample_categorical_rows(key, probs, valid=None):
     """One inverse-CDF index per row of (..., K) weights: the number of f32
-    prefix sums at or below u * the row's f64 total, capped at K - 1.
+    prefix sums at or below u * the row's f64 total; where u lands past
+    every prefix (rounding left the last f32 prefix below the f64 total),
+    the last column of positive weight, so a column of weight 0 is never
+    drawn (a row of zeros gives K - 1).
 
     The reference's prefix is an f32 triangular matmul, whose order of adds
     XLA picks per K; here both sums run left to right, one add per column
     and the same rounding on every device (the f64 total is XLA's order at
     these widths), so a prefix may differ from the reference's in its last
     f32 bit, and an index flips only where u lands in that bit (a chance
-    near 1e-7 per row)."""
+    near 1e-7 per row).  Past every prefix the reference caps the count at
+    K - 1, a column that may have weight 0 (a heat-bath double with
+    o1 = o2); the port takes the last positive column there instead.
+
+    While a profiler records, the draws that took that column in place of
+    column K - 1 are added to the device counter ``sampler.fallback``
+    (:func:`profiling.device_count`)."""
     p = probs.to(F64)
     if valid is not None:
         p = torch.where(valid, p, 0.0)
+    k = probs.shape[-1]
     cols = p.movedim(-1, 0).contiguous()
     tot = cols[0].clone()
     for col in cols[1:]:
@@ -120,10 +130,14 @@ def sample_categorical_rows(key, probs, valid=None):
     u = key.uniform(probs.shape[:-1] + (1,)).to(probs.device)[..., 0] * tot
     acc = cols[0].to(torch.float32)
     idx = (acc.to(F64) <= u).to(torch.int64)
-    for col in cols[1:]:
+    last = torch.where(cols[0] > 0, 0, k - 1)
+    for c, col in enumerate(cols[1:], 1):
         acc += col.to(torch.float32)
         idx += acc.to(F64) <= u
-    return idx.clamp_max(probs.shape[-1] - 1)
+        last = torch.where(col > 0, c, last)
+    past = idx >= k
+    profiling.device_count("sampler.fallback", lambda: past & (last < k - 1))
+    return torch.where(past, last, idx)
 
 
 def setup_alias(probs):

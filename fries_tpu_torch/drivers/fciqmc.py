@@ -6,7 +6,8 @@ Counterpart of ``fries_tpu/drivers/fciqmc.py``.  The
 per-walker loops become a statically capped attempt buffer: attempt slot k
 belongs to the determinant whose interval of the running walker counts holds
 k (:func:`_attempt_parents`), and every slot samples one excitation with the
-batched generators of :mod:`fries_tpu_torch.ops.near_uniform`, valid or
+batched generators of :mod:`fries_tpu_torch.ops.near_uniform`
+(:func:`_attempt_pass`), valid or
 not, so a step's shapes are set by the configuration and the walker total is
 never read on the host.  Spawns are rounded binomially (integer walkers) or
 below 0.01 (fp walkers); death and cloning round |1 - eps (H_ii - S)| n_walk
@@ -123,65 +124,89 @@ def trial_vectors(ham: mol.MolecularHamiltonian):
             torch.cat([torch.zeros(1, dtype=F64, device=ham.device), ta[0][keep]]))
 
 
+@dataclass(frozen=True)
+class SpawnTables:
+    """What the attempt pass reads besides its arguments: the Hamiltonian,
+    the configuration, the doubles' share, the symmetry tables on the
+    device, the heat-bath tensors (None for NU) and the sentinel key."""
+    ham: mol.MolecularHamiltonian
+    cfg: FciqmcConfig
+    p_doub: float
+    lookup: torch.Tensor
+    symm: torch.Tensor
+    symm_counts: torch.Tensor
+    tens: object
+    sentinel: torch.Tensor
+
+
 def make_spawner(ham: mol.MolecularHamiltonian, cfg: FciqmcConfig, p_doub: float):
     """The attempt pass ``spawn(keys, occ, n_walk, walk_sign, parent,
     valid, k_split, k_doub, k_sing, k_round) -> (words, values, initiator
-    flags)``: one excitation sampled and weighed per attempt slot of the
-    parents ``parent`` (arena rows), rounded, sentinel-keyed where the value
-    is 0."""
+    flags)``: :func:`_attempt_pass` on this system's tables, looked up in
+    the module at each call."""
     dev = ham.device
     syminfo = mol.SymmInfo.build(ham.symm.cpu().numpy())
-    lookup = torch.as_tensor(syminfo.lookup, device=dev)
-    symm = torch.as_tensor(syminfo.symm, device=dev)
-    symm_counts = torch.as_tensor(syminfo.counts, device=dev)
-    tens = hb.setup(ham) if cfg.distribution == "HB" else None
-    n_orb, n_elec = ham.n_orb, ham.n_elec
-    n_bits = 2 * n_orb
-    a_cap, eps = cfg.attempt_cap, cfg.eps
-    sentinel = dets.invalid_det(ham.n_words, dev)
+    tables = SpawnTables(
+        ham=ham, cfg=cfg, p_doub=p_doub, lookup=torch.as_tensor(syminfo.lookup, device=dev),
+        symm=torch.as_tensor(syminfo.symm, device=dev),
+        symm_counts=torch.as_tensor(syminfo.counts, device=dev),
+        tens=hb.setup(ham) if cfg.distribution == "HB" else None,
+        sentinel=dets.invalid_det(ham.n_words, dev))
 
-    @profiling.spanned("fries.spawn")
-    def spawn(keys, occ, n_walk, walk_sign, parent, valid, k_split, kd, ks, k_round):
-        p_occ = occ[parent]
-        p_keys = keys[parent]
-        p_bits = dets.unpack_bits(p_keys, n_bits)
-        counts = hb.unocc_symm_counts(n_orb, n_elec, symm, symm_counts, p_occ)
-        is_doub = k_split.uniform((a_cap,)).to(dev) < p_doub
-        if tens is not None:
-            d = nu.sample_doubles_heat_bath(kd, tens, n_orb, n_elec, symm, lookup, p_occ,
-                                            p_bits)
-        else:
-            d = nu.sample_doubles(kd, n_orb, n_elec, symm, lookup, p_occ, p_bits, counts)
-        s = nu.sample_singles(ks, n_orb, n_elec, symm, lookup, p_occ, p_bits, counts)
-
-        # one walker's weight per attempt (the attempt count is the rounded
-        # population in both variants)
-        per_attempt = valid.to(F64)
-        dmel = mol.doub_matr_el(ham, d["o1"], d["o2"], d["u1"], d["u2"])
-        damp_mag = eps * dmel / d["prob"] / p_doub * per_attempt
-        dwords, dsign = dets.double_parity(p_keys, d["o1"], d["o2"], d["u1"], d["u2"])
-        dmask = valid & is_doub & d["valid"]
-        smel = mol.sing_matr_el(ham, s["o"], s["u"], p_occ)
-        samp_mag = eps * smel / s["prob"] / (1 - p_doub) * per_attempt
-        swords, ssign = dets.single_parity(p_keys, s["o"], s["u"])
-        smask = valid & ~is_doub & s["valid"]
-
-        mag = torch.where(dmask, damp_mag, torch.where(smask, samp_mag, 0.0))
-        sign_f = torch.where(dmask, dsign, ssign).to(F64)
-        spawn_val = -mag * sign_f * walk_sign[parent]
-        rounded = compress.round_binomially(
-            k_round, spawn_val.abs(), torch.ones(a_cap, dtype=torch.int32, device=dev)
-        ).to(F64)
-        if cfg.integer_walkers:
-            spawn_val = torch.sign(spawn_val) * rounded
-        else:   # spawns below 0.01 are rounded, larger ones keep their value
-            spawn_val = torch.where(spawn_val.abs() < 0.01,
-                                    torch.sign(spawn_val) * rounded, spawn_val)
-        words = torch.where(dmask[:, None], dwords, swords)
-        words = torch.where((spawn_val != 0)[:, None], words, sentinel)
-        return words, spawn_val, n_walk[parent] > cfg.init_thresh
+    def spawn(*args):
+        return _attempt_pass(tables, *args)
 
     return spawn
+
+
+@profiling.spanned("fries.spawn")
+def _attempt_pass(t: SpawnTables, keys, occ, n_walk, walk_sign, parent, valid, k_split, kd,
+                  ks, k_round):
+    """One excitation sampled and weighed per attempt slot of the parents
+    ``parent`` (arena rows), rounded, sentinel-keyed where the value is 0:
+    (words, values, initiator flags)."""
+    ham, cfg, p_doub = t.ham, t.cfg, t.p_doub
+    dev = ham.device
+    n_orb, n_elec = ham.n_orb, ham.n_elec
+    a_cap, eps = cfg.attempt_cap, cfg.eps
+    p_occ = occ[parent]
+    p_keys = keys[parent]
+    p_bits = dets.unpack_bits(p_keys, 2 * n_orb)
+    counts = hb.unocc_symm_counts(n_orb, n_elec, t.symm, t.symm_counts, p_occ)
+    is_doub = k_split.uniform((a_cap,)).to(dev) < p_doub
+    if t.tens is not None:
+        d = nu.sample_doubles_heat_bath(kd, t.tens, n_orb, n_elec, t.symm, t.lookup, p_occ,
+                                        p_bits)
+    else:
+        d = nu.sample_doubles(kd, n_orb, n_elec, t.symm, t.lookup, p_occ, p_bits, counts)
+    s = nu.sample_singles(ks, n_orb, n_elec, t.symm, t.lookup, p_occ, p_bits, counts)
+
+    # one walker's weight per attempt (the attempt count is the rounded
+    # population in both variants)
+    per_attempt = valid.to(F64)
+    dmel = mol.doub_matr_el(ham, d["o1"], d["o2"], d["u1"], d["u2"])
+    damp_mag = eps * dmel / d["prob"] / p_doub * per_attempt
+    dwords, dsign = dets.double_parity(p_keys, d["o1"], d["o2"], d["u1"], d["u2"])
+    dmask = valid & is_doub & d["valid"]
+    smel = mol.sing_matr_el(ham, s["o"], s["u"], p_occ)
+    samp_mag = eps * smel / s["prob"] / (1 - p_doub) * per_attempt
+    swords, ssign = dets.single_parity(p_keys, s["o"], s["u"])
+    smask = valid & ~is_doub & s["valid"]
+
+    mag = torch.where(dmask, damp_mag, torch.where(smask, samp_mag, 0.0))
+    sign_f = torch.where(dmask, dsign, ssign).to(F64)
+    spawn_val = -mag * sign_f * walk_sign[parent]
+    rounded = compress.round_binomially(
+        k_round, spawn_val.abs(), torch.ones(a_cap, dtype=torch.int32, device=dev)
+    ).to(F64)
+    if cfg.integer_walkers:
+        spawn_val = torch.sign(spawn_val) * rounded
+    else:   # spawns below 0.01 are rounded, larger ones keep their value
+        spawn_val = torch.where(spawn_val.abs() < 0.01,
+                                torch.sign(spawn_val) * rounded, spawn_val)
+    words = torch.where(dmask[:, None], dwords, swords)
+    words = torch.where((spawn_val != 0)[:, None], words, t.sentinel)
+    return words, spawn_val, n_walk[parent] > cfg.init_thresh
 
 
 @profiling.spanned("fries.death")

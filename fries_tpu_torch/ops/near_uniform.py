@@ -155,7 +155,8 @@ def sample_doubles_heat_bath(key, tens, n_orb, n_elec, symm, lookup, occ, occ_bi
     """One heat-bath Power-Pitzer double excitation per attempt, with the
     total normalized selection weight
     (:func:`fries_tpu_torch.ops.heat_bath.norm_weight`) as its probability:
-    dict(o1, o2, u1, u2, prob, valid)."""
+    dict(o1, o2, u1, u2, prob, valid).  ``valid`` is False where the two
+    electrons are one (o1 = o2), which the reference does not check."""
     k1, k2, k3, k4 = key.split(4)
     probs1, _ = hb.o1_probs(tens, n_orb, occ)
     o1_idx = compress.sample_categorical_rows(k1, probs1)
@@ -175,7 +176,8 @@ def sample_doubles_heat_bath(key, tens, n_orb, n_elec, symm, lookup, occ, occ_bi
 
     valid = ((probs1.sum(-1) > 0) & (probs2.sum(-1) > 0) & (probs_u1.sum(-1) > 0)
              & (u2_norm > 0) & (u1_sp < n_orb) & (u2_sp < n_orb)
-             & ~hb.dets_read(occ_bits, u2[:, None], 2 * n_orb)[:, 0] & (u1 != u2))
+             & ~hb.dets_read(occ_bits, u2[:, None], 2 * n_orb)[:, 0] & (u1 != u2)
+             & (o1 != o2))
     o_lo, o_hi = torch.minimum(o1, o2), torch.maximum(o1, o2)
     u_lo, u_hi = torch.minimum(u1, u2), torch.maximum(u1, u2)
     prob = hb.norm_weight(tens, n_orb, n_elec, symm, lookup, occ, occ_bits,

@@ -34,6 +34,15 @@ Reads count there too, and per step: the exit of the outermost
 ``step(index)`` moves the reads made since its entry to
 ``last_step_counts()``.
 
+Device counters.  ``device_count(name, flags)`` adds the True entries of
+the device tensor that ``flags()`` makes to a counter held on that device,
+only while a profiler records (while none does it returns before
+``flags`` runs: no operation), so a step never reads it:
+``device_total(name)`` reads it once, after the profiled steps.
+``sampler.fallback`` counts the categorical draws past every f32 prefix
+that take the last column of positive weight where the reference takes
+column K - 1 (``compress.sample_categorical_rows``).
+
     with profiling.trace("trace_dir"):          # a Chrome trace of the block
         for i in range(3):
             with profiling.step(i):
@@ -83,6 +92,7 @@ _totals: dict[str, int] = {}      # every counter, since the process started or 
 _step_reads: dict[str, int] = {}  # reads of the step that is open
 _last_step: dict[str, int] = {}   # reads of the last step that closed
 _depth = 0                        # steps open (a step may run another's)
+_device: dict[str, torch.Tensor] = {}   # device counters, added to while a profiler records
 
 
 def span(name: str):
@@ -157,10 +167,29 @@ def total(name: str) -> int:
     return _totals.get(name, 0)
 
 
+def device_count(name: str, flags) -> None:
+    """While a profiler records, add the number of True entries of the
+    device tensor ``flags()`` to the device counter ``name``, on the device
+    (no host read); nothing otherwise, ``flags`` not called."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return
+    n = flags().sum()
+    held = _device.get(name)
+    _device[name] = n if held is None else held + n.to(held.device)
+
+
+def device_total(name: str) -> int:
+    """The device counter ``name`` read on the host (0 if nothing was
+    counted): read it after the profiled steps, never inside a step."""
+    held = _device.get(name)
+    return 0 if held is None else int(held.item())
+
+
 def reset(*names: str) -> None:
-    """Zero the running totals of ``names``."""
+    """Zero the running totals and device counters of ``names``."""
     for name in names:
         _totals.pop(name, None)
+        _device.pop(name, None)
 
 
 def last_step_counts() -> dict[str, int]:
