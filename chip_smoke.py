@@ -77,9 +77,13 @@ rung; the phases log them per step (``launches_per_step``).
    heat-bath, integer and fp walkers): keys, counts and integer values
    exact; then the ``fciqmc`` configuration of ``fries_tpu_torch.rung``
    (bench.py's 5M-walker rung: 12 blocks of 5 warm-up steps, 5 timed, 1
-   kernel A launch per step asserted; ms/step, walker-iterations/s, peak
-   memory; then 3 steps under a profiler, whose device counter
-   ``sampler.fallback`` is logged) and two real steps' merge inputs (the
+   kernel A launch and 1 kernel G launch per step and no plain attempt
+   pass on the card asserted; ms/step, walker-iterations/s, peak memory;
+   then 3 steps under a profiler, whose device counter
+   ``sampler.fallback`` is logged; then kernel G against the plain attempt
+   pass on the next step's 2^23 slots: results compared, device and call
+   ms of each, the kernel's bound; alone: ``--fciqmc``) and two real
+   steps' merge inputs (the
    post-death one-row arena and the spawn stream, layout (1, 0, 0): the
    first step's, all attempts from HF, and the one after the profiled
    steps) through kernel A and its
@@ -288,6 +292,7 @@ N_FALLBACK = 3     # profiled fciqmc steps that read the sampler.fallback counte
 STRESS_SPAWNS = 200_000
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM: device memory rate
 F32_OPS_PER_S = 67e12        # H100 SXM: f32 outside the tensor cores
+F64_OPS_PER_S = 33.5e12      # H100 SXM: f64 outside the tensor cores
 
 
 def log(*args):
@@ -2008,6 +2013,58 @@ def merge_stream_stats(a, sk):
             "longest_run": int(runs.max()) if runs.numel() else 0}
 
 
+def attempt_times(ham, cfg, aux, state):
+    """Kernel G (``runtime/attempt.launch``) against the plain attempt pass
+    (``fciqmc._attempt_pass_plain``) on the next step's slots from
+    ``state``: both results compared (spawns within 1e-13, keys where the
+    spawn is not 0, initiator flags; the largest relative difference of the
+    spawns), device and call milliseconds of each,
+    and the kernel's bound: the bytes of the slots' inputs and outputs and
+    of each parent row read once, or its f64 operations estimated from the
+    shapes (the four categorical rows' three passes, norm_weight's sums over
+    the orbitals, a single's element), whichever takes longer."""
+    import torch
+    from fries_tpu_torch.drivers import fciqmc
+    from fries_tpu_torch.runtime import attempt
+
+    t = fciqmc.spawn_tables(ham, cfg, aux["p_doub"])
+    args = aux["attempt_args"](state)
+    keys, occ, n_walk, walk_sign, parent, valid, k_split, kd, ks = args
+    nodes = attempt.node_keys(k_split, kd, ks)
+    kernel = lambda: attempt.launch(t.kernel, keys, occ, n_walk, walk_sign, parent, valid, nodes)
+    plain = lambda: fciqmc._attempt_pass_plain(t, *args)
+    g_words, g_vals, g_ini = kernel()
+    p_words, p_vals, p_ini = plain()
+    live = p_vals != 0
+    if not (torch.equal(g_ini, p_ini) and torch.equal(g_vals != 0, live)
+            and torch.equal(g_words[live], p_words[live])
+            and torch.allclose(g_vals, p_vals, rtol=1e-13, atol=0)):
+        raise AssertionError("kernel G differs from the plain attempt pass")
+    max_rel_err = float(((g_vals - p_vals)[live].abs() / p_vals[live].abs()).max()) \
+        if bool(live.any()) else 0.0
+    del g_words, g_vals, g_ini, p_words, p_vals, p_ini
+    n_slots = parent.shape[0]
+    n_valid = int(valid.sum())
+    n_doub = int((k_split.uniform((n_slots,)).to(valid.device) < aux["p_doub"])[valid].sum())
+    n_parents = int(torch.unique_consecutive(parent[valid]).shape[0])
+    w, e, n = ham.n_words, ham.n_elec, ham.n_orb
+    n_bytes = n_slots * (8 + 1 + 8 * w + 8 + 1) + n_parents * (8 * w + 8 * e + 16)
+    rows = 2 * e + (n - e // 2) + t.kernel.max_count
+    n_ops = n_doub * (6 * rows + 14 * n + 60) + (n_valid - n_doub) * (4 * e + 20)
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / F64_OPS_PER_S
+    k_dev, k_n, k_top = device_profile(kernel)
+    p_dev, p_n, p_top = device_profile(plain, reps=2)
+    return {"slots": n_slots, "valid": n_valid, "doubles": n_doub, "parents": n_parents,
+            "live": int(live.sum()), "max_rel_err": max_rel_err,
+            "bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "f64 operations",
+            "bytes": n_bytes, "f64_ops": n_ops,
+            "kernel": {"device_ms": k_dev, "call_ms": cuda_ms(kernel), "operations": k_n,
+                       "top": k_top},
+            "plain": {"device_ms": p_dev, "call_ms": cuda_ms(plain, reps=2), "operations": p_n,
+                      "top": p_top}}
+
+
 def phase_fciqmc(dev):
     """bench.py's fciqmc configuration as bench.py runs it (12 blocks of 5
     warm-up steps, then 5 timed), then 3 steps under a profiler that read
@@ -2045,6 +2102,7 @@ def phase_fciqmc(dev):
     warm_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
     reset_launches(merge)
+    reset_counters("launch.attempt", "attempt.plain_on_card")
     t0 = time.perf_counter()
     metrics = []
     for _ in range(N_TIMED):
@@ -2053,9 +2111,14 @@ def phase_fciqmc(dev):
     torch.cuda.synchronize()
     s_per_step = (time.perf_counter() - t0) / N_TIMED
     launches = kernel_launches(merge)
+    attempt_counts = {"launch.attempt": counter("launch.attempt"),
+                      "attempt.plain_on_card": counter("attempt.plain_on_card")}
     check_power_metrics("fciqmc", metrics)
     if launches != N_TIMED:
         raise AssertionError(f"fciqmc: {launches} kernel A launches in {N_TIMED} steps")
+    if attempt_counts != {"launch.attempt": N_TIMED, "attempt.plain_on_card": 0}:
+        raise AssertionError(f"fciqmc: {attempt_counts} in {N_TIMED} steps, want one kernel G "
+                             "launch a step and no plain attempt pass")
     # the heat-bath draws past every f32 prefix that took the last column of
     # positive weight: a device counter, added to only while a profiler records
     profiling.reset("sampler.fallback")
@@ -2074,7 +2137,8 @@ def phase_fciqmc(dev):
         "walker_iterations_per_s": norm / s_per_step,
         "ns_per_walker_iteration": 1e9 * s_per_step / norm,
         "peak_mem_bytes": torch.cuda.max_memory_allocated(),
-        "launches": {"merge": launches}, "merge_launches_per_step": launches // N_TIMED,
+        "launches": {"merge": launches, **attempt_counts},
+        "merge_launches_per_step": launches // N_TIMED,
         "norm_timed_steps": [float(m["norm"]) for m in metrics],
         "n_dets": int(last["n_dets"]), "nnonz": int(last["nnonz"]), "norm": norm,
         "shift": float(last["shift"]), "overflow": any(bool(m["overflow"]) for m in metrics),
@@ -2082,6 +2146,8 @@ def phase_fciqmc(dev):
         "sampler_fallback": {"profiled_steps": N_FALLBACK, "draws": fallback},
     }
     log(f"fciqmc: {json.dumps(res)}")
+    res["kernel_g"] = attempt_times(rung.fciqmc_system(dev), cfg, aux, state)
+    log(f"fciqmc, kernel G: {json.dumps(res['kernel_g'])}")
     case = aux["merge_input"](state)
     res["first_step"] = first
     res["real_step"] = {**merge_stream_stats(case[0], case[1]),
@@ -4631,6 +4697,8 @@ def main():
                     help="only phase 17g (the regimes past kernels A and C's bounds)")
     ap.add_argument("--plan", action="store_true",
                     help="only kernel F at the benchmark cells' C+D shapes")
+    ap.add_argument("--fciqmc", action="store_true",
+                    help="only the fciqmc phase (kernel G against the plain attempt pass)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4662,6 +4730,9 @@ def main():
 
     if args.plan:
         log(f"kernel F: {json.dumps(phase_plan(dev))}")
+        return 0
+    if args.fciqmc:
+        phase_fciqmc(dev)
         return 0
     if args.past_bounds:
         past_res = phase_past_bounds(dev)
@@ -4897,6 +4968,18 @@ def main():
                  **{key: t[f"merge_multi ne_qz_subsp shapes W={w}"][key] for key in sort_keys},
                  "max_abs_err": checks[f"merge_multi W={w}"]["max_abs_err"]}
              for w in WIDER_MULTI_TIMED}}},
+        {"name": "attempt", "route": "cuda", "source": "fries_tpu_torch/csrc/attempt.cu",
+         "replaces": None, "launches": sum(by_path("launch.attempt").values()),
+         "launches_by_path": by_path("launch.attempt"),
+         "launches_per_fciqmc_step": fq_res["launches"]["launch.attempt"] // N_TIMED,
+         "max_rel_err": fq_res["kernel_g"]["max_rel_err"],
+         "device_ms": fq_res["kernel_g"]["kernel"]["device_ms"],
+         "call_ms": fq_res["kernel_g"]["kernel"]["call_ms"],
+         "plain_device_ms": fq_res["kernel_g"]["plain"]["device_ms"],
+         "plain_call_ms": fq_res["kernel_g"]["plain"]["call_ms"],
+         "bound_ms": fq_res["kernel_g"]["bound_ms"], "bound_by": fq_res["kernel_g"]["bound_by"],
+         "roofline_pct": 100 * fq_res["kernel_g"]["bound_ms"]
+         / fq_res["kernel_g"]["kernel"]["device_ms"]},
         {"name": "probe_reshape", "route": "cuda",
          "source": "fries_tpu_torch/csrc/probe_reshape.cu",
          "replaces": "tools/probe_reshape.py:33", "launches": p["launches"],

@@ -5,11 +5,13 @@ Power-Pitzer excitation generation.
 Counterpart of ``fries_tpu/drivers/fciqmc.py``.  The
 per-walker loops become a statically capped attempt buffer: attempt slot k
 belongs to the determinant whose interval of the running walker counts holds
-k (:func:`_attempt_parents`), and every slot samples one excitation with the
-batched generators of :mod:`fries_tpu_torch.ops.near_uniform`
-(:func:`_attempt_pass`), valid or
-not, so a step's shapes are set by the configuration and the walker total is
-never read on the host.  Spawns are rounded binomially (integer walkers) or
+k (:func:`_attempt_parents`), and every slot samples one excitation
+(:func:`_attempt_pass`), valid or not, so a step's shapes are set by the
+configuration and the walker total is never read on the host: with kernel G
+on the card for heat-bath systems within its bounds
+(:mod:`fries_tpu_torch.runtime.attempt`), elsewhere with the batched
+generators of :mod:`fries_tpu_torch.ops.near_uniform`
+(:func:`_attempt_pass_plain`).  Spawns are rounded binomially (integer walkers) or
 below 0.01 (fp walkers); death and cloning round |1 - eps (H_ii - S)| n_walk
 binomially per determinant before the merge; the fp variant rounds the
 merged vector's elements below 1 stochastically.  One merge per step
@@ -49,6 +51,7 @@ from fries_tpu_torch.ops import heat_bath as hb
 from fries_tpu_torch.ops import molecule as mol
 from fries_tpu_torch.ops import near_uniform as nu
 from fries_tpu_torch.runtime import arena as ar
+from fries_tpu_torch.runtime import attempt
 
 F64 = torch.float64
 SPARE = 4096   # slots the spawn partition spreads its dropped rows over
@@ -128,7 +131,9 @@ def trial_vectors(ham: mol.MolecularHamiltonian):
 class SpawnTables:
     """What the attempt pass reads besides its arguments: the Hamiltonian,
     the configuration, the doubles' share, the symmetry tables on the
-    device, the heat-bath tensors (None for NU) and the sentinel key."""
+    device, the heat-bath tensors (None for NU), the sentinel key and kernel
+    G's tables (:func:`fries_tpu_torch.runtime.attempt.tables`: None where
+    the plain pass runs)."""
     ham: mol.MolecularHamiltonian
     cfg: FciqmcConfig
     p_doub: float
@@ -137,6 +142,23 @@ class SpawnTables:
     symm_counts: torch.Tensor
     tens: object
     sentinel: torch.Tensor
+    kernel: object
+
+
+def spawn_tables(ham: mol.MolecularHamiltonian, cfg: FciqmcConfig,
+                 p_doub: float) -> SpawnTables:
+    """The attempt pass's :class:`SpawnTables` for this system."""
+    dev = ham.device
+    syminfo = mol.SymmInfo.build(ham.symm.cpu().numpy())
+    lookup = torch.as_tensor(syminfo.lookup, device=dev)
+    symm = torch.as_tensor(syminfo.symm, device=dev)
+    symm_counts = torch.as_tensor(syminfo.counts, device=dev)
+    tens = hb.setup(ham) if cfg.distribution == "HB" else None
+    return SpawnTables(
+        ham=ham, cfg=cfg, p_doub=p_doub, lookup=lookup, symm=symm, symm_counts=symm_counts,
+        tens=tens, sentinel=dets.invalid_det(ham.n_words, dev),
+        kernel=attempt.tables(ham, tens, symm, lookup, symm_counts, cfg.eps, p_doub,
+                              cfg.init_thresh))
 
 
 def make_spawner(ham: mol.MolecularHamiltonian, cfg: FciqmcConfig, p_doub: float):
@@ -144,14 +166,7 @@ def make_spawner(ham: mol.MolecularHamiltonian, cfg: FciqmcConfig, p_doub: float
     valid, k_split, k_doub, k_sing, k_round) -> (words, values, initiator
     flags)``: :func:`_attempt_pass` on this system's tables, looked up in
     the module at each call."""
-    dev = ham.device
-    syminfo = mol.SymmInfo.build(ham.symm.cpu().numpy())
-    tables = SpawnTables(
-        ham=ham, cfg=cfg, p_doub=p_doub, lookup=torch.as_tensor(syminfo.lookup, device=dev),
-        symm=torch.as_tensor(syminfo.symm, device=dev),
-        symm_counts=torch.as_tensor(syminfo.counts, device=dev),
-        tens=hb.setup(ham) if cfg.distribution == "HB" else None,
-        sentinel=dets.invalid_det(ham.n_words, dev))
+    tables = spawn_tables(ham, cfg, p_doub)
 
     def spawn(*args):
         return _attempt_pass(tables, *args)
@@ -164,7 +179,42 @@ def _attempt_pass(t: SpawnTables, keys, occ, n_walk, walk_sign, parent, valid, k
                   ks, k_round):
     """One excitation sampled and weighed per attempt slot of the parents
     ``parent`` (arena rows), rounded, sentinel-keyed where the value is 0:
-    (words, values, initiator flags)."""
+    (words, values, initiator flags).
+
+    The draws and weights come from kernel G
+    (:func:`fries_tpu_torch.runtime.attempt.launch`) where it takes the
+    system (``t.kernel``: heat-bath on the card), from
+    :func:`_attempt_pass_plain` on the CPU and for ``"NU"`` (counted in
+    ``profiling``'s ``attempt.plain_on_card`` on the card).  Kernel G's key
+    nodes must be :class:`rng.KeyTree` s (:func:`attempt.node_keys` raises
+    otherwise).  The binomial rounding follows in torch either way."""
+    if t.kernel is not None:
+        words, spawn_val, ini = attempt.launch(t.kernel, keys, occ, n_walk, walk_sign, parent,
+                                               valid, attempt.node_keys(k_split, kd, ks))
+    else:
+        if keys.is_cuda:
+            profiling.count("attempt.plain_on_card")
+        words, spawn_val, ini = _attempt_pass_plain(t, keys, occ, n_walk, walk_sign, parent,
+                                                    valid, k_split, kd, ks)
+    rounded = compress.round_binomially(
+        k_round, spawn_val.abs(),
+        torch.ones(spawn_val.shape[0], dtype=torch.int32, device=spawn_val.device)).to(F64)
+    if t.cfg.integer_walkers:
+        spawn_val = torch.sign(spawn_val) * rounded
+    else:   # spawns below 0.01 are rounded, larger ones keep their value
+        spawn_val = torch.where(spawn_val.abs() < 0.01,
+                                torch.sign(spawn_val) * rounded, spawn_val)
+    words = torch.where((spawn_val != 0)[:, None], words, t.sentinel)
+    return words, spawn_val, ini
+
+
+def _attempt_pass_plain(t: SpawnTables, keys, occ, n_walk, walk_sign, parent, valid, k_split,
+                        kd, ks):
+    """The attempt pass's draws and weights in torch, before the rounding:
+    a double (heat-bath or near-uniform) and a single sampled for every
+    slot, the one ``k_split`` picks kept.  Returns (words (A, W), spawn
+    values (A,), initiator flags (A,)); a slot whose draw is not valid has
+    the value 0."""
     ham, cfg, p_doub = t.ham, t.cfg, t.p_doub
     dev = ham.device
     n_orb, n_elec = ham.n_orb, ham.n_elec
@@ -196,16 +246,7 @@ def _attempt_pass(t: SpawnTables, keys, occ, n_walk, walk_sign, parent, valid, k
     mag = torch.where(dmask, damp_mag, torch.where(smask, samp_mag, 0.0))
     sign_f = torch.where(dmask, dsign, ssign).to(F64)
     spawn_val = -mag * sign_f * walk_sign[parent]
-    rounded = compress.round_binomially(
-        k_round, spawn_val.abs(), torch.ones(a_cap, dtype=torch.int32, device=dev)
-    ).to(F64)
-    if cfg.integer_walkers:
-        spawn_val = torch.sign(spawn_val) * rounded
-    else:   # spawns below 0.01 are rounded, larger ones keep their value
-        spawn_val = torch.where(spawn_val.abs() < 0.01,
-                                torch.sign(spawn_val) * rounded, spawn_val)
     words = torch.where(dmask[:, None], dwords, swords)
-    words = torch.where((spawn_val != 0)[:, None], words, t.sentinel)
     return words, spawn_val, n_walk[parent] > cfg.init_thresh
 
 
@@ -233,9 +274,12 @@ def build(ham: mol.MolecularHamiltonian, cfg: FciqmcConfig, seed: int,
     ``run_steps(..., n_iter)`` a host loop of steps with the metrics
     stacked, ``state`` HF with ``init_walkers`` walkers and the key tree
     ``rng.KeyTree(seed)`` on the device, ``aux`` the estimator vectors,
-    ``e_ref``, ``p_doub`` and ``merge_input(state)``: the post-death arena
+    ``e_ref``, ``p_doub``, ``merge_input(state)``: the post-death arena
     and the spawn stream (words, values, initiator flags) that a step from
-    ``state`` merges (before the exchange).  ``shards``: see
+    ``state`` merges (before the exchange), and ``attempt_args(state)``:
+    that step's arguments of :func:`_attempt_pass_plain` after its tables,
+    which kernel G shares (all of :func:`_attempt_pass`'s but
+    ``k_round``).  ``shards``: see
     :func:`build_sharded`."""
     if cfg.distribution not in ("NU", "HB"):
         raise ValueError(f"unknown distribution {cfg.distribution!r}")
@@ -248,31 +292,39 @@ def build(ham: mol.MolecularHamiltonian, cfg: FciqmcConfig, seed: int,
     n_bits, n_elec = ham.n_bits, ham.n_elec
     a_cap, eps = cfg.attempt_cap, cfg.eps
 
-    def merge_input(state: FciqmcState):
-        """(post-death one-row arena, spawn words, values, initiator flags,
-        attempt / spawn buffer overflow, the iteration's key node)."""
+    def attempt_args(state: FciqmcState):
+        """The step's key node, its death and rounding nodes, the arena's
+        attempt counts and their total, and the attempt pass's draws' and
+        weights' arguments from ``state``: (key_iter, k_death, k_round,
+        n_walk_int, total, (keys, occ, n_walk, walk_sign, parent, valid,
+        k_split, kd, ks))."""
         a = state.arena
         key_iter = state.key.fold(state.iterat)
         if shards is not None:
             key_iter = key_iter.fold(shards.rank)
         k_split, k_spawn, k_death, k_round = key_iter.split(4)
-
         vals0 = torch.where(a.valid, a.vals[0], 0.0)
         arena_occ = dets.occ_list(a.keys, n_bits, n_elec)
-        arena_diag = mol.diag_matrel_chunked(ham, arena_occ) - hf_en
         n_walk = vals0.abs()
         if cfg.integer_walkers:
             n_walk_int = torch.round(n_walk).to(torch.int64)
         else:   # attempt counts round_binomially(|v|, 1), one walker's weight each
             n_walk_int = compress.round_binomially(
                 key_iter.fold(31), n_walk, torch.ones_like(n_walk, dtype=torch.int32))
-        walk_sign = torch.sign(vals0)
         parent, valid, total = _attempt_parents(n_walk_int, a_cap)
-        overflow = total > a_cap
-
         kd, ks = k_spawn.split(2)
-        words, spawn_val, ini = spawn(a.keys, arena_occ, n_walk, walk_sign, parent, valid,
-                                      k_split, kd, ks, k_round)
+        return key_iter, k_death, k_round, n_walk_int, total, (
+            a.keys, arena_occ, n_walk, torch.sign(vals0), parent, valid, k_split, kd, ks)
+
+    def merge_input(state: FciqmcState):
+        """(post-death one-row arena, spawn words, values, initiator flags,
+        attempt / spawn buffer overflow, the iteration's key node)."""
+        a = state.arena
+        key_iter, k_death, k_round, n_walk_int, total, args = attempt_args(state)
+        _, arena_occ, n_walk, walk_sign = args[:4]
+        arena_diag = mol.diag_matrel_chunked(ham, arena_occ) - hf_en
+        overflow = total > a_cap
+        words, spawn_val, ini = spawn(*args, k_round)
         if cfg.spawn_cap and cfg.spawn_cap < a_cap:
             words, spawn_val, ini, cap_over = _partition_spawns(words, spawn_val, ini,
                                                                 cfg.spawn_cap)
@@ -349,7 +401,8 @@ def build(ham: mol.MolecularHamiltonian, cfg: FciqmcConfig, seed: int,
     aux = {"e_ref": hf_en, "num_keys": num_keys, "num_vals": num_vals,
            "den_keys": hf_words[None], "den_vals": torch.ones(1, dtype=F64, device=dev),
            "ref_key": hf_words, "p_doub": p_doub,
-           "merge_input": lambda st: merge_input(st)[:4]}
+           "merge_input": lambda st: merge_input(st)[:4],
+           "attempt_args": lambda st: attempt_args(st)[-1]}
     return step, run_steps, state, aux
 
 

@@ -27,9 +27,10 @@ read.  The counts are Python ints: no device work, no added sync.
 
 Counters.  ``count(name)`` adds to a running total (``total``, ``reset``):
 the kernels' launches (``launch.merge``, ``launch.emit``,
-``launch.merge_multi``, ``launch.plan``, ``launch.probe_copy``,
-``launch.probe_reshape``) and the merges taken off the kernels on the card
-(``merge.plain_on_card``).
+``launch.merge_multi``, ``launch.plan``, ``launch.attempt``,
+``launch.probe_copy``, ``launch.probe_reshape``), the merges taken off the
+kernels on the card (``merge.plain_on_card``) and the attempt passes that
+ran their plain version on the card (``attempt.plain_on_card``).
 Reads count there too, and per step: the exit of the outermost
 ``step(index)`` moves the reads made since its entry to
 ``last_step_counts()``.
@@ -41,7 +42,8 @@ only while a profiler records (while none does it returns before
 ``device_total(name)`` reads it once, after the profiled steps.
 ``sampler.fallback`` counts the categorical draws past every f32 prefix
 that take the last column of positive weight where the reference takes
-column K - 1 (``compress.sample_categorical_rows``).
+column K - 1 (``compress.sample_categorical_rows``, and kernel G's draws,
+``runtime/attempt.py``).
 
     with profiling.trace("trace_dir"):          # a Chrome trace of the block
         for i in range(3):
@@ -167,11 +169,17 @@ def total(name: str) -> int:
     return _totals.get(name, 0)
 
 
+def recording() -> bool:
+    """Whether a profiler records."""
+    return _autograd_profiler._is_profiler_enabled
+
+
 def device_count(name: str, flags) -> None:
     """While a profiler records, add the number of True entries of the
-    device tensor ``flags()`` to the device counter ``name``, on the device
-    (no host read); nothing otherwise, ``flags`` not called."""
-    if not _autograd_profiler._is_profiler_enabled:
+    device tensor ``flags()`` (or its sum, for a count) to the device
+    counter ``name``, on the device (no host read); nothing otherwise,
+    ``flags`` not called."""
+    if not recording():
         return
     n = flags().sum()
     held = _device.get(name)

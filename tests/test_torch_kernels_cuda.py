@@ -17,9 +17,11 @@ from fries_tpu_torch import (_build, compress, dets, probe_reshape, profiling,  
                              rng as trng, rung, synth)
 from fries_tpu_torch.drivers import (fciqmc, frifull, frifull_hh, frimulti, frisys,  # noqa: E402
                                      frisys_hh, observables, power, subspace)
-from fries_tpu_torch.ops import hubbard, molecule as mol  # noqa: E402
+from fries_tpu_torch.ops import heat_bath as hb, hubbard, molecule as mol  # noqa: E402
+from fries_tpu_torch.ops import near_uniform as nu  # noqa: E402
 from fries_tpu_torch.runtime import arena as ar  # noqa: E402
-from fries_tpu_torch.runtime import emit, merge, merge_multi, plan as plan_mod  # noqa: E402
+from fries_tpu_torch.runtime import attempt, emit, merge, merge_multi  # noqa: E402
+from fries_tpu_torch.runtime import plan as plan_mod  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -1351,3 +1353,169 @@ def test_wide_subspace_step_cuda_matches_cpu(cuda):
             np.testing.assert_allclose(mg[key].cpu().numpy(), mc[key].numpy(),
                                        rtol=1e-10, atol=1e-12, err_msg=key)
     assert profiling.total("launch.merge_multi") - c0 == 3
+
+
+# ---------------------------------------------------------------------------
+# kernel G: the walker attempt pass
+# ---------------------------------------------------------------------------
+
+ATTEMPT_SLOTS = 1 << 20
+
+
+N2_26_SYMM = [0] * 6 + [5] * 6 + [2] * 3 + [3] * 3 + [6] * 3 + [7] * 3 + [1, 4]
+
+
+def attempt_system(name, device):
+    """A heat-bath system of one (8 orbitals), two (N2-shaped: 28 orbitals,
+    whose HF has no single, and the walker cell's 26 orbitals and 10
+    electrons) or three (40 orbitals) 32-bit words, or one past kernel G's
+    bounds (34 electrons)."""
+    if name == "one_word":
+        return synth.make_system(8, 4, symm=SYMM8, seed=3, device=device)
+    if name == "n2":
+        return synth.n2_ccpvdz_like(seed=1, device=device)
+    if name == "n2_26":
+        return synth.make_system(26, 10, symm=np.array(N2_26_SYMM), seed=1, scale_two=0.08,
+                                 device=device)
+    if name == "three_words":
+        return synth.make_system(40, 8, symm=np.arange(40) % 8, seed=2, device=device)
+    assert name == "past_bounds"
+    return synth.make_system(36, 34, symm=np.arange(36) % 8, seed=2, device=device)
+
+
+def attempt_arena(cuda, name, integer, distribution="HB", n_steps=3):
+    """(ham, cfg, step, aux, state): ``n_steps`` FCIQMC steps on the card
+    from 2e5 walkers on HF, at 2^20 attempt slots."""
+    ham = attempt_system(name, cuda)
+    cfg = fciqmc.FciqmcConfig(eps=0.01, target_walkers=1e6, capacity=1 << 18,
+                              attempt_cap=ATTEMPT_SLOTS, init_thresh=3.0,
+                              distribution=distribution, integer_walkers=integer)
+    step, _, state, aux = fciqmc.build(ham, cfg, seed=2**31 + 7, init_walkers=2e5)
+    for _ in range(n_steps):
+        state, _ = step(state, *rung.estimator_args(aux))
+    return ham, cfg, step, aux, state
+
+
+def plain_draws(t, keys, occ, parent, kd, ks):
+    """The plain samplers' doubles and singles for every slot."""
+    n_orb, n_elec = t.ham.n_orb, t.ham.n_elec
+    p_occ = occ[parent]
+    p_bits = dets.unpack_bits(keys[parent], 2 * n_orb)
+    counts = hb.unocc_symm_counts(n_orb, n_elec, t.symm, t.symm_counts, p_occ)
+    d = nu.sample_doubles_heat_bath(kd, t.tens, n_orb, n_elec, t.symm, t.lookup, p_occ, p_bits)
+    s = nu.sample_singles(ks, n_orb, n_elec, t.symm, t.lookup, p_occ, p_bits, counts)
+    return d, s
+
+
+def exc_field(exc, i):
+    return (exc >> (8 * i)) & 0xFF
+
+
+def single_condition(ham, s, p_occ):
+    """Each single's element's condition number: the sum of its terms'
+    magnitudes (``molecule.sing_matr_el``'s hcore, Coulomb and exchange
+    terms) over the element's magnitude.  Two orders of the sum differ by a
+    few ulps of the terms' scale, so the relative gap of two spawns grows
+    with it.  Systems without a frozen core."""
+    assert ham.n_frozen == 0
+    n = ham.n_orb
+    coul3, exch3, _, _ = mol._slices(ham)
+    so, su = (s["o"] % n)[:, None], (s["u"] % n)[:, None]
+    occ_sp = p_occ % n
+    coul = coul3[so, su, occ_sp]
+    exch = torch.where(p_occ // n == (s["o"] // n)[:, None], exch3[so, su, occ_sp], 0.0)
+    h = ham.hcore[so[:, 0], su[:, 0]]
+    scale = h.abs() + coul.abs().sum(-1) + exch.abs().sum(-1)
+    return scale / (h + coul.sum(-1) - exch.sum(-1)).abs()
+
+
+@pytest.mark.parametrize("integer", [True, False])
+@pytest.mark.parametrize("name", ["one_word", "n2", "n2_26", "three_words"])
+def test_attempt_kernel_matches_plain(cuda, name, integer):
+    """Kernel G against the plain attempt pass on the same arena and key
+    nodes at 2^20 slots: ``is_doub`` and every draw equal, keys equal where
+    the spawn is not 0, initiator flags equal, spawns within 1e-13 relative
+    (a single's, whose element may cancel, within 1e-13 times its
+    condition number); a second launch equal bit for bit."""
+    ham, cfg, _, aux, state = attempt_arena(cuda, name, integer)
+    t = fciqmc.spawn_tables(ham, cfg, aux["p_doub"])
+    assert t.kernel is not None
+    args = aux["attempt_args"](state)
+    keys, occ, n_walk, walk_sign, parent, valid, k_split, kd, ks = args
+    assert int(valid.sum()) > ATTEMPT_SLOTS // 8
+    nodes = attempt.node_keys(k_split, kd, ks)
+    exc = torch.empty(ATTEMPT_SLOTS, dtype=torch.int64, device=cuda)
+    g_words, g_vals, g_ini = attempt.launch(t.kernel, keys, occ, n_walk, walk_sign, parent,
+                                            valid, nodes, exc=exc)
+    p_words, p_vals, p_ini = fciqmc._attempt_pass_plain(t, *args)
+
+    is_doub = k_split.uniform((ATTEMPT_SLOTS,)).to(cuda) < aux["p_doub"]
+    d, s = plain_draws(t, keys, occ, parent, kd, ks)
+    assert torch.equal(exc[~valid], torch.full_like(exc[~valid], -1))
+    v, dbl = exc[valid], is_doub[valid]
+    assert torch.equal((v & 1).bool(), dbl)
+    for i, k in enumerate(("o1", "o2", "u1", "u2"), 1):
+        assert torch.equal(exc_field(v[dbl], i), d[k][valid][dbl]), k
+    for i, k in enumerate(("o", "u"), 1):
+        assert torch.equal(exc_field(v[~dbl], i), s[k][valid][~dbl]), k
+    want_ok = torch.where(is_doub, d["valid"], s["valid"])[valid]
+    assert torch.equal(((v >> 1) & 1).bool(), want_ok)
+    assert int(want_ok.sum()) > int(valid.sum()) // 10
+
+    assert torch.equal(g_ini, p_ini)
+    live = p_vals != 0
+    assert torch.equal(g_vals != 0, live)
+    assert torch.equal(g_words[live], p_words[live])
+    cond = torch.where(is_doub, 1.0, single_condition(ham, s, occ[parent]).clamp_min(1.0))
+    rel = ((g_vals - p_vals).abs() / (p_vals.abs() * cond))[live]
+    assert float(rel.max()) <= 1e-13
+    doub = live & is_doub
+    torch.testing.assert_close(g_vals[doub], p_vals[doub], rtol=1e-13, atol=0)
+
+    again = torch.empty_like(exc)
+    words2, vals2, ini2 = attempt.launch(t.kernel, keys, occ, n_walk, walk_sign, parent,
+                                         valid, nodes, exc=again)
+    assert torch.equal(words2, g_words) and torch.equal(ini2, g_ini)
+    assert torch.equal(vals2.view(torch.int64), g_vals.view(torch.int64))
+    assert torch.equal(again, exc)
+
+
+def test_attempt_kernel_launches_once_a_step(cuda):
+    """The heat-bath walker step on the card takes kernel G: one launch a
+    step, no plain pass on the card."""
+    _, _, step, aux, state = attempt_arena(cuda, "n2", True, n_steps=1)
+    before = {c: profiling.total(c) for c in ("launch.attempt", "attempt.plain_on_card")}
+    for _ in range(3):
+        state, m = step(state, *rung.estimator_args(aux))
+    assert profiling.total("launch.attempt") - before["launch.attempt"] == 3
+    assert profiling.total("attempt.plain_on_card") == before["attempt.plain_on_card"]
+    assert int(m["nnonz"]) > 100
+
+
+@pytest.mark.parametrize("name,distribution", [("n2", "NU")])
+def test_attempt_plain_on_card(cuda, name, distribution):
+    """Near-uniform doubles take the plain pass on the card, counted in
+    ``attempt.plain_on_card`` once a step."""
+    before = {c: profiling.total(c) for c in ("launch.attempt", "attempt.plain_on_card")}
+    ham, cfg, _, aux, _ = attempt_arena(cuda, name, True, distribution, n_steps=2)
+    assert fciqmc.spawn_tables(ham, cfg, aux["p_doub"]).kernel is None
+    assert profiling.total("launch.attempt") == before["launch.attempt"]
+    assert profiling.total("attempt.plain_on_card") - before["attempt.plain_on_card"] == 2
+
+
+def test_attempt_kernel_raises_past_bounds(cuda):
+    """A heat-bath system past kernel G's bounds (34 electrons) raises on
+    the card when its walker step is built: no plain pass runs there."""
+    with pytest.raises(ValueError, match="kernel G takes"):
+        attempt_arena(cuda, "past_bounds", True, n_steps=0)
+
+
+def test_attempt_kernel_needs_key_trees(cuda):
+    """Kernel G refuses key nodes that are not ``rng.KeyTree`` s on the card
+    rather than running the plain pass there."""
+    ham, cfg, _, aux, state = attempt_arena(cuda, "one_word", True, n_steps=1)
+    t = fciqmc.spawn_tables(ham, cfg, aux["p_doub"])
+    keys, occ, n_walk, walk_sign, parent, valid, k_split, kd, ks = aux["attempt_args"](state)
+    with pytest.raises(TypeError, match="KeyTree"):
+        fciqmc._attempt_pass(t, keys, occ, n_walk, walk_sign, parent, valid, object(), kd, ks,
+                             k_split)
